@@ -1,0 +1,29 @@
+"""PyTorch / CUDA port of the malleable-scheduling reproduction.
+
+A second package beside the JAX reference ``repro``: it runs the paper grid
+(the batched event-stepped engine, its metrics and the experiment backend)
+in PyTorch, with the greedy scheduling pass and the prefix waterfill as
+hand-written CUDA kernels for Hopper (``repro_torch/kernels/csrc``).  It
+imports ``torch`` and numpy only; the JAX package is never imported here.
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
+without a card and without that argument they raise instead of running on
+the CPU.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``cuda`` unless told otherwise.
+
+    Raises when CUDA is asked for (explicitly or by default) and no card is
+    present, so a CPU-only box never runs the port silently on the CPU.
+    """
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch runs on CUDA by default and no CUDA device is "
+            "available; pass device='cpu' to run the plain PyTorch path")
+    return dev

@@ -1,0 +1,423 @@
+"""The masked fixed-shape scheduling pass (paper §2.1 Steps 1-3) in PyTorch.
+
+The port of ``repro.core.passes`` family 3, the pass the batched engine runs
+once per scan step: slot arrays are ``(..., W)`` in FCFS (submit-rank)
+order, leading axes are lanes, and every phase is a masked cumulative sum,
+reduction or integer/float bisection -- no sort on the reference path.
+
+Structures ported here: ``greedy`` (EASY / MIN / PREF / KEEPPREF) and
+``balanced`` (AVG), class-free, FCFS queue order.  ``pooled`` / ``stealing``,
+``with_classes`` and ``with_sjf`` raise :class:`NotImplementedError`; they
+are the next slice of the port (ROADMAP.md §A, item A5).
+
+``expand_backend`` picks how a greedy lane runs on the card:
+
+* ``"fused"`` -- the whole pass as the hand-written CUDA kernel
+  (:mod:`repro_torch.kernels.schedule_tick`); the default on ``cuda``;
+* ``"waterfill"`` -- this module's pass with the Step-3 greedy give through
+  the CUDA prefix-waterfill kernel (:mod:`repro_torch.kernels.waterfill`),
+  the counterpart of the JAX package's ``"pallas"``;
+* ``"bisect"`` -- this module's pass alone, the only value allowed on the
+  CPU.
+
+Balanced lanes run this module's pass under every backend.  The JAX pass
+skips whole phases with ``lax.cond`` on batch-wide predicates; each skip is
+a per-lane value identity (no head admits nothing, ``need == 0`` takes
+nothing, ``idle == 0`` gives nothing), so here every phase runs
+unconditionally and no step waits on the host.
+
+Integer arithmetic stays in int32 (``cumsum``/``sum`` are told so), float
+in float32, and ``//`` on the negative bisection bounds is floor division,
+as in JAX with x64 off.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .jobs import QUEUED, RUNNING
+
+I32 = torch.int32
+F32 = torch.float32
+
+# Shadow-time bisection rounds: 26 halvings of [0, t_max] separate any two
+# distinct f32 end estimates over the traces' spans (same as the JAX pass).
+SHADOW_ITERS = 26
+_SHADOW_EPS = 1e-3  # absolute slack on "finishes before the reservation"
+
+EXPAND_BACKENDS = ("fused", "waterfill", "bisect")
+_NEXT_SLICE = "ROADMAP.md §A item A5 (slice 2 of the port)"
+
+
+def start_policies(strategy, malleable, mn, pref, req, xp=np):
+    """Per-job ``(want, floor, shrink_floor, prio_ref)`` policy arrays.
+
+    Non-malleable jobs (and every job under a rigid strategy) use their
+    rigid request for all four.
+    """
+    if not strategy.malleable:
+        return req, req, req, req
+
+    def pick(which):
+        return strategy.pick(which, mn, pref, req)
+
+    want = xp.where(malleable, pick(strategy.start_want), req)
+    floor = xp.where(malleable, pick(strategy.start_floor), req)
+    sfloor = xp.where(malleable, pick(strategy.shrink_floor), req)
+    prio_ref = pick("min" if strategy.priority == "min" else "pref")
+    return want, floor, sfloor, prio_ref
+
+
+class PassParams(NamedTuple):
+    """Per-slot job/policy tensors for :func:`schedule_tick`, ``(..., W)``.
+
+    ``wall_work`` is ``walltime * S(nodes_req)``, so the walltime-padded
+    remaining-duration estimate at allocation ``a`` is
+    ``remaining * wall_work / S(a)``.  ``on_demand``, ``pref_nodes`` and
+    ``sort_key`` belong to structures and flags of the next slice.
+    """
+
+    malleable: torch.Tensor   # bool
+    min_nodes: torch.Tensor   # i32
+    max_nodes: torch.Tensor   # i32
+    want: torch.Tensor        # i32 Step-1 target allocation
+    floor: torch.Tensor       # i32 smallest start allocation
+    shrink_floor: torch.Tensor  # i32 smallest Step-2 allocation
+    prio_ref: torch.Tensor    # i32 greedy priority = alloc - prio_ref
+    pfrac: torch.Tensor       # f32 Amdahl parallel fraction
+    wall_work: torch.Tensor   # f32 walltime * S(nodes_req)
+    on_demand: object = None
+    pref_nodes: object = None
+    sort_key: object = None
+
+
+def bisect_rounds(lo0: int, hi0: int) -> int:
+    """Integer-bisection rounds of :func:`take_desc_prefix` over (lo0, hi0]."""
+    return int(math.ceil(math.log2(max(hi0 - lo0, 1)))) + 1
+
+
+def speedup_f32(n, p):
+    """Amdahl S(n) in float32; divisions are tensor/tensor so CUDA keeps
+    IEEE division (a Python-scalar divisor becomes a reciprocal multiply)."""
+    n = torch.clamp(n.to(F32), min=1.0)
+    den = (1.0 - p) + p / n
+    return torch.ones_like(den) / den
+
+
+def _clip(x, lo, hi):
+    """``jnp.clip``: ``min(max(x, lo), hi)`` (tensor or scalar bounds)."""
+    return torch.clamp(x, lo, hi)
+
+
+def _rowsum(x):
+    return torch.sum(x, dim=-1, dtype=I32)
+
+
+def _rowcumsum(x):
+    return torch.cumsum(x, dim=-1, dtype=I32)
+
+
+def first_true(mask):
+    """Mask of the first True slot per lane (all-False lanes stay empty)."""
+    return mask & (_rowcumsum(mask.to(I32)) == 1)
+
+
+def take_desc_prefix(prio, amount, need, lo0: int, hi0: int):
+    """Per-slot take with sum == min(need, sum(amount)), highest-prio first.
+
+    ``lo0``/``hi0`` bound every slot with ``amount > 0``:
+    ``lo0 < prio <= hi0``.  Ties break in slot (FCFS) order; the threshold
+    is found by integer bisection instead of a sort.
+    """
+    lanes = prio.shape[:-1]
+    lo = torch.full(lanes, lo0, dtype=I32, device=prio.device)
+    hi = torch.full(lanes, hi0, dtype=I32, device=prio.device)
+    s_hi = torch.zeros_like(need)
+    for _ in range(bisect_rounds(lo0, hi0)):
+        mid = torch.div(lo + hi, 2, rounding_mode="floor")
+        s = _rowsum(torch.where(prio > mid[..., None], amount, 0))
+        ok = s <= need
+        hi = torch.where(ok, mid, hi)
+        s_hi = torch.where(ok, s, s_hi)
+        lo = torch.where(ok, lo, mid)
+    theta = hi[..., None]
+    rem = (need - s_hi)[..., None]
+    tie = prio == theta
+    before = _rowcumsum(torch.where(tie, amount, 0))
+    tie_take = torch.minimum(torch.clamp(rem - (before - amount), min=0),
+                             amount)
+    return torch.where(prio > theta, amount, torch.where(tie, tie_take, 0))
+
+
+def give_asc_prefix(prio, room, idle, lo0: int, hi0: int):
+    """Per-slot give with sum == min(idle, sum(room)), lowest-prio first."""
+    return take_desc_prefix(-prio, room, idle, -hi0 - 1, -lo0 + 1)
+
+
+def level_targets(level, mn, mx):
+    """Integer allocation at relative level ``level`` in [0, 1]."""
+    span = (mx - mn).to(F32)
+    return mn + torch.floor(level * span + 1e-9).to(mn.dtype)
+
+
+def shadow_reservation(est, release, free, head_floor,
+                       iters: int = SHADOW_ITERS):
+    """Sort-free EASY head reservation: ``(shadow, extra)`` per lane.
+
+    ``est`` holds the running slots' walltime-padded end estimates (``inf``
+    elsewhere), ``release`` their allocations.  ``shadow`` is the smallest
+    estimate at which ``free + released-by-then >= head_floor``, found by
+    bisecting time and snapping the upper bound onto estimate values.
+    """
+    neg = float("-inf")
+    finite = torch.isfinite(est)
+    rel = torch.where(finite, release, 0)
+    need = head_floor - free
+
+    def by(tau):  # slots released by time tau
+        return finite & (est <= tau[..., None])
+
+    hi = torch.where(finite, est, neg).amax(dim=-1)
+    lo = torch.zeros_like(hi)
+    for _ in range(iters):
+        mid = 0.5 * (lo + hi)
+        m = by(mid)
+        ok = _rowsum(torch.where(m, rel, 0)) >= need
+        snap = torch.where(m, est, neg).amax(dim=-1)
+        hi = torch.where(ok, snap, hi)
+        lo = torch.where(ok, lo, mid)
+    extra = free + _rowsum(torch.where(by(hi), rel, 0)) - head_floor
+    return hi, extra
+
+
+def check_backend(expand_backend: str, device: torch.device) -> None:
+    """Refuse backends the device cannot run: only ``bisect`` on the CPU."""
+    if expand_backend not in EXPAND_BACKENDS:
+        raise ValueError(f"unknown expand_backend {expand_backend!r}; "
+                         f"choose from {EXPAND_BACKENDS}")
+    if torch.device(device).type != "cuda" and expand_backend != "bisect":
+        raise ValueError(
+            f"expand_backend={expand_backend!r} launches a CUDA kernel; "
+            "only 'bisect' runs on the CPU")
+
+
+def schedule_tick(p: PassParams, state, alloc, remaining, start_t, act,
+                  capacity, t_now, *, structure: str = "greedy",
+                  fill_rounds: int, prio_lo: int, prio_hi: int,
+                  span_max: int, shadow_iters: int = SHADOW_ITERS,
+                  expand_backend: str = "bisect", backfill_depth=None,
+                  with_classes: bool = False, with_sjf: bool = False,
+                  pool_share=None, steal_margin=None):
+    """One Steps-1..3 scheduling pass on queue-ordered slot tensors.
+
+    Same contract as ``repro.core.passes.schedule_tick``: ``act`` masks
+    slots eligible for state changes, ``capacity``/``t_now`` are per-lane,
+    ``backfill_depth`` (per-lane or ``None``) bounds the EASY scan to the
+    first ``depth`` queued candidates behind the head, and the static
+    ``prio_lo``/``prio_hi`` bound ``alloc - prio_ref`` while ``span_max``
+    bounds ``max_nodes - min_nodes``.  Returns ``(state, alloc, start_t)``.
+    """
+    del pool_share, steal_margin  # pooled / stealing lanes: next slice
+    if structure in ("pooled", "stealing"):
+        raise NotImplementedError(
+            f"structure {structure!r} is not ported yet ({_NEXT_SLICE})")
+    if structure not in ("greedy", "balanced"):
+        raise ValueError(f"unknown pass structure {structure!r}")
+    if with_classes or with_sjf:
+        raise NotImplementedError(
+            "with_classes / with_sjf are not ported yet "
+            f"({_NEXT_SLICE})")
+    check_backend(expand_backend, state.device)
+    if expand_backend == "fused" and structure == "greedy":
+        from repro_torch.kernels.schedule_tick import fused_schedule_tick
+        return fused_schedule_tick(
+            p, state, alloc, remaining, start_t, act, capacity, t_now,
+            fill_rounds=fill_rounds, prio_lo=prio_lo, prio_hi=prio_hi,
+            shadow_iters=shadow_iters, backfill_depth=backfill_depth)
+    return plain_tick(
+        p, state, alloc, remaining, start_t, act, capacity, t_now,
+        balanced=structure == "balanced", fill_rounds=fill_rounds,
+        prio_lo=prio_lo, prio_hi=prio_hi, span_max=span_max,
+        shadow_iters=shadow_iters,
+        waterfill_give=expand_backend == "waterfill",
+        backfill_depth=backfill_depth)
+
+
+def plain_tick(p: PassParams, state, alloc, remaining, start_t, act,
+               capacity, t_now, *, balanced: bool, fill_rounds: int,
+               prio_lo: int, prio_hi: int, span_max: int,
+               shadow_iters: int = SHADOW_ITERS,
+               waterfill_give: bool = False, backfill_depth=None):
+    """The class-free FCFS pass in plain PyTorch (greedy or balanced).
+
+    ``waterfill_give`` routes the greedy Step-3 give through the CUDA
+    prefix-waterfill kernel in sorted priority order.
+    """
+    inf = float("inf")
+    level_iters = int(math.ceil(math.log2(span_max + 2))) + 1
+    tn = t_now[..., None]
+
+    running = state == RUNNING
+    free = capacity - _rowsum(torch.where(running, alloc, 0))
+
+    # -- Step 1: FCFS prefix + head fallback ------------------------------
+    queued = (state == QUEUED) & act
+    cumw = _rowcumsum(torch.where(queued, p.want, 0))
+    s1 = queued & (cumw <= free[..., None])
+    used = torch.where(s1, cumw, 0).amax(dim=-1)
+    leftover = free - used
+    h_mask = first_true(queued & ~s1)
+    hfloor = _rowsum(torch.where(h_mask, p.floor, 0))
+    hwant = _rowsum(torch.where(h_mask, p.want, 0))
+    h_ok = (hfloor > 0) & (hfloor <= leftover)
+    h_alloc = _clip(leftover, hfloor, hwant)
+
+    h_upd = h_mask & h_ok[..., None]
+    started = s1 | h_upd
+    alloc = torch.where(s1, p.want, alloc)
+    alloc = torch.where(h_upd, h_alloc[..., None], alloc)
+    state = torch.where(started, RUNNING, state)
+    start_t = torch.where(started, tn, start_t)
+    free = leftover - torch.where(h_ok, h_alloc, 0)
+
+    # -- EASY backfill under the head's shadow-time reservation -----------
+    queued = (state == QUEUED) & act
+    h_mask = first_true(queued)
+    hfloor = _rowsum(torch.where(h_mask, p.floor, 0))
+    hwant = _rowsum(torch.where(h_mask, p.want, 0))
+    has_head = hfloor > 0
+    if backfill_depth is None:
+        depth_ok = True
+    else:
+        # rank cutoff over the queue snapshot at scan entry: the head
+        # holds rank 1, candidates 1..depth behind it ranks 2..depth+1
+        depth_ok = _rowcumsum(queued.to(I32)) <= backfill_depth[..., None] + 1
+    run = state == RUNNING
+    est = torch.where(
+        run, tn + remaining * p.wall_work / speedup_f32(alloc, p.pfrac), inf)
+    sh_b, ex_b = shadow_reservation(est, alloc, free, hfloor,
+                                    iters=shadow_iters)
+    blocked = has_head & (hfloor > free)
+    shadow = torch.where(blocked, sh_b,
+                         torch.where(has_head, t_now, inf))
+    extra = torch.where(blocked, ex_b,
+                        torch.where(has_head, free - hfloor, free))
+
+    def cumfit(amount, mask, lim):
+        cum = _rowcumsum(torch.where(mask, amount, 0))
+        s = mask & (cum <= lim[..., None])
+        return s, torch.where(s, cum, 0).amax(dim=-1)
+
+    tfit = (tn + p.wall_work / speedup_f32(p.want, p.pfrac)
+            <= shadow[..., None] + _SHADOW_EPS)
+    for _ in range(fill_rounds):
+        cand = (state == QUEUED) & act & ~h_mask & depth_ok
+        # (a) finishes before the reservation: free nodes only
+        s, take1 = cumfit(p.want, cand & tfit & (p.want <= free[..., None]),
+                          free)
+        free = free - take1
+        # (b) runs past the reservation: spare-node pool, at want
+        lim = torch.minimum(free, extra)
+        s2, take2 = cumfit(p.want,
+                           cand & ~s & ~tfit & (p.want <= lim[..., None]),
+                           lim)
+        # (c) spare-node pool at floor (want did not fit)
+        lim3 = torch.minimum(free - take2, extra - take2)
+        s3, take3 = cumfit(
+            p.floor, cand & ~s & ~s2 & ~tfit & (p.floor <= lim3[..., None]),
+            lim3)
+        free = free - take2 - take3
+        extra = extra - take2 - take3
+        new = s | s2 | s3
+        alloc = torch.where(s | s2, p.want,
+                            torch.where(s3, p.floor, alloc))
+        state = torch.where(new, RUNNING, state)
+        start_t = torch.where(new, tn, start_t)
+
+    # -- Step 2: shrink running malleable jobs to admit the head ----------
+    deficit = torch.where(has_head, hfloor - free, 0)
+    shrinkable = (state == RUNNING) & p.malleable
+    fl = torch.where(shrinkable, torch.minimum(p.shrink_floor, alloc), alloc)
+    surplus = torch.clamp(alloc - fl, min=0)
+    tot_surplus = _rowsum(surplus)
+    need = torch.where((deficit > 0) & (tot_surplus >= deficit), deficit, 0)
+
+    if balanced:
+        mn_eff = torch.where(shrinkable, fl, alloc)
+        mx_eff = torch.where(shrinkable, p.max_nodes, alloc)
+        lo = torch.zeros(need.shape, dtype=F32, device=need.device)
+        hi = torch.ones_like(lo)
+        freed_lo = tot_surplus
+        for _ in range(level_iters):
+            mid = 0.5 * (lo + hi)
+            tgt = torch.minimum(alloc,
+                                level_targets(mid[..., None], mn_eff, mx_eff))
+            freed = _rowsum(alloc - tgt)
+            ok = freed >= need
+            lo = torch.where(ok, mid, lo)
+            hi = torch.where(ok, hi, mid)
+            freed_lo = torch.where(ok, freed, freed_lo)
+        tgt = torch.minimum(alloc,
+                            level_targets(lo[..., None], mn_eff, mx_eff))
+        # return integer-rounding excess to the most-shrunk jobs
+        delta = alloc - tgt
+        give = give_asc_prefix(-delta, delta, freed_lo - need,
+                               -span_max - 1, 0)
+        alloc = alloc - (delta - give)
+    else:
+        prio = _clip(alloc - p.prio_ref, prio_lo, prio_hi)
+        alloc = alloc - take_desc_prefix(prio, surplus, need,
+                                         prio_lo - 1, prio_hi)
+    free = free + need  # the take sums to exactly `need` by construction
+
+    h_ok = has_head & (hfloor <= free)
+    h_alloc = _clip(free, hfloor, hwant)
+    h_upd = h_mask & h_ok[..., None]
+    alloc = torch.where(h_upd, h_alloc[..., None], alloc)
+    state = torch.where(h_upd, RUNNING, state)
+    start_t = torch.where(h_upd, tn, start_t)
+    free = free - torch.where(h_ok, h_alloc, 0)
+
+    # -- Step 3: expand into remaining idle nodes -------------------------
+    expandable = (state == RUNNING) & p.malleable
+    idle = torch.clamp(torch.where(expandable.any(dim=-1), free, 0), min=0)
+    if balanced:
+        mn_eff = torch.where(expandable, p.min_nodes, alloc)
+        cap_eff = torch.where(expandable, p.max_nodes, alloc)
+        room_tot = _rowsum(torch.clamp(cap_eff - alloc, min=0))
+        idle_eff = torch.minimum(idle, room_tot)
+        lo = torch.zeros(idle.shape, dtype=F32, device=idle.device)
+        hi = torch.ones_like(lo)
+        used_lo = torch.zeros_like(idle_eff)
+        for _ in range(level_iters):
+            mid = 0.5 * (lo + hi)
+            tgt = torch.maximum(alloc, torch.minimum(
+                level_targets(mid[..., None], mn_eff, cap_eff), cap_eff))
+            spent = _rowsum(tgt - alloc)
+            ok = spent <= idle_eff
+            lo = torch.where(ok, mid, lo)
+            hi = torch.where(ok, hi, mid)
+            used_lo = torch.where(ok, spent, used_lo)
+        tgt = torch.maximum(alloc, torch.minimum(
+            level_targets(lo[..., None], mn_eff, cap_eff), cap_eff))
+        # hand the leftover to the least-utilized jobs (2^-16 levels)
+        span = torch.clamp(cap_eff - mn_eff, min=1)
+        balance_q = torch.div((tgt - mn_eff) * 65536, span,
+                              rounding_mode="floor")
+        room = torch.clamp(cap_eff - tgt, min=0)
+        alloc = tgt + give_asc_prefix(balance_q, room, idle_eff - used_lo,
+                                      -1, 65537)
+    else:
+        room = torch.where(expandable,
+                           torch.clamp(p.max_nodes - alloc, min=0), 0)
+        pr = _clip(alloc - p.prio_ref, prio_lo, prio_hi)
+        if waterfill_give:
+            from repro_torch.kernels.waterfill import greedy_give_waterfill
+            give = greedy_give_waterfill(pr, room, idle)
+        else:
+            give = give_asc_prefix(pr, room, idle, prio_lo - 1, prio_hi)
+        alloc = alloc + give
+    return state, alloc, start_t

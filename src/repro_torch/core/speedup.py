@@ -1,0 +1,139 @@
+"""Speedup model and the batched rigid -> malleable transform (paper §2.2).
+
+The part of ``repro.core.speedup`` the batched engine needs, copied so the
+port imports nothing of ``repro``.  Each job follows an Amdahl curve
+
+    S(n) = 1 / ((1 - p) + p / n),        E(n) = S(n) / n,
+
+with ``p`` calibrated so the job's observed allocation ``nodes_req`` runs at
+a sampled reference efficiency ``e_ref ~ U(e_ref_range)``; the malleable
+range follows from efficiency thresholds:
+
+    pref = largest n with E(n) >= e_pref
+    max  = largest n with E(n) >= e_min
+    min  = max(1, nodes_req // 2)
+
+capped by multiples of the rigid request and the cluster size.  The draws
+come from numpy's seeded generator, so cells are bit-identical to the JAX
+package's for the same (proportion, seed).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+import numpy as np
+
+from .jobs import Workload
+
+
+def amdahl_speedup(n, p):
+    """S(n) for parallel fraction p (float64 numpy)."""
+    n = np.maximum(np.asarray(n, dtype=np.float64), 1.0)
+    return 1.0 / ((1.0 - p) + p / n)
+
+
+def pfrac_for_reference_efficiency(n_ref, e_ref):
+    """Parallel fraction p such that E(n_ref) == e_ref.
+
+    E(n) = 1 / (n (1-p) + p)  ==>  p = (n - 1/e) / (n - 1)   for n > 1.
+    Single-node jobs are calibrated at n = 2 instead (p = 2 - 1/e).
+    """
+    n = np.asarray(n_ref, dtype=np.float64)
+    e = np.asarray(e_ref, dtype=np.float64)
+    multi = n > 1.0
+    p_multi = (n - 1.0 / e) / np.maximum(n - 1.0, 1e-12)
+    p_single = 2.0 - 1.0 / e
+    p = np.where(multi, p_multi, p_single)
+    return np.clip(p, 0.0, 1.0 - 1e-9)
+
+
+def nodes_at_efficiency(p, e):
+    """Largest n with E(n) >= e:  n <= (1/e - p) / (1 - p)."""
+    p = np.asarray(p, dtype=np.float64)
+    n = (1.0 / e - p) / np.maximum(1.0 - p, 1e-12)
+    return np.maximum(np.floor(n + 1e-9).astype(np.int64), 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformConfig:
+    """Knobs of the rigid -> malleable transformation."""
+
+    e_ref_range: tuple = (0.75, 0.9)  # sampled reference efficiency at n_req
+    e_pref: float = 0.7               # efficiency threshold for pref nodes
+    e_min: float = 0.5                # efficiency threshold for max nodes
+    min_divisor: int = 2              # min = max(1, n_req // min_divisor)
+    pref_cap_factor: int = 2          # pref <= pref_cap_factor * n_req
+    max_cap_factor: int = 4           # max  <= max_cap_factor * n_req
+
+
+def _malleable_ranges(nodes_req, e_ref, cluster_nodes, config):
+    """Per-job (pfrac, min, pref, max) from sampled reference efficiencies."""
+    p = pfrac_for_reference_efficiency(nodes_req, e_ref)
+
+    pref = nodes_at_efficiency(p, config.e_pref)
+    mx = nodes_at_efficiency(p, config.e_min)
+    mn = np.maximum(1, nodes_req // config.min_divisor)
+
+    pref = np.minimum(pref, config.pref_cap_factor * nodes_req)
+    mx = np.minimum(mx, config.max_cap_factor * nodes_req)
+    mx = np.minimum(mx, cluster_nodes)
+    pref = np.minimum(pref, mx)
+    pref = np.maximum(pref, mn)
+    mx = np.maximum(mx, pref)
+    mn = np.minimum(mn, pref)
+    return p, mn, pref, mx
+
+
+def _seed_draws(workload: Workload, seed: int, config: TransformConfig):
+    """The per-seed draws: job permutation, then reference efficiencies.
+
+    The permutation comes first so malleable selections nest across
+    proportions at a fixed seed.
+    """
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(workload.n_jobs)
+    e_ref = rng.uniform(*config.e_ref_range, size=workload.n_jobs)
+    return perm, e_ref
+
+
+def batched_malleable_params(
+    workload: Workload,
+    cells: Sequence[tuple],
+    cluster_nodes: int,
+    config: TransformConfig = TransformConfig(),
+):
+    """Stacked (B, n) malleable parameters for ``cells`` of (proportion, seed).
+
+    Returns a dict of numpy arrays: ``malleable`` (B, n) bool and
+    ``pfrac/min_nodes/max_nodes/pref_nodes`` (B, n).  Jobs pinned rigid by a
+    workload class are never converted.
+    """
+    n = workload.n_jobs
+    by_seed = {}
+    for prop, seed in cells:
+        if not 0.0 <= prop <= 1.0:
+            raise ValueError(f"proportion must be in [0,1], got {prop}")
+        if seed not in by_seed:
+            perm, e_ref = _seed_draws(workload, seed, config)
+            by_seed[seed] = (perm, _malleable_ranges(
+                workload.nodes_req, e_ref, cluster_nodes, config))
+
+    B = len(cells)
+    out = {
+        "malleable": np.zeros((B, n), dtype=bool),
+        "pfrac": np.tile(workload.pfrac, (B, 1)),
+        "min_nodes": np.tile(workload.nodes_req, (B, 1)),
+        "max_nodes": np.tile(workload.nodes_req, (B, 1)),
+        "pref_nodes": np.tile(workload.nodes_req, (B, 1)),
+    }
+    for b, (prop, seed) in enumerate(cells):
+        perm, (p, mn, pref, mx) = by_seed[seed]
+        chosen = perm[: int(round(prop * n))]
+        chosen = chosen[workload.transformable[chosen]]
+        out["malleable"][b, chosen] = True
+        out["pfrac"][b, chosen] = p[chosen]
+        out["min_nodes"][b, chosen] = mn[chosen]
+        out["max_nodes"][b, chosen] = mx[chosen]
+        out["pref_nodes"][b, chosen] = pref[chosen]
+    return out

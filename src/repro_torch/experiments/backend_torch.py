@@ -1,0 +1,127 @@
+"""Batched PyTorch experiment backend: the whole grid as device lanes.
+
+The port of ``repro.experiments.backend_jax.run_cells``: cells become lanes
+grouped by static pass structure (greedy-structured strategies
+EASY / MIN / PREF / KEEPPREF share one batch; AVG runs a balanced batch),
+lanes of different workloads pad-stack into one batch
+(:func:`repro_torch.sweep.batch.concat_lanes`), and per-cell metrics come
+back through :mod:`repro_torch.sweep.metrics`.  Only lanes that ran to
+completion are written to the cell store.  Each structure's batch runs as
+one monolithic chunk (lane sharding across cards is a later slice).
+
+Backend options (results-neutral, not part of the spec): ``device``
+(``cuda`` unless ``"cpu"`` is asked for), ``expand_backend``
+(``fused`` | ``waterfill`` | ``bisect``; ``auto`` = fused on cuda),
+``window``, ``chunk``, ``max_steps_factor``, ``events``.
+"""
+from __future__ import annotations
+
+import time
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+from repro_torch import resolve_device
+from repro_torch.core import DONE, get_strategy
+from repro_torch.sweep.batch import (EngineConfig, build_lanes, concat_lanes,
+                                     simulate_lanes)
+from repro_torch.sweep.cache import SweepCache
+from repro_torch.sweep.metrics import batched_metrics
+
+from .spec import Cell, ExperimentSpec, prepare_workload
+
+
+def run_cells(spec: ExperimentSpec,
+              todo: List[Tuple[str, Cell]],
+              store: Optional[SweepCache],
+              fingerprints: Dict[Tuple[str, Cell], Dict],
+              options: Optional[Dict] = None,
+              verbose: bool = True) -> Tuple[Dict, Dict]:
+    """Run ``todo`` cells on the batched engine; one batch per structure.
+
+    Returns ``(metrics, info)``: per-(workload, cell) metric dicts (with the
+    ``sched_*`` scheduling counters) and an info dict of per-structure
+    lanes / steps / peak window, wall seconds and incomplete cells.
+    """
+    opts = options or {}
+    device = resolve_device(opts.get("device"))
+    names = [n for n in spec.workloads if any(n == m for m, _ in todo)]
+    wls = {name: prepare_workload(spec, name) for name in names}
+
+    groups: Dict[str, List[Tuple[str, Cell]]] = {}
+    for k in todo:
+        groups.setdefault(get_strategy(k[1][0]).structure, []).append(k)
+    t0 = time.monotonic()
+    metrics: Dict[Tuple[str, Cell], Dict[str, float]] = {}
+    info: Dict[str, object] = {"incomplete": [], "chunks": [],
+                               "execute_s": 0.0, "escalations": 0,
+                               "compressed_events": 0, "sched_steps": 0,
+                               "device": str(device)}
+    for structure, group in groups.items():
+        # group is workload-major, matching the per-name lane stacking
+        group.sort(key=lambda k: names.index(k[0]))
+        batches, t0s, t1s, caps = [], [], [], []
+        for name in names:
+            lanes = [(get_strategy(s), p, sd)
+                     for wname, (s, p, sd) in group if wname == name]
+            if not lanes:
+                continue
+            cl, w_rigid, window = wls[name]
+            batch, _order = build_lanes(
+                w_rigid, cl.nodes, lanes, config=spec.transform,
+                tick=cl.tick, backfill_depth=spec.scenario.backfill_depth,
+                queue_order=spec.scenario.queue_order, device=device)
+            batches.append(batch)
+            t0s += [window.t0] * len(lanes)
+            t1s += [window.t1] * len(lanes)
+            caps += [cl.nodes] * len(lanes)
+        big = concat_lanes(batches) if len(batches) > 1 else batches[0]
+        cfg = EngineConfig(structure=structure,
+                           window=int(opts.get("window", 0)),
+                           chunk=int(opts.get("chunk", 160)),
+                           max_steps_factor=int(
+                               opts.get("max_steps_factor", 16)),
+                           expand_backend=opts.get("expand_backend", "auto"),
+                           events=int(opts.get("events", 4)))
+        t_run = time.monotonic()
+        res = simulate_lanes(big, cfg, verbose=verbose)
+        wall = time.monotonic() - t_run
+        per_lane = batched_metrics(res, big.submit, big.malleable,
+                                   (np.asarray(t0s), np.asarray(t1s)),
+                                   np.asarray(caps))
+        shrink_ev = np.sum(res["shrink_ops"], axis=1)
+        expand_ev = np.sum(res["expand_ops"], axis=1)
+        lane_done = np.all(res["state"] == DONE, axis=1)
+        for i, (key, m) in enumerate(zip(group, per_lane)):
+            m["sched_backfill_starts"] = float(res["bf_starts"][i])
+            m["sched_shrink_events"] = float(shrink_ev[i])
+            m["sched_expand_events"] = float(expand_ev[i])
+            m["sched_invocations"] = float(res["sched_steps"][i])
+            metrics[key] = m
+            if bool(lane_done[i]):
+                if store is not None:
+                    store.put(fingerprints[key], m)
+            else:
+                info["incomplete"].append(key)
+        info["chunks"].append({
+            "structure": structure, "lanes": len(group), "wall_s": wall,
+            "steps": int(res["steps"]), "window": int(res["window"]),
+            "execute_s": float(res["execute_s"]),
+            "escalations": int(res["escalations"]),
+            "sched_steps": int(np.sum(res["sched_steps"])),
+            "compressed_events": int(res["compressed_events"]),
+        })
+        info["execute_s"] += float(res["execute_s"])
+        info["escalations"] += int(res["escalations"])
+        info["sched_steps"] += int(np.sum(res["sched_steps"]))
+        info["compressed_events"] += int(res["compressed_events"])
+        info[f"{structure}_lanes"] = len(group)
+        info[f"{structure}_steps"] = int(res["steps"])
+        info[f"{structure}_window"] = int(res["window"])
+        if not res["finished"] and verbose:
+            print(f"[experiment-torch:{'+'.join(names)}] WARNING: "
+                  f"{structure} batch hit the step budget with unfinished "
+                  "lanes")
+    info["sim_seconds"] = time.monotonic() - t0
+    info["computed_cells"] = len(todo) - len(info["incomplete"])
+    return metrics, info
