@@ -7,8 +7,8 @@
 * structures and flags of the next slice raise ``NotImplementedError``.
 
 Kernel launches need a card: the ``cuda``-marked tests in
-``test_torch_passes.py`` skip here and ``chip_smoke.py`` runs those checks
-on the GPU.
+``test_torch_cuda.py`` skip here; they and ``chip_smoke.py`` run on the
+GPU.
 """
 import ast
 import pathlib

@@ -3,8 +3,8 @@
 Inputs are made with numpy from a seed and handed to both packages
 (``repro_torch.convert``).  Integer and float outputs must be bit-equal:
 the port keeps XLA's int32 / float32 arithmetic and evaluation order.
-Tests marked ``cuda`` hold the CUDA kernels against the plain versions and
-skip without a card (``chip_smoke.py`` runs the same checks there).
+The CUDA kernels are held to these plain versions on the card by
+``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
 import functools
 
@@ -212,37 +212,3 @@ def test_greedy_give_waterfill_matches_jax_pallas_give(trial):
     bis = tp.give_asc_prefix(*(torch.from_numpy(a)
                                for a in (prio, room, idle)), -5, 5)
     assert torch.equal(bis, got)
-
-
-# ------------------------------------------------- CUDA kernels (card only)
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device; chip_smoke.py runs these checks "
-                    "on the card")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("depth", [None, 2])
-def test_cuda_tick_kernel_matches_plain(cuda_device, depth):
-    params, slots = random_tick_case(np.random.default_rng(9), B=16, W=300)
-    t = to_tensors(slots, cuda_device)
-    p = params_from_numpy(params, cuda_device)
-    args = (p,) + tuple(t[k] for k in SLOTS)
-    d = None if depth is None else torch.full((16,), depth, dtype=torch.int32,
-                                              device=cuda_device)
-    got = fused_schedule_tick(*args, shadow_iters=26, backfill_depth=d, **KW)
-    ref = schedule_tick_ref(*args, shadow_iters=26, backfill_depth=d, **KW)
-    for g, r in zip(got, ref):
-        assert torch.equal(g, r)
-
-
-@pytest.mark.cuda
-def test_cuda_waterfill_kernel_matches_plain(cuda_device):
-    gen = torch.Generator().manual_seed(4)
-    cap = torch.randint(0, 64, (7, 3000), generator=gen,
-                        dtype=torch.int32).to(cuda_device)
-    tgt = torch.randint(0, 200_000, (7,), generator=gen,
-                        dtype=torch.int32).to(cuda_device)
-    assert torch.equal(waterfill(cap, tgt), waterfill_ref(cap, tgt))
