@@ -17,13 +17,14 @@ Phases:
 3. main path: theta at scale 1.0 (2,550 jobs on 4,392 nodes), 2 seeds,
    the paper's five strategies (41 cells), under ``expand_backend`` =
    fused, waterfill and bisect; per-cell metrics must be identical across
-   the three and every lane must finish.  Kernel launches are counted over
-   these runs.  A small theta grid on the card must also equal the plain
-   path on the CPU bit for bit;
-4. scale: the greedy batch on haswell with ``fused``, cut by default to
-   scale 0.25 (7,065 of the trace's 28,259 jobs) so the whole smoke stays
-   well inside its time limit; ``--haswell-scale 1.0`` runs the whole
-   trace (PERF.md has both times).
+   the three and every lane must finish.  Kernel launches are counted per
+   run, from 0 just before it.  A small theta grid on the card must also
+   equal the plain path on the CPU bit for bit;
+4. scale: the greedy batch on haswell at scale 1.0 (the whole trace,
+   28,259 jobs on 2,388 nodes) with ``fused``.  Should the time left in
+   the smoke's 1,200 s limit not hold it at the rate this card ran the
+   theta greedy batch, the scale is cut to the largest of 0.5 and 0.25
+   that fits, and the cut is printed.
 
 Prints the kernels' JSON line, the ``nvidia-smi`` name / power-limit line
 and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
@@ -46,6 +47,11 @@ ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 PAPER_STRATEGIES = ("easy", "min", "pref", "avg", "keeppref")
+TIME_LIMIT_S = 1200.0
+# haswell at scale 1.0: scan steps of the greedy batch, and its wall per
+# step over the theta fused greedy batch's (PERF.md section 5)
+HASWELL_STEPS = 52_160
+HASWELL_STEP_RATIO = 1.25
 
 
 def log(msg: str) -> None:
@@ -230,7 +236,13 @@ def phase_parity(report):
 
 
 class Capture:
-    """Wraps a kernel wrapper to keep one real main-path call's inputs."""
+    """Wraps a kernel wrapper to keep one real main-path call's inputs.
+
+    It keeps references, not copies: the engine builds every tensor out of
+    place and never writes into one it has passed on, so a kept call's
+    inputs stay as they were, and the timed run pays no device work for
+    the capture.
+    """
 
     def __init__(self, module, name, every=97):
         self.module, self.name, self.every = module, name, every
@@ -240,22 +252,8 @@ class Capture:
     def __call__(self, *args, **kwargs):
         self.calls += 1
         if self.kept is None or self.calls % self.every == 0:
-            self.kept = (self._clone(args), dict(kwargs))
+            self.kept = (args, kwargs)
         return self.inner(*args, **kwargs)
-
-    @staticmethod
-    def _clone(args):
-        import torch
-        from repro_torch.core.passes import PassParams
-        out = []
-        for a in args:
-            if isinstance(a, PassParams):
-                a = PassParams(*(t.clone() if torch.is_tensor(t) else t
-                                 for t in a))
-            elif torch.is_tensor(a):
-                a = a.clone()
-            out.append(a)
-        return tuple(out)
 
     def __enter__(self):
         setattr(self.module, self.name, self)
@@ -340,15 +338,14 @@ def phase_main(report):
     runs = {}
     tick_cap = Capture(schedule_tick, "fused_schedule_tick")
     wf_cap = Capture(waterfill, "waterfill")
-    build.LAUNCH_COUNTS.clear()  # the main path's launches start here
     with tick_cap, wf_cap:
         for backend in ("fused", "waterfill", "bisect"):
-            before = dict(build.LAUNCH_COUNTS)
             torch.cuda.synchronize()
+            build.LAUNCH_COUNTS.clear()  # this path's launches start here
             todo, metrics, info = run_grid(("theta",), 1.0, 2, backend,
                                            "cuda")
             torch.cuda.synchronize()
-            delta = {k: build.LAUNCH_COUNTS[k] - before.get(k, 0)
+            delta = {k: build.LAUNCH_COUNTS[k]
                      for k in ("schedule_tick", "waterfill")}
             check_cells(todo, metrics, info, f"theta/{backend}")
             runs[backend] = (metrics, info, delta)
@@ -361,7 +358,11 @@ def phase_main(report):
                 f"{info['balanced_lanes']} lanes {info['balanced_steps']} "
                 f"steps window {info['balanced_window']} "
                 f"{walls['balanced']:.2f}s; launches {delta}")
-    report["launches"] = dict(build.LAUNCH_COUNTS)
+    report["launches"] = {b: runs[b][2] for b in runs}
+    greedy = runs["fused"][1]
+    report["greedy_s_per_step"] = (
+        next(c["wall_s"] for c in greedy["chunks"]
+             if c["structure"] == "greedy") / greedy["greedy_steps"])
     if len(todo) != 41:
         raise AssertionError(f"expected 41 theta cells, got {len(todo)}")
     fused, wfill, bisect = (runs[b][0] for b in ("fused", "waterfill",
@@ -419,7 +420,9 @@ def phase_kernels_at_main_shape(report):
         "name": "schedule_tick", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/schedule_tick.cu",
         "replaces": "src/repro/kernels/schedule_tick.py:105",
-        "launches": report["launches"].get("schedule_tick", 0),
+        "launches": report["launches"]["fused"]["schedule_tick"],
+        "launches_by_backend": {b: c["schedule_tick"]
+                                for b, c in report["launches"].items()},
         "max_abs_err": max(err, report["max_abs_err"]["schedule_tick"]),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": max(b_bytes, b_ops),
         "bound_by": "bytes" if b_bytes >= b_ops else "operations",
@@ -442,7 +445,9 @@ def phase_kernels_at_main_shape(report):
         "name": "waterfill", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/waterfill.cu",
         "replaces": "src/repro/kernels/waterfill.py:29",
-        "launches": report["launches"].get("waterfill", 0),
+        "launches": report["launches"]["waterfill"]["waterfill"],
+        "launches_by_backend": {b: c["waterfill"]
+                                for b, c in report["launches"].items()},
         "max_abs_err": max(max_abs_err(got, ref),
                            report["max_abs_err"]["waterfill"]),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": max(b_bytes, b_ops),
@@ -453,8 +458,27 @@ def phase_kernels_at_main_shape(report):
     report["kernels"] = out
 
 
-def phase_scale(report, scale):
+def haswell_scale(report, elapsed_s):
+    """1.0, or the largest of 0.5 and 0.25 whose predicted wall (at this
+    card's theta greedy rate) still ends inside the time limit."""
+    rate = report.get("greedy_s_per_step")
+    if rate is None:
+        return 1.0
+    left = 0.95 * TIME_LIMIT_S - elapsed_s
+    for scale in (1.0, 0.5, 0.25):
+        if scale * HASWELL_STEPS * HASWELL_STEP_RATIO * rate <= left:
+            return scale
+    return 0.25
+
+
+def phase_scale(report, elapsed_s):
     import torch
+    scale = haswell_scale(report, elapsed_s)
+    if scale != 1.0:
+        ms = report["greedy_s_per_step"] * 1e3
+        log(f"[scale] {elapsed_s:.0f}s spent; at {ms:.2f} ms per theta "
+            f"greedy step haswell at scale 1.0 would not end inside "
+            f"{TIME_LIMIT_S:.0f}s")
     t0 = time.monotonic()
     todo, metrics, info = run_grid(("haswell",), scale, 1, "fused", "cuda",
                                    strategies=("min", "pref", "keeppref"))
@@ -500,7 +524,6 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default="env,parity,main,scale",
                     help="comma-separated subset of env,parity,main,scale "
                          "(the default) and the opt-in profile")
-    ap.add_argument("--haswell-scale", type=float, default=0.25)
     args = ap.parse_args(argv)
     try:
         import torch
@@ -531,7 +554,7 @@ def main(argv=None) -> int:
             phase_main(report)
             phase_kernels_at_main_shape(report)
         if "scale" in phases:
-            phase_scale(report, args.haswell_scale)
+            phase_scale(report, time.monotonic() - t_start)
         if "profile" in phases:
             phase_profile(report)
     except Exception:

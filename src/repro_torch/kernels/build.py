@@ -14,6 +14,12 @@ Flags: ``-O3 --fmad=false`` and the default IEEE division, never fast math,
 so the kernels' float expressions round exactly as the plain PyTorch pass
 does.  A failed build raises; nothing falls back to the plain path.
 
+The argument lists are kept by hand on both sides of the C interface
+(``_SIGNATURES`` here, the entry points in ``bindings.cpp``).  The library
+exports ``repro_abi()``, each entry point's parameter kinds as the compiler
+sees them, and loading refuses a library whose kinds or counts differ from
+``_SIGNATURES``.
+
 ``LAUNCH_COUNTS`` counts kernel launches by name; each wrapper adds one
 where it launches its kernel, and nowhere else.
 """
@@ -113,6 +119,13 @@ def _build(lib_path: pathlib.Path) -> str:
     return "\n".join(log)
 
 
+def expected_abi() -> str:
+    """``_SIGNATURES`` spelled as ``repro_abi()`` spells the library's."""
+    return "".join(
+        f"{fn}={''.join('P' if t is _P else 'I' for t in argtypes)};"
+        for fn, argtypes in _SIGNATURES.items())
+
+
 def load_library() -> ctypes.CDLL:
     """The kernel library, built on first use (raises if it cannot be)."""
     global _LIB
@@ -123,6 +136,13 @@ def load_library() -> ctypes.CDLL:
         t0 = time.monotonic()
         log = "" if lib_path.exists() else _build(lib_path)
         lib = ctypes.CDLL(str(lib_path))
+        lib.repro_abi.argtypes = []
+        lib.repro_abi.restype = ctypes.c_char_p
+        abi = lib.repro_abi().decode()
+        if abi != expected_abi():
+            raise RuntimeError(
+                f"{lib_path.name} takes {abi!r} but build._SIGNATURES "
+                f"passes {expected_abi()!r}; bring the two in line")
         for fn, argtypes in _SIGNATURES.items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int

@@ -2,8 +2,12 @@
 // repro_torch/kernels/build.py.  Pointers are tensor.data_ptr() values and the
 // stream is torch.cuda.current_stream().cuda_stream; each function returns
 // the cudaError_t of its launch (0 on success) so the Python wrapper raises on
-// a refused launch instead of reading garbage.
+// a refused launch instead of reading garbage.  repro_abi() spells each entry
+// point's parameter list as the compiler sees it, which build.py compares
+// with the argument types it passes.
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "kernels.h"
 
@@ -67,3 +71,43 @@ const char* repro_error_string(int err) {
 }
 
 }  // extern "C"
+
+namespace {
+
+// P for a pointer parameter, I for an int, ? for anything else.
+template <typename T>
+constexpr char param_code() {
+  return std::is_pointer<T>::value ? 'P'
+         : std::is_same<T, int>::value ? 'I'
+                                        : '?';
+}
+
+// Writes "name=<one code per parameter>;" at `out`; returns its end.
+template <typename R, typename... A>
+char* append_signature(char* out, const char* name, R (*)(A...)) {
+  while (*name) *out++ = *name++;
+  *out++ = '=';
+  const char codes[] = {param_code<A>()..., ';'};
+  for (char c : codes) *out++ = c;
+  return out;
+}
+
+struct Abi {
+  char text[256];
+};
+
+Abi make_abi() {
+  Abi abi{};
+  char* out = append_signature(abi.text, "repro_schedule_tick",
+                               &repro_schedule_tick);
+  out = append_signature(out, "repro_waterfill", &repro_waterfill);
+  *out = '\0';
+  return abi;
+}
+
+}  // namespace
+
+extern "C" const char* repro_abi() {
+  static const Abi abi = make_abi();
+  return abi.text;
+}

@@ -65,14 +65,16 @@ def fused_schedule_tick(p: PassParams, state, alloc, remaining, start_t, act,
     give_lo, give_hi = -prio_hi - 1, -(prio_lo - 1) + 1
     if B and W:
         lib = load_library()
-        err = lib.repro_schedule_tick(
-            *(t.data_ptr() for t in ins),
-            None if depth is None else depth.data_ptr(),
-            out_state.data_ptr(), out_alloc.data_ptr(), out_start.data_ptr(),
-            B, W, fill_rounds, prio_lo, prio_hi, shadow_iters,
-            take_lo, take_hi, bisect_rounds(take_lo, take_hi),
-            give_lo, give_hi, bisect_rounds(give_lo, give_hi),
-            torch.cuda.current_stream(state.device).cuda_stream)
+        with torch.cuda.device(state.device):
+            err = lib.repro_schedule_tick(
+                *(t.data_ptr() for t in ins),
+                None if depth is None else depth.data_ptr(),
+                out_state.data_ptr(), out_alloc.data_ptr(),
+                out_start.data_ptr(),
+                B, W, fill_rounds, prio_lo, prio_hi, shadow_iters,
+                take_lo, take_hi, bisect_rounds(take_lo, take_hi),
+                give_lo, give_hi, bisect_rounds(give_lo, give_hi),
+                torch.cuda.current_stream(state.device).cuda_stream)
         check_launch(lib, err, "schedule_tick")
     return (out_state.reshape(shape), out_alloc.reshape(shape),
             out_start.reshape(shape))

@@ -34,9 +34,11 @@ def waterfill(cap: torch.Tensor, target) -> torch.Tensor:
     out = torch.empty_like(rows)
     if rows.numel():
         lib = load_library()
-        err = lib.repro_waterfill(
-            rows.data_ptr(), tgt.data_ptr(), out.data_ptr(), rows.shape[0],
-            rows.shape[1], torch.cuda.current_stream(cap.device).cuda_stream)
+        with torch.cuda.device(cap.device):
+            err = lib.repro_waterfill(
+                rows.data_ptr(), tgt.data_ptr(), out.data_ptr(),
+                rows.shape[0], rows.shape[1],
+                torch.cuda.current_stream(cap.device).cuda_stream)
         check_launch(lib, err, "waterfill")
     return out.reshape(cap.shape)
 

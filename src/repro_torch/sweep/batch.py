@@ -23,8 +23,7 @@ this module owns the simulation substrate, with the JAX engine's semantics:
 The JAX scan over ``K`` steps is a Python loop here; no step waits on the
 host (the JAX engine's ``lax.cond`` skips are per-lane value identities and
 run unconditionally), so the host synchronises once per chunk, to pick the
-next window.  On a card, batches that run only the plain pass replay each
-window's chunk as a CUDA graph (:class:`_ChunkGraph`).  JAX drops out-of-bounds scatter writes silently and
+next window.  JAX drops out-of-bounds scatter writes silently and
 ``torch.scatter_`` raises, so compaction and scatter-back write into one
 spare column that is sliced off.
 
@@ -404,14 +403,6 @@ def simulate_lanes(batch: BatchedLanes, cfg: EngineConfig,
     escalations = 0
     execute_s = 0.0
     ran = set()  # rungs already run: the port's "compiled" rungs
-    # A batch whose steps launch none of the port's kernels (the plain pass:
-    # bisect, or any balanced batch) replays a window's chunk as a CUDA
-    # graph once it has run eagerly at that window: Python dispatch of its
-    # ~1,000 small ops per step is what bounds it.  Kernel batches stay
-    # eager, so every kernel launch goes through its counting wrapper.
-    graphed = dev.type == "cuda" and (backend == "bisect"
-                                      or cfg.structure == "balanced")
-    graphs: Dict[int, _ChunkGraph] = {}
 
     def escalate(need):
         nonlocal W, low_streak, escalations
@@ -438,21 +429,14 @@ def simulate_lanes(batch: BatchedLanes, cfg: EngineConfig,
         else:
             low_streak = 0
         w_peak = max(w_peak, W)
-        replay = graphed and W in ran
         ran.add(W)
 
         k_before = counters["k"].clone()
         t_call = time.monotonic()
-        kw = dict(W=W, cfg=cfg, prio_lo=prio_lo, prio_hi=prio_hi,
-                  span_max=span_max, depth_bounded=min_depth < W,
-                  backend=backend)
-        if replay:
-            if W not in graphs:
-                graphs[W] = _ChunkGraph(batch, full, counters, kw)
-            full, counters, ys, all_done = graphs[W](full, counters)
-        else:
-            full, counters, ys, all_done = _chunk(batch, full, counters,
-                                                  **kw)
+        full, counters, ys, all_done = _chunk(
+            batch, full, counters, W=W, cfg=cfg, prio_lo=prio_lo,
+            prio_hi=prio_hi, span_max=span_max,
+            depth_bounded=min_depth < W, backend=backend)
         traces.append(tuple(_np(y) for y in ys))
         done_now = bool(all_done)
         execute_s += time.monotonic() - t_call
@@ -484,34 +468,6 @@ def simulate_lanes(batch: BatchedLanes, cfg: EngineConfig,
     out["escalations"] = escalations
     out["compressed_events"] = int(np.sum(_np(counters["ncomp"])))
     return out
-
-
-class _ChunkGraph:
-    """:func:`_chunk` at one window, captured once as a CUDA graph.
-
-    Replays read the chunk's inputs from static buffers and write its
-    outputs to the graph's own tensors, which are cloned on return; the
-    replayed kernels are exactly the eager chunk's, so results are
-    bit-identical.
-    """
-
-    def __init__(self, batch, full, counters, kw):
-        self.full = {k: v.clone() for k, v in full.items()}
-        self.counters = {k: v.clone() for k, v in counters.items()}
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            self.out = _chunk(batch, self.full, self.counters, **kw)
-
-    def __call__(self, full, counters):
-        for k, v in full.items():
-            self.full[k].copy_(v)
-        for k, v in counters.items():
-            self.counters[k].copy_(v)
-        self.graph.replay()
-        full_o, counters_o, ys, all_done = self.out
-        return ({k: v.clone() for k, v in full_o.items()},
-                {k: v.clone() for k, v in counters_o.items()},
-                tuple(y.clone() for y in ys), all_done.clone())
 
 
 def _f32_to_i32(x):

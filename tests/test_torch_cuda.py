@@ -1,5 +1,5 @@
 """Card-only checks of the port: the CUDA kernels against their plain
-versions, and CUDA-graph replay against the CPU engine.
+versions, and the engine on the card against the engine on the CPU.
 
 Every test here is marked ``cuda`` and skips without a CUDA device; this
 file imports no JAX, so it also runs where only PyTorch is installed:
@@ -83,22 +83,27 @@ def test_waterfill_kernel_matches_plain(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("structure,lanes", [
-    ("greedy", [("easy", 0.0, 0), ("min", 0.6, 0), ("pref", 1.0, 1)]),
-    ("balanced", [("avg", 0.6, 0), ("avg", 1.0, 1)])])
-def test_graph_replayed_engine_matches_cpu(cuda_device, structure, lanes):
-    """Plain-pass batches replay their chunks as CUDA graphs on the card;
-    the result equals the eager CPU run bit for bit."""
+@pytest.mark.parametrize("structure,lanes,backend", [
+    ("greedy", [("easy", 0.0, 0), ("min", 0.6, 0), ("pref", 1.0, 1)],
+     "fused"),
+    ("greedy", [("easy", 0.0, 0), ("min", 0.6, 0), ("pref", 1.0, 1)],
+     "waterfill"),
+    ("balanced", [("avg", 0.6, 0), ("avg", 1.0, 1)], "bisect")])
+def test_engine_on_card_matches_cpu(cuda_device, structure, lanes, backend):
+    """The engine on the card, through the kernels where the backend
+    launches them, equals the plain CPU run bit for bit."""
     rng = np.random.default_rng(3)
     w = Workload.rigid(submit=np.sort(rng.uniform(0, 400, 60)),
                        runtime=rng.uniform(20, 120, 60),
                        nodes_req=rng.choice([1, 2, 4, 8], 60))
     lanes = [(STRATEGIES[s], p, sd) for s, p, sd in lanes]
-    cfg = EngineConfig(structure=structure, window=16, chunk=32,
-                       expand_backend="bisect")
-    res = {dev: simulate_lanes(build_lanes(w, 10, lanes, device=dev)[0],
-                               cfg) for dev in ("cpu", cuda_device)}
-    assert res["cpu"]["steps"] > 2 * cfg.chunk  # replays happened
+    res = {}
+    for dev, be in (("cpu", "bisect"), (cuda_device, backend)):
+        cfg = EngineConfig(structure=structure, window=16, chunk=32,
+                           expand_backend=be)
+        res[dev] = simulate_lanes(build_lanes(w, 10, lanes, device=dev)[0],
+                                  cfg)
+    assert res["cpu"]["steps"] > 2 * 32  # several chunks and windows
     for key in ("state", "alloc", "start_t", "end_t", "expand_ops",
                 "shrink_ops", "bf_starts", "sched_steps", "trace_t",
                 "trace_busy", "trace_qlen"):

@@ -150,3 +150,32 @@ def test_chip_smoke_fails_without_a_card_or_without_the_repo(no_card,
     out = subprocess.run([sys.executable, str(alone)], cwd=tmp_path,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0 and '"ok"' not in out.stdout
+
+
+def test_kernel_c_interface_matches_the_loader():
+    """The parameter kinds of ``bindings.cpp``'s entry points, read from the
+    source, are those ``kernels.build`` passes (the library's own
+    ``repro_abi()`` is compared with the same string when it loads)."""
+    import re
+    from repro_torch.kernels import build
+    src = (PORT / "kernels" / "csrc" / "bindings.cpp").read_text()
+    sig = ""
+    for fn in build._SIGNATURES:
+        params = re.search(rf"int {fn}\(([^)]*)\)", src).group(1)
+        kinds = ["P" if "*" in prm else "I" for prm in params.split(",")]
+        sig += f"{fn}={''.join(kinds)};"
+    assert sig == build.expected_abi()
+
+
+@pytest.mark.parametrize("elapsed_s,rate,scale", [
+    (600.0, 5.0e-3, 1.0), (725.0, 6.0e-3, 1.0), (900.0, 6.0e-3, 0.5),
+    (1100.0, 6.0e-3, 0.25), (0.0, None, 1.0)])
+def test_chip_smoke_cuts_haswell_only_when_it_cannot_fit(elapsed_s, rate,
+                                                         scale):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    report = {} if rate is None else {"greedy_s_per_step": rate}
+    assert smoke.haswell_scale(report, elapsed_s) == scale
