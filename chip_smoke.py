@@ -4,23 +4,39 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, holds
-each against its plain PyTorch version on the card, drives the main path
-(the paper grid on the batched engine through
-``repro_torch.experiments.backend_torch.run_cells``) and prints what it saw.
+each against its plain PyTorch version on the card, drives the port's two
+main paths (the paper grid on the batched engine through
+``repro_torch.experiments.backend_torch.run_cells``, and LLM serving
+through ``repro_torch.serve.engine.ServeEngine``) and prints what it saw.
 Phases:
 
 1. environment: versions, the card's name and power limit, the build;
 2. kernel parity: the CUDA ``schedule_tick`` and ``waterfill`` kernels
    against their plain versions on seeded random inputs (B = 64 lanes,
-   W up to 8192; a 143,829-slot 1-D waterfill), bit-equal, with median
-   times (CUDA events, 20 runs);
+   W up to 8192; a 143,829-slot 1-D waterfill), bit-equal; then
+   ``rmsnorm``, ``flash_attention`` and ``ssd_scan`` in f32 and bf16 at
+   the serving path's zamba2-2.7b shapes, a ragged and a GQA shape
+   (Hkv = 4, 8 groups), within the tolerances of ``tests/test_kernels.py``
+   (f32 2e-5 / 2e-5 / 2e-4, bf16 2e-2 / 2e-2 / 5e-2); median times (CUDA
+   events, 20 runs) of kernel and plain version;
 3. main path: theta at scale 1.0 (2,550 jobs on 4,392 nodes), 2 seeds,
    the paper's five strategies (41 cells), under ``expand_backend`` =
    fused, waterfill and bisect; per-cell metrics must be identical across
    the three and every lane must finish.  Kernel launches are counted per
    run, from 0 just before it.  A small theta grid on the card must also
    equal the plain path on the CPU bit for bit;
-4. scale: the greedy batch on haswell at scale 1.0 (the whole trace,
+4. serve: reduced zamba2 with the same seeded weights on the card and on
+   the CPU (2 slots, 4 requests) must give identical tokens and last
+   logits within 1e-3; then zamba2-2.7b at full width and depth, f32
+   (TF32 off), random weights from seed 0: 8 slots, 24 requests with
+   prompts of 64..1024 tokens (no multiple of 128) from seed 0, 32 new
+   tokens each, max_len 1280.  Every request must finish, every logit be
+   finite and each LLM kernel launch, counted from 0 just before the run;
+   prints parameters, weight GB, prefill tokens/s, decode ms per engine
+   step, decode tokens/s and launches.  Each LLM kernel is then timed and
+   checked on the run's largest calls, beside its plain version, its
+   bound and one PyTorch call of the same function where there is one;
+5. scale: the greedy batch on haswell at scale 1.0 (the whole trace,
    28,259 jobs on 2,388 nodes) with ``fused``.  Should the time left in
    the smoke's 1,200 s limit not hold it at the rate this card ran the
    theta greedy batch, the scale is cut to the largest of 0.5 and 0.25
@@ -133,6 +149,17 @@ def tick_ops(B: int, W: int, fill_rounds: int) -> int:
 
 
 # --------------------------------------------------------------- phases
+def device_events(prof):
+    """The device-side entries (kernels, copies) of a profiler trace's
+    ``key_averages()``, largest first.  The host-side op entries also
+    carry ``self_device_time_total`` (their kernels' time), so summing
+    every entry would count each kernel twice."""
+    from torch.autograd import DeviceType
+    return sorted((e for e in prof.key_averages()
+                   if e.device_type != DeviceType.CPU),
+                  key=lambda e: e.self_device_time_total, reverse=True)
+
+
 def phase_env(report):
     import torch
     from repro_torch.kernels import build
@@ -235,7 +262,23 @@ def phase_parity(report):
             f"{cuda_median_ms(plain):.3f} ms")
 
 
-class Capture:
+class Patch:
+    """Puts ``self`` in place of ``module.name`` inside a ``with`` block;
+    ``self.inner`` is what it replaced."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.inner = getattr(module, name)
+
+    def __enter__(self):
+        setattr(self.module, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.inner)
+
+
+class Capture(Patch):
     """Wraps a kernel wrapper to keep one real main-path call's inputs.
 
     It keeps references, not copies: the engine builds every tensor out of
@@ -245,8 +288,8 @@ class Capture:
     """
 
     def __init__(self, module, name, every=97):
-        self.module, self.name, self.every = module, name, every
-        self.inner = getattr(module, name)
+        super().__init__(module, name)
+        self.every = every
         self.calls, self.kept = 0, None
 
     def __call__(self, *args, **kwargs):
@@ -254,13 +297,6 @@ class Capture:
         if self.kept is None or self.calls % self.every == 0:
             self.kept = (args, kwargs)
         return self.inner(*args, **kwargs)
-
-    def __enter__(self):
-        setattr(self.module, self.name, self)
-        return self
-
-    def __exit__(self, *exc):
-        setattr(self.module, self.name, self.inner)
 
 
 def run_grid(workloads, scale, seeds, backend, device, strategies=None):
@@ -458,6 +494,450 @@ def phase_kernels_at_main_shape(report):
     report["kernels"] = out
 
 
+# ------------------------------------------------------- LLM serving path
+# (atol = rtol) of the kernel-vs-plain checks, by kernel and dtype: those
+# of tests/test_kernels.py
+LLM_TOL = {"float32": {"rmsnorm": 2e-5, "flash_attention": 2e-5,
+                       "ssd_scan": 2e-4},
+           "bfloat16": {"rmsnorm": 2e-2, "flash_attention": 2e-2,
+                        "ssd_scan": 5e-2}}
+LLM_KERNELS = {
+    "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
+                "src/repro/kernels/rmsnorm.py:19"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:36"),
+    "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
+                 "src/repro/kernels/ssd_scan.py:37"),
+}
+# the card the LLM phases run on
+DEVICE = "cuda"
+# the full-width serve run: zamba2-2.7b, f32, prompts of 64..1024 tokens
+SERVE = dict(slots=8, requests=24, new=32, max_len=1280, prompt=(64, 1024))
+
+
+def close_err(got, ref, tol: float, label: str) -> float:
+    """max |got - ref|; raises unless |got - ref| <= tol + tol * |ref|
+    everywhere (a NaN fails)."""
+    g, r = got.double(), ref.double()
+    d = (g - r).abs()
+    bad = ~(d <= tol + tol * r.abs())
+    if bool(bad.any()):
+        raise AssertionError(f"{label}: kernel differs from plain in "
+                             f"{int(bad.sum())} of {d.numel()} values "
+                             f"(max |err| {float(d.max()):.3g}, tol {tol})")
+    return float(d.max()) if d.numel() else 0.0
+
+
+def llm_calls(kernel: str, args, kw):
+    """(kernel call, plain call) of one LLM kernel on the same inputs."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    fns = {"rmsnorm": (rmsnorm, ref.rmsnorm_ref),
+           "flash_attention": (flash_attention, ref.attention_ref),
+           "ssd_scan": (ssd_scan, ref.ssd_ref)}[kernel]
+    return (lambda: fns[0](*args, **kw)), (lambda: fns[1](*args, **kw))
+
+
+def llm_case(gen, kernel: str, shape: dict, dtype):
+    """Seeded inputs of one kernel at ``shape`` (on the card)."""
+    import torch
+
+    def rn(*s, lo=None, hi=None, dt=dtype):
+        t = (torch.randn(s, generator=gen) if lo is None else
+             lo + (hi - lo) * torch.rand(s, generator=gen))
+        return t.to(DEVICE, dt)
+
+    if kernel == "rmsnorm":
+        return (rn(shape["rows"], shape["d"]),
+                rn(shape["d"], dt=torch.float32)), {}
+    if kernel == "flash_attention":
+        b, sq, sk = shape["B"], shape["Sq"], shape["Sk"]
+        h, hkv, d = shape["H"], shape["Hkv"], shape["D"]
+        kw = {k: shape[k] for k in ("q_offset", "kv_valid_len", "window")
+              if k in shape}
+        return (rn(b, sq, h, d), rn(b, sk, hkv, d), rn(b, sk, hkv, d)), kw
+    b, s, h, p, n = (shape[k] for k in ("B", "S", "H", "P", "N"))
+    kw = {}
+    if shape.get("init"):
+        kw["initial_state"] = rn(b, h, p, n, dt=torch.float32)
+    return (rn(b, s, h, p), rn(b, s, h, lo=0.01, hi=0.5),
+            rn(h, lo=0.5, hi=2.0, dt=torch.float32), rn(b, s, n),
+            rn(b, s, n)), kw
+
+
+# the serving path's shapes at full zamba2 width, a ragged and a GQA one
+LLM_PARITY_SHAPES = [
+    ("rmsnorm", "prefill d=2560", dict(rows=1000, d=2560)),
+    ("rmsnorm", "prefill d=5120", dict(rows=1000, d=5120)),
+    ("rmsnorm", "decode d=2560", dict(rows=8, d=2560)),
+    ("rmsnorm", "decode d=5120", dict(rows=8, d=5120)),
+    ("flash_attention", "prefill", dict(B=1, Sq=1000, Sk=1000, H=32,
+                                        Hkv=32, D=80)),
+    ("flash_attention", "decode", dict(B=8, Sq=1, Sk=1280, H=32, Hkv=32,
+                                       D=80, q_offset=1000,
+                                       kv_valid_len=1001)),
+    ("flash_attention", "GQA ragged", dict(B=2, Sq=333, Sk=333, H=32,
+                                           Hkv=4, D=80)),
+    ("flash_attention", "GQA decode window", dict(
+        B=3, Sq=1, Sk=700, H=32, Hkv=4, D=80, q_offset=650,
+        kv_valid_len=651, window=256)),
+    ("ssd_scan", "prefill ragged", dict(B=1, S=1000, H=80, P=64, N=64)),
+    ("ssd_scan", "initial state", dict(B=1, S=1024, H=80, P=64, N=64,
+                                       init=True)),
+    ("ssd_scan", "batch 2", dict(B=2, S=300, H=80, P=64, N=64)),
+]
+
+
+def phase_llm_parity(report):
+    """Each LLM kernel against its plain version on the card, f32 and
+    bf16, at the serving path's shapes."""
+    import torch
+    gen = torch.Generator().manual_seed(12)
+    errs = report.setdefault("max_abs_err", {})
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        for kernel, label, shape in LLM_PARITY_SHAPES:
+            args, kw = llm_case(gen, kernel, shape, dtype)
+            kern, plain = llm_calls(kernel, args, kw)
+            tol = LLM_TOL[dname][kernel]
+            got, ref = kern(), plain()
+            torch.cuda.synchronize()
+            pairs = zip(got, ref) if kernel == "ssd_scan" else [(got, ref)]
+            err = max(close_err(g, r, tol, f"{kernel} {label} {dname}")
+                      for g, r in pairs)
+            if dtype == torch.float32:
+                errs[kernel] = max(errs.get(kernel, 0.0), err)
+            log(f"[parity] {kernel} {label} {dname} {shape}: max |err| "
+                f"{err:.3g} <= tol {tol}; kernel {cuda_median_ms(kern):.4f}"
+                f" ms, plain {cuda_median_ms(plain):.4f} ms")
+
+
+def attention_work(q, k, kw):
+    """(flops, bytes) an attention call needs: 4 * D flops per visible
+    (query, key) pair; q and the output once, and each K / V row up to
+    the last visible key once."""
+    import numpy as np
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    lim = min(sk, kw.get("kv_valid_len") or sk)
+    pos = kw.get("q_offset", 0) + np.arange(sq)
+    hi = np.minimum(lim, pos + 1) if kw.get("causal", True) else \
+        np.full(sq, lim)
+    window = kw.get("window", 0)
+    lo = np.maximum(0, pos - window + 1) if window > 0 else np.zeros(sq)
+    seen = np.maximum(hi - lo, 0)
+    es = q.element_size()
+    rows = int(hi.max() - lo.min()) if seen.any() else 0
+    return (4.0 * d * b * h * float(seen.sum()),
+            es * (2 * q.numel() + 2 * b * hkv * d * rows))
+
+
+def ssd_work(x, b, kw, chunk=128):
+    """(flops, bytes) of the chunked SSD scan on these inputs."""
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    macs = 0
+    for t0 in range(0, s, chunk):
+        lc = min(chunk, s - t0)
+        macs += lc * (lc + 1) // 2 * (n + p) + 2 * lc * p * n
+    es = x.element_size()
+    nbytes = (es * (x.numel() + bsz * s * h + 2 * bsz * s * n)
+              + 4 * (x.numel() + bsz * h * p * n + h))
+    if kw.get("initial_state") is not None:
+        nbytes += 4 * bsz * h * p * n
+    return 2.0 * macs * bsz * h, nbytes
+
+
+def library_call(kernel: str, args, kw):
+    """One PyTorch call computing the same function, or None."""
+    import torch
+    import torch.nn.functional as F
+    if kernel == "rmsnorm":
+        x, w = args[:2]
+        eps = args[2] if len(args) > 2 else kw.get("eps", 1e-6)
+        return lambda: F.rms_norm(x, (x.shape[-1],), w, eps=eps)
+    if kernel != "flash_attention" or kw.get("window", 0) > 0:
+        return None
+    q, k, v = args
+    valid = kw.get("kv_valid_len") or k.shape[1]
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k[:, :valid], v[:, :valid]))
+    gqa = q.shape[2] != k.shape[2]
+    causal = q.shape[1] > 1   # decode: the one query sees every valid key
+    return lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal, enable_gqa=gqa)
+
+
+class Keep(Patch):
+    """Wraps a kernel wrapper where the model calls it and keeps the
+    largest call's inputs per label (references, not copies: the model
+    does not write into a tensor it has passed to a kernel, except the
+    decode caches, which keep their shape)."""
+
+    def __init__(self, module, name, label):
+        super().__init__(module, name)
+        self.label = label
+        self.kept = {}
+
+    def __call__(self, *args, **kwargs):
+        label, size = self.label(args, kwargs)
+        if size > self.kept.get(label, (-1,))[0]:
+            self.kept[label] = (size, args, kwargs)
+        return self.inner(*args, **kwargs)
+
+
+class Timed(Patch):
+    """Wraps ``decode.prefill`` / ``decode.decode_step``: synchronises after
+    each call, sums the wall time and counts calls with non-finite logits."""
+
+    def __init__(self, module, name):
+        super().__init__(module, name)
+        self.seconds, self.calls, self.nonfinite = 0.0, 0, 0
+
+    def __call__(self, *args, **kwargs):
+        import torch
+        t0 = time.monotonic()
+        logits, cache = self.inner(*args, **kwargs)
+        torch.cuda.synchronize()
+        self.seconds += time.monotonic() - t0
+        self.calls += 1
+        self.nonfinite += int(not bool(torch.isfinite(logits).all()))
+        return logits, cache
+
+
+def serve_prompts(vocab: int, n: int, lo: int, hi: int, seed: int):
+    """``n`` prompts of lo..hi tokens from ``seed``; no length is a
+    multiple of 128, so every prefill scans a ragged last chunk."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(lo, hi + 1, size=n)
+    lens = np.where(lens % 128 == 0, lens - 1, lens)
+    return [rng.integers(2, vocab, size=int(m)).astype(np.int32)
+            for m in lens]
+
+
+def serve(model, cfg, prompts, *, slots, max_len, new, device):
+    from repro_torch.serve.engine import Request, ServeEngine
+    eng = ServeEngine(model, cfg, n_slots=slots, max_len=max_len,
+                      dtype=model.embed.table.dtype, device=device)
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=new)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    eng.run_until_drained()
+    if not all(r.done for r in reqs):
+        raise AssertionError("a request did not finish")
+    return reqs, eng
+
+
+def serve_reduced_card_vs_cpu():
+    """Reduced zamba2 with the same seeded weights on the card (kernels)
+    and on the CPU (plain versions): identical greedy tokens, and the last
+    position's logits of every finished sequence within 1e-3."""
+    import copy
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode as D
+    from repro_torch.models.transformer import init_params
+    cfg = get_config("zamba2-2.7b").reduced()
+    cpu = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    card = copy.deepcopy(cpu).to(DEVICE)
+    prompts = serve_prompts(cfg.vocab, 4, 5, 40, 1)
+    kw = dict(slots=2, max_len=64, new=8)
+    r_cpu, _ = serve(cpu, cfg, prompts, device="cpu", **kw)
+    r_card, eng = serve(card, cfg, prompts, device=DEVICE, **kw)
+    if [r.out_tokens for r in r_cpu] != [r.out_tokens for r in r_card]:
+        raise AssertionError("reduced zamba2: tokens on the card differ "
+                             "from the CPU")
+    err = 0.0
+    for r in r_card:
+        seq = torch.as_tensor(list(r.prompt) + r.out_tokens[:-1])[None]
+        lc, _ = D.prefill(cpu, cfg, {"tokens": seq}, dtype=torch.float32)
+        lg, _ = D.prefill(card, cfg, {"tokens": seq.to(DEVICE)},
+                          dtype=torch.float32)
+        err = max(err, float((lg.cpu() - lc).abs().max()))
+    if not err <= 1e-3:
+        raise AssertionError(f"reduced zamba2: last logits differ by {err}")
+    log(f"[serve] reduced zamba2 (2 slots, 4 requests, {eng.steps} steps):"
+        f" tokens on the card == the CPU; last logits within {err:.3g} "
+        "(limit 1e-3)")
+
+
+def serve_device_busy(model, cfg):
+    """The card's busy share in one full-width prefill (996 tokens) and one
+    decode step (8 slots at cache length 1,000): device time from a
+    torch.profiler trace over the wall time of the same calls unprofiled."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import decode as D
+    gen = torch.Generator().manual_seed(3)
+    toks = torch.randint(2, cfg.vocab, (1, 996), generator=gen).to(DEVICE)
+    last = torch.randint(2, cfg.vocab, (SERVE["slots"], 1),
+                         generator=gen).to(DEVICE)
+    cache = D.init_decode_cache(cfg, SERVE["slots"], SERVE["max_len"],
+                                torch.float32, DEVICE)
+    calls = {
+        "prefill": (lambda: D.prefill(model, cfg, {"tokens": toks},
+                                      cache_size=SERVE["max_len"],
+                                      dtype=torch.float32), 2),
+        "decode step": (lambda: D.decode_step(model, cfg, last, cache, 1000,
+                                              dtype=torch.float32), 5)}
+    out = {}
+    for name, (fn, reps) in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.monotonic() - t0) / reps
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = device_events(prof)
+        dev = sum(e.self_device_time_total for e in events) / 1e6 / reps
+        n_dev = sum(e.count for e in events) / reps
+        top = events[:6]
+        out[name] = dict(wall_ms=1e3 * wall, device_ms=1e3 * dev,
+                         busy=dev / wall, device_ops=n_dev)
+        log(f"[serve] {name}: {1e3 * wall:.2f} ms wall, device busy "
+            f"{1e3 * dev:.2f} ms ({100.0 * dev / wall:.1f}%), "
+            f"{n_dev:.0f} device ops; top: " +
+            "; ".join(f"{e.key[:40]} "
+                      f"{e.self_device_time_total / 1e3 / reps:.2f} ms"
+                      for e in top))
+    return out
+
+
+def phase_serve(report):
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models import decode as D
+    from repro_torch.models import layers, ssm
+    from repro_torch.models.transformer import init_params, param_count
+    serve_reduced_card_vs_cpu()
+
+    cfg = get_config("zamba2-2.7b")
+    t0 = time.monotonic()
+    model = init_params(cfg, torch.Generator(DEVICE).manual_seed(0), DEVICE)
+    torch.cuda.synchronize()
+    n_params = param_count(model)
+    log(f"[serve] {cfg.name} f32 on the card: {n_params:,} parameters, "
+        f"{4 * n_params / 1e9:.2f} GB of weights, built in "
+        f"{time.monotonic() - t0:.1f}s")
+    prompts = serve_prompts(cfg.vocab, SERVE["requests"], *SERVE["prompt"],
+                            0)
+    keeps = [
+        Keep(layers, "rmsnorm_kernel", lambda a, k: (
+            f"{'prefill' if a[0].shape[1] > 1 else 'decode'} "
+            f"d={a[0].shape[-1]}", a[0].numel())),
+        Keep(layers, "flash_attention", lambda a, k: (
+            "prefill" if a[0].shape[1] > 1 else "decode",
+            a[0].shape[0] * a[0].shape[1]
+            * (k.get("kv_valid_len") or a[1].shape[1]))),
+        Keep(ssm, "ssd_scan", lambda a, k: ("prefill", a[0].numel()))]
+    pre, dec = Timed(D, "prefill"), Timed(D, "decode_step")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.LAUNCH_COUNTS.clear()  # this path's launches start here
+    t0 = time.monotonic()
+    with keeps[0], keeps[1], keeps[2], pre, dec:
+        reqs, eng = serve(model, cfg, prompts, slots=SERVE["slots"],
+                          max_len=SERVE["max_len"], new=SERVE["new"],
+                          device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = {k: build.LAUNCH_COUNTS[k] for k in LLM_KERNELS}
+    if pre.nonfinite or dec.nonfinite:
+        raise AssertionError(f"non-finite logits in {pre.nonfinite} "
+                             f"prefills and {dec.nonfinite} decode steps")
+    if not all(launches.values()):
+        raise AssertionError(f"a kernel of the serving path never "
+                             f"launched: {launches}")
+    n_prompt = sum(len(p) for p in prompts)
+    n_decoded = sum(len(r.out_tokens) - 1 for r in reqs)
+    report["serve"] = dict(
+        params=n_params, weight_gb=4 * n_params / 1e9, wall_s=wall,
+        prefill_s=pre.seconds, prefill_tok_per_s=n_prompt / pre.seconds,
+        decode_ms_per_step=1e3 * dec.seconds / dec.calls,
+        decode_tok_per_s=n_decoded / dec.seconds, steps=eng.steps,
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9, launches=launches)
+    s = report["serve"]
+    log(f"[serve] {cfg.name}: {len(reqs)}/{len(reqs)} requests done, "
+        f"{SERVE['slots']} slots, prompts {min(map(len, prompts))}.."
+        f"{max(map(len, prompts))} tokens ({n_prompt} in all), "
+        f"{SERVE['new']} new each, max_len {SERVE['max_len']}; wall "
+        f"{wall:.2f}s; prefill {pre.seconds:.2f}s = "
+        f"{s['prefill_tok_per_s']:.0f} tokens/s; decode {dec.calls} steps "
+        f"{s['decode_ms_per_step']:.2f} ms/step = "
+        f"{s['decode_tok_per_s']:.1f} tokens/s; peak memory "
+        f"{s['peak_gb']:.2f} GB; launches {launches}")
+    report["serve"]["busy"] = serve_device_busy(model, cfg)
+    report["serve_kept"] = {"rmsnorm": keeps[0].kept,
+                            "flash_attention": keeps[1].kept,
+                            "ssd_scan": keeps[2].kept}
+
+
+def phase_llm_kernels_at_serve_shape(report):
+    """Time each LLM kernel on the serve run's largest calls and hold it
+    against its plain version there (f32)."""
+    import torch
+    out = report.setdefault("kernels", [])
+    for kernel, (source, replaces) in LLM_KERNELS.items():
+        rows = []
+        for label, (_size, args, kw) in sorted(
+                report["serve_kept"][kernel].items()):
+            kern, plain = llm_calls(kernel, args, kw)
+            got, ref = kern(), plain()
+            pairs = zip(got, ref) if kernel == "ssd_scan" else [(got, ref)]
+            err = max(close_err(g, r, LLM_TOL["float32"][kernel],
+                                f"{kernel} at the serve shape {label}")
+                      for g, r in pairs)
+            lib = library_call(kernel, args, kw)
+            if kernel == "rmsnorm":
+                x = args[0]
+                flops, nbytes = 4.0 * x.numel(), \
+                    2 * x.numel() * x.element_size() + 4 * x.shape[-1]
+            elif kernel == "flash_attention":
+                flops, nbytes = attention_work(args[0], args[1], kw)
+            else:
+                flops, nbytes = ssd_work(args[0], args[3], kw)
+            b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            b_ops = flops / FP32_OPS_PER_S * 1e3
+            rows.append({
+                "label": label, "shape": list(args[0].shape),
+                "kwargs": {k: v for k, v in kw.items()
+                           if not torch.is_tensor(v)},
+                "max_abs_err": err, "ms": cuda_median_ms(kern),
+                "plain_ms": cuda_median_ms(plain),
+                "bound_ms": max(b_bytes, b_ops),
+                "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+                "library_ms": None if lib is None else cuda_median_ms(lib)})
+            r = rows[-1]
+            lib_txt = ("none" if r["library_ms"] is None
+                       else f"{r['library_ms']:.4f} ms")
+            log(f"[kernel] {kernel} at the serve shape {label} "
+                f"{r['shape']} {r['kwargs']}: {r['ms']:.4f} ms (plain "
+                f"{r['plain_ms']:.4f} ms, library {lib_txt}, bound "
+                f"{r['bound_ms']:.6f} ms by {r['bound_by']}); max |err| "
+                f"{err:.3g}")
+        main = max(rows, key=lambda r: r["bound_ms"])
+        out.append({
+            "name": kernel, "route": "cuda", "source": source,
+            "replaces": replaces,
+            "launches": report["serve"]["launches"][kernel],
+            "max_abs_err": max([r["max_abs_err"] for r in rows]
+                               + [report.get("max_abs_err", {}).get(kernel,
+                                                                    0.0)]),
+            **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms", "shape")},
+            "shapes": rows})
+
+
 def haswell_scale(report, elapsed_s):
     """1.0, or the largest of 0.5 and 0.25 whose predicted wall (at this
     card's theta greedy rate) still ends inside the time limit."""
@@ -504,7 +984,7 @@ def phase_profile(report):
         todo, _, info = run_grid(("theta",), 0.1, 1, "fused", "cuda")
         torch.cuda.synchronize()
     wall_us = (time.monotonic() - t0) * 1e6
-    events = prof.key_averages()
+    events = device_events(prof)
     dev_us = sum(e.self_device_time_total for e in events)
     steps = info["greedy_steps"] + info["balanced_steps"]
     log(f"[profile] theta scale 0.1 fused, {len(todo)} cells, {steps} "
@@ -512,18 +992,16 @@ def phase_profile(report):
         f"{dev_us / 1e6:.3f}s ({100.0 * dev_us / wall_us:.1f}% of wall), "
         f"{sum(e.count for e in events if e.self_device_time_total > 0)} "
         "device ops")
-    top = sorted(events, key=lambda e: e.self_device_time_total,
-                 reverse=True)[:8]
-    for e in top:
+    for e in events[:8]:
         log(f"[profile]   {e.key[:60]:60s} {e.count:8d} calls "
             f"{e.self_device_time_total / 1e3:10.2f} ms device")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="env,parity,main,scale",
-                    help="comma-separated subset of env,parity,main,scale "
-                         "(the default) and the opt-in profile")
+    ap.add_argument("--phases", default="env,parity,main,serve,scale",
+                    help="comma-separated subset of env,parity,main,serve,"
+                         "scale (the default) and the opt-in profile")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -550,9 +1028,13 @@ def main(argv=None) -> int:
         phase_env(report)
         if "parity" in phases:
             phase_parity(report)
+            phase_llm_parity(report)
         if "main" in phases:
             phase_main(report)
             phase_kernels_at_main_shape(report)
+        if "serve" in phases:
+            phase_serve(report)
+            phase_llm_kernels_at_serve_shape(report)
         if "scale" in phases:
             phase_scale(report, time.monotonic() - t_start)
         if "profile" in phases:

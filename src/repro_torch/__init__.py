@@ -2,9 +2,12 @@
 
 A second package beside the JAX reference ``repro``: it runs the paper grid
 (the batched event-stepped engine, its metrics and the experiment backend)
-in PyTorch, with the greedy scheduling pass and the prefix waterfill as
-hand-written CUDA kernels for Hopper (``repro_torch/kernels/csrc``).  It
-imports ``torch`` and numpy only; the JAX package is never imported here.
+and LLM serving (``serve.engine`` over ``models``: the ``mamba``,
+``shared`` and ``attn`` block kinds) in PyTorch, with the greedy
+scheduling pass, the prefix waterfill, RMSNorm, flash attention and the
+Mamba-2 SSD scan as hand-written CUDA kernels for Hopper
+(``repro_torch/kernels/csrc``).  It imports ``torch`` and numpy only; the
+JAX package is never imported here.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card and without that argument they raise instead of running on

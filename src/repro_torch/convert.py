@@ -3,8 +3,9 @@
 The JAX package's ``BatchedLanes`` / ``PassParams`` / slot arrays, handed
 over as numpy arrays keyed by field name, become the port's tensors on a
 given device (dtypes kept: bool, int32, float32), and a result dict comes
-back as numpy.  The parity tests use this so both packages compute on
-identical inputs; nothing here imports JAX.
+back as numpy.  The LLM layer's parameters and decode caches cross the
+same way, keyed by their JAX pytree paths.  The parity tests use this so
+both packages compute on identical inputs; nothing here imports JAX.
 """
 from __future__ import annotations
 
@@ -53,3 +54,68 @@ def result_to_numpy(result) -> Dict[str, object]:
     if isinstance(result, Mapping):
         return {k: conv(v) for k, v in result.items()}
     return type(result)(conv(v) for v in result)
+
+
+# ---------------------------------------------------------------- LLM layer
+def lm_params_from_numpy(flat: Mapping[str, object], cfg, device=None):
+    """The port's :class:`~repro_torch.models.transformer.LM` holding the
+    JAX ``init_params`` pytree's values.
+
+    ``flat`` maps each JAX leaf's path, joined by ``/``
+    (``"segments/3/mixer/in_z"``, ``"shared_block/attn/wq"``,
+    ``"embed/table"``), to its numpy array; a segment's stacked leaves
+    (layers on axis 0) are split into the port's per-layer modules.  Every
+    parameter must be filled and every leaf used.
+    """
+    from repro_torch.models.transformer import LM
+    dev = resolve_device(device)
+    model = LM(cfg, dev)
+    used = set()
+    with torch.no_grad():
+        for name, prm in model.named_parameters():
+            parts = name.split(".")
+            if parts[0] == "segments":
+                key = "/".join(["segments", parts[1]] + parts[3:])
+                arr = np.asarray(flat[key])[int(parts[2])]
+            else:
+                key = "/".join(parts)
+                arr = np.asarray(flat[key])
+            if arr.shape != tuple(prm.shape):
+                raise ValueError(f"{key}: {arr.shape} for a parameter of "
+                                 f"{tuple(prm.shape)}")
+            prm.copy_(torch.from_numpy(np.array(arr, copy=True)))
+            used.add(key)
+    if used != set(flat):
+        raise ValueError(f"leaves not used: {sorted(set(flat) - used)}")
+    return model
+
+
+def cache_to_numpy(cache) -> Dict[str, np.ndarray]:
+    """A decode cache as numpy arrays keyed ``segments/<i>/<leaf>`` (the
+    JAX cache's leaf paths)."""
+    out = {}
+    for i, seg in enumerate(cache["segments"]):
+        items = seg._asdict().items() if hasattr(seg, "_asdict") else \
+            seg.items()
+        for name, t in items:
+            out[f"segments/{i}/{name}"] = t.detach().cpu().numpy()
+    return out
+
+
+def cache_from_numpy(flat: Mapping[str, object], cfg, device=None):
+    """The inverse of :func:`cache_to_numpy` for ``cfg``'s segment plan."""
+    from repro_torch.models.ssm import MambaCache
+    from repro_torch.models.transformer import build_plan
+    dev = resolve_device(device)
+
+    def t(key):
+        return torch.from_numpy(np.array(flat[key], copy=True)).to(dev)
+
+    segs = []
+    for i, seg in enumerate(build_plan(cfg)):
+        if seg.kind == "mamba":
+            segs.append(MambaCache(*(t(f"segments/{i}/{f}")
+                                     for f in MambaCache._fields)))
+        else:
+            segs.append({n: t(f"segments/{i}/{n}") for n in ("k", "v")})
+    return {"segments": segs}

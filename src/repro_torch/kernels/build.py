@@ -35,8 +35,9 @@ import threading
 import time
 
 CSRC = pathlib.Path(__file__).resolve().with_name("csrc")
-SOURCES = ("schedule_tick.cu", "waterfill.cu", "bindings.cpp")
-HEADERS = ("kernels.h", "block.cuh")
+SOURCES = ("schedule_tick.cu", "waterfill.cu", "rmsnorm.cu",
+           "flash_attention.cu", "ssd_scan.cu", "bindings.cpp")
+HEADERS = ("kernels.h", "block.cuh", "dtype.cuh")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3",
               "--fmad=false", "-std=c++17", "-Xcompiler", "-fPIC",
               "-Xptxas=-v")
@@ -49,11 +50,15 @@ BUILD_INFO: dict = {}
 _LIB = None
 _LOCK = threading.Lock()
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "repro_schedule_tick": [_P] * 19 + [_I] * 12 + [_P],
     "repro_waterfill": [_P, _P, _P, _I, _I, _P],
+    "repro_rmsnorm": [_P, _P, _P, _I, _I, _F, _I, _P],
+    "repro_flash_attention": [_P] * 4 + [_I] * 10 + [_F, _I, _P],
+    "repro_ssd_scan": [_P] * 8 + [_I] * 7 + [_P],
 }
+_CODES = {_P: "P", _I: "I", _F: "F"}
 
 
 def build_dir() -> pathlib.Path:
@@ -121,9 +126,8 @@ def _build(lib_path: pathlib.Path) -> str:
 
 def expected_abi() -> str:
     """``_SIGNATURES`` spelled as ``repro_abi()`` spells the library's."""
-    return "".join(
-        f"{fn}={''.join('P' if t is _P else 'I' for t in argtypes)};"
-        for fn, argtypes in _SIGNATURES.items())
+    return "".join(f"{fn}={''.join(_CODES[t] for t in argtypes)};"
+                   for fn, argtypes in _SIGNATURES.items())
 
 
 def load_library() -> ctypes.CDLL:
@@ -152,6 +156,23 @@ def load_library() -> ctypes.CDLL:
                           log=log)
         _LIB = lib
         return lib
+
+
+def dtype_code(t) -> int:
+    """The C code of an LLM kernel's activation type (``DType`` in
+    ``kernels.h``): 0 for float32, 1 for bfloat16; raises otherwise."""
+    import torch
+    codes = {torch.float32: 0, torch.bfloat16: 1}
+    if t.dtype not in codes:
+        raise ValueError(f"the kernels take float32 or bfloat16, not "
+                         f"{t.dtype}")
+    return codes[t.dtype]
+
+
+def stream_of(t) -> int:
+    """The current CUDA stream of ``t``'s device, as ctypes passes it."""
+    import torch
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def check_launch(lib: ctypes.CDLL, err: int, name: str) -> None:

@@ -66,6 +66,60 @@ int repro_waterfill(const void* cap, const void* target, void* out, int B,
       static_cast<int*>(out), B, N, static_cast<cudaStream_t>(stream)));
 }
 
+int repro_rmsnorm(const void* x, const void* w, void* out, int rows, int d,
+                  float eps, int dtype, void* stream) {
+  return static_cast<int>(repro::launch_rmsnorm(
+      x, static_cast<const float*>(w), out, rows, d, eps, dtype,
+      static_cast<cudaStream_t>(stream)));
+}
+
+int repro_flash_attention(const void* q, const void* k, const void* v,
+                          void* o, int B, int Sq, int Sk, int H, int Hkv,
+                          int D, int q_offset, int kv_valid, int window,
+                          int causal, float scale, int dtype, void* stream) {
+  repro::AttnArgs a;
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.o = o;
+  a.B = B;
+  a.Sq = Sq;
+  a.Sk = Sk;
+  a.H = H;
+  a.Hkv = Hkv;
+  a.D = D;
+  a.q_offset = q_offset;
+  a.kv_valid = kv_valid;
+  a.window = window;
+  a.causal = causal;
+  a.scale = scale;
+  return static_cast<int>(repro::launch_flash_attention(
+      a, dtype, static_cast<cudaStream_t>(stream)));
+}
+
+int repro_ssd_scan(const void* x, const void* dt, const void* a_rate,
+                   const void* b, const void* c, const void* init, void* y,
+                   void* state, int B, int S, int H, int P, int N, int L,
+                   int dtype, void* stream) {
+  repro::SsdArgs a;
+  a.x = x;
+  a.dt = dt;
+  a.a = static_cast<const float*>(a_rate);
+  a.b = b;
+  a.c = c;
+  a.init = static_cast<const float*>(init);
+  a.y = static_cast<float*>(y);
+  a.state = static_cast<float*>(state);
+  a.B = B;
+  a.S = S;
+  a.H = H;
+  a.P = P;
+  a.N = N;
+  a.L = L;
+  return static_cast<int>(repro::launch_ssd_scan(
+      a, dtype, static_cast<cudaStream_t>(stream)));
+}
+
 const char* repro_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
@@ -74,12 +128,14 @@ const char* repro_error_string(int err) {
 
 namespace {
 
-// P for a pointer parameter, I for an int, ? for anything else.
+// P for a pointer parameter, I for an int, F for a float, ? for anything
+// else.
 template <typename T>
 constexpr char param_code() {
-  return std::is_pointer<T>::value ? 'P'
-         : std::is_same<T, int>::value ? 'I'
-                                        : '?';
+  return std::is_pointer<T>::value       ? 'P'
+         : std::is_same<T, int>::value   ? 'I'
+         : std::is_same<T, float>::value ? 'F'
+                                         : '?';
 }
 
 // Writes "name=<one code per parameter>;" at `out`; returns its end.
@@ -93,7 +149,7 @@ char* append_signature(char* out, const char* name, R (*)(A...)) {
 }
 
 struct Abi {
-  char text[256];
+  char text[512];
 };
 
 Abi make_abi() {
@@ -101,6 +157,10 @@ Abi make_abi() {
   char* out = append_signature(abi.text, "repro_schedule_tick",
                                &repro_schedule_tick);
   out = append_signature(out, "repro_waterfill", &repro_waterfill);
+  out = append_signature(out, "repro_rmsnorm", &repro_rmsnorm);
+  out = append_signature(out, "repro_flash_attention",
+                         &repro_flash_attention);
+  out = append_signature(out, "repro_ssd_scan", &repro_ssd_scan);
   *out = '\0';
   return abi;
 }

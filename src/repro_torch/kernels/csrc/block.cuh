@@ -53,6 +53,9 @@ __device__ __forceinline__ T block_reduce(T v, Op op, T* sh) {
 struct SumOp {
   __device__ __forceinline__ int operator()(int a, int b) const { return a + b; }
 };
+struct SumFloatOp {
+  __device__ __forceinline__ float operator()(float a, float b) const { return a + b; }
+};
 struct MaxIntOp {
   __device__ __forceinline__ int operator()(int a, int b) const { return a > b ? a : b; }
 };

@@ -47,4 +47,46 @@ cudaError_t launch_schedule_tick(const TickArgs& args, cudaStream_t stream);
 cudaError_t launch_waterfill(const int* cap, const int* target, int* out,
                              int B, int N, cudaStream_t stream);
 
+// Element type of the LLM kernels' activations (weights and states are f32).
+enum DType : int { kF32 = 0, kBF16 = 1 };
+
+// RMSNorm over `rows` contiguous rows of width d: x * rsqrt(mean(x^2) + eps)
+// * w in f32, written in x's type.  w: (d,) f32.
+cudaError_t launch_rmsnorm(const void* x, const float* w, void* out, int rows,
+                           int d, float eps, int dtype, cudaStream_t stream);
+
+// Online-softmax attention.  q, o: (B, Sq, H, D); k, v: (B, Sk, Hkv, D), all
+// contiguous and of one type; query head h reads KV head h / (H / Hkv).
+// Query i sits at absolute position q_offset + i, key j at j; key j is seen
+// when j < kv_valid, (causal) j <= query position and (window > 0)
+// j > query position - window.  Rows that see no key are 0.
+struct AttnArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;
+  int B, Sq, Sk, H, Hkv, D;
+  int q_offset, kv_valid, window, causal;
+  float scale;
+};
+cudaError_t launch_flash_attention(const AttnArgs& args, int dtype,
+                                   cudaStream_t stream);
+
+// Mamba-2 chunked SSD scan.  x: (B, S, H, P); dt: (B, S, H); b, c: (B, S, N)
+// of one type; a: (H,) f32; init: (B, H, P, N) f32 or null.  Writes
+// y: (B, S, H, P) f32 and state: (B, H, P, N) f32.  L is the chunk length.
+struct SsdArgs {
+  const void* x;
+  const void* dt;
+  const float* a;
+  const void* b;
+  const void* c;
+  const float* init;
+  float* y;
+  float* state;
+  int B, S, H, P, N, L;
+};
+cudaError_t launch_ssd_scan(const SsdArgs& args, int dtype,
+                            cudaStream_t stream);
+
 }  // namespace repro

@@ -1,0 +1,143 @@
+"""Prefill / decode for the port's LM, with per-segment caches.
+
+Counterpart of the JAX package's ``models/decode.py`` for the ``mamba``,
+``shared`` and ``attn`` block kinds.  Cache anatomy, one entry per plan
+segment (the JAX layout, layers stacked on the leading axis):
+
+  * ``attn`` segments   -- {"k", "v"}: (L, B, S_cache, H_kv, D_h)
+  * ``mamba`` segments  -- :class:`MambaCache` of (L, B, ...) tensors
+  * ``shared`` markers  -- one {"k", "v"}: (B, S_cache, H_kv, D_h) each
+
+:func:`prefill` runs a whole prompt and emits the cache, KV padded with
+zeros to ``cache_size``; :func:`decode_step` advances one token.  Unlike
+the JAX functions, :func:`decode_step` updates the cache it is given in
+place (it writes one KV row per layer and the SSM states) and returns it.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
+
+from . import layers as L
+from . import ssm as S
+from .transformer import (LM, _ssm_dims, build_plan, check_supported,
+                          embed_inputs, layer_thetas, layer_windows,
+                          logits_fn, run_stack)
+
+
+def init_decode_cache(cfg: ModelConfig, batch: int, cache_size: int,
+                      dtype=torch.bfloat16, device=None):
+    """Zero-initialised cache for ``batch`` sequences of ``cache_size``."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+
+    def zeros(*shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=dev)
+
+    segs = []
+    dims = _ssm_dims(cfg) if cfg.ssm_state else None
+    kv = (cache_size, cfg.n_kv_heads, cfg.head_dim)
+    for seg in build_plan(cfg):
+        if seg.kind == "mamba":
+            segs.append(S.MambaCache(
+                conv_x=zeros(seg.count, batch, dims.d_conv - 1, dims.d_inner),
+                conv_bc=zeros(seg.count, batch, dims.d_conv - 1,
+                              2 * dims.dstate),
+                state=zeros(seg.count, batch, dims.nheads, dims.headdim,
+                            dims.dstate, dt=torch.float32)))
+        elif seg.kind == "shared":
+            segs.append({"k": zeros(batch, *kv), "v": zeros(batch, *kv)})
+        else:
+            segs.append({"k": zeros(seg.count, batch, *kv),
+                         "v": zeros(seg.count, batch, *kv)})
+    return {"segments": segs}
+
+
+# ------------------------------------------------------------------ decode
+def _attn_block_decode(p, x, cfg: ModelConfig, k_cache, v_cache,
+                       cache_len: int, window: int, theta: float, dtype):
+    h = L.apply_norm(cfg.norm, p.ln1, x)
+    att, _, _ = L.gqa_decode(
+        p.attn, h, k_cache, v_cache, cache_len, n_heads=cfg.n_heads,
+        n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim,
+        rope_theta=None if cfg.rope_theta == 0 else theta, window=window,
+        dtype=dtype)
+    x = x + att
+    h2 = L.apply_norm(cfg.norm, p.ln2, x)
+    return x + L.apply_mlp(p.mlp, h2, cfg.act, dtype)
+
+
+@torch.no_grad()
+def decode_step(model: LM, cfg: ModelConfig, token: torch.Tensor, cache,
+                cache_len: int, *, dtype=torch.bfloat16):
+    """One decoding step at position ``cache_len`` for every row.
+
+    token: (B, 1) int; returns ``(logits (B, vocab), cache)``, the cache
+    updated in place."""
+    x = L.embed(model.embed, token, dtype)
+    if cfg.rope_theta == 0:
+        pos = torch.full((), float(cache_len), device=x.device)
+        x = x + L.sinusoidal_at(pos, cfg.d_model).to(dtype)[None, None, :]
+    windows, thetas = layer_windows(cfg), layer_thetas(cfg)
+    dims = _ssm_dims(cfg) if cfg.ssm_state else None
+    for seg, blocks, c in zip(model.plan, model.segments, cache["segments"]):
+        if seg.kind == "shared":
+            x = _attn_block_decode(model.shared_block, x, cfg, c["k"],
+                                   c["v"], cache_len, 0,
+                                   float(np.float32(cfg.rope_theta)), dtype)
+            continue
+        for i, blk in enumerate(blocks):
+            layer = seg.start + i
+            if seg.kind == "mamba":
+                h = L.apply_norm(cfg.norm, blk.ln, x)
+                out, new = S.mamba2_decode(
+                    blk.mixer, h, S.MambaCache(*(t[i] for t in c)), dims,
+                    dtype)
+                for dst, src in zip(c, new):
+                    dst[i].copy_(src)
+                x = x + out
+            else:
+                x = _attn_block_decode(blk, x, cfg, c["k"][i], c["v"][i],
+                                       cache_len, int(windows[layer]),
+                                       float(thetas[layer]), dtype)
+    logits = logits_fn(model, cfg, x, dtype)
+    return logits[:, 0], cache
+
+
+# ------------------------------------------------------------------ prefill
+def _pad_cache_seq(arr: torch.Tensor, cache_size: int) -> torch.Tensor:
+    """Zero-pad (or cut) axis 1 to ``cache_size``."""
+    pad = cache_size - arr.shape[1]
+    if pad <= 0:
+        return arr[:, :cache_size]
+    return F.pad(arr, (0, 0) * (arr.ndim - 2) + (0, pad))
+
+
+@torch.no_grad()
+def prefill(model: LM, cfg: ModelConfig, batch, *,
+            cache_size: Optional[int] = None, dtype=torch.bfloat16):
+    """Whole-prompt forward: ``(last-position logits (B, vocab), cache)``."""
+    x, positions = embed_inputs(model, cfg, batch["tokens"], dtype)
+    cache_size = cache_size or x.shape[1]
+    x, leaves = run_stack(model, cfg, x, positions, dtype)
+    segments = []
+    for seg, leaf in zip(model.plan, leaves):
+        if seg.kind == "shared":
+            segments.append({n: _pad_cache_seq(leaf[n], cache_size)
+                             for n in ("k", "v")})
+        elif seg.kind == "mamba":
+            segments.append(S.MambaCache(*(torch.stack(t)
+                                           for t in zip(*leaf))))
+        else:
+            segments.append({n: torch.stack([_pad_cache_seq(lf[n],
+                                                            cache_size)
+                                             for lf in leaf])
+                             for n in ("k", "v")})
+    logits = logits_fn(model, cfg, x[:, -1:], dtype)
+    return logits[:, 0], {"segments": segments}

@@ -1,0 +1,266 @@
+"""The port's decoder LM: blocks of kind ``mamba``, ``shared`` and ``attn``.
+
+Counterpart of the JAX package's ``models/transformer.py`` for the serving
+path.  The JAX package stacks each segment's parameters and scans over
+them; here every layer is its own ``nn.Module`` in an ``nn.ModuleList``
+per segment, run by a Python loop.  Parameter names follow the JAX pytree:
+``segments.<i>.<layer>.mixer.in_z`` is layer ``<layer>`` of the JAX
+``segments/<i>/mixer/in_z`` stack (see ``repro_torch.convert``).
+
+Structures of later slices raise ``NotImplementedError`` naming their
+ROADMAP item: MoE, MLA, the encoder-decoder, modality frontends and
+training.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import List, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
+
+from . import layers as L
+from . import ssm as S
+
+
+# ----------------------------------------------------------------- plan
+@dataclasses.dataclass(frozen=True)
+class Segment:
+    kind: str    # attn | moe | mamba | shared
+    count: int
+    start: int   # global index of the first layer in this segment
+
+
+def build_plan(cfg: ModelConfig) -> Tuple[Segment, ...]:
+    """Decoder-stack segment plan (as the JAX package builds it)."""
+    segs: List[Segment] = []
+    if cfg.family == "ssm":
+        segs.append(Segment("mamba", cfg.n_layers, 0))
+    elif cfg.family == "hybrid":
+        done = 0
+        while done < cfg.n_layers:
+            run = min(cfg.shared_attn_every, cfg.n_layers - done)
+            segs.append(Segment("mamba", run, done))
+            done += run
+            if done < cfg.n_layers or run == cfg.shared_attn_every:
+                segs.append(Segment("shared", 1, done))
+    elif cfg.n_experts > 0:
+        if cfg.first_dense_layers:
+            segs.append(Segment("attn", cfg.first_dense_layers, 0))
+        segs.append(Segment("moe", cfg.n_layers - cfg.first_dense_layers,
+                            cfg.first_dense_layers))
+    else:
+        segs.append(Segment("attn", cfg.n_layers, 0))
+    return tuple(segs)
+
+
+def layer_windows(cfg: ModelConfig) -> np.ndarray:
+    """Per-layer sliding window (0 = global attention)."""
+    w = np.zeros(cfg.n_layers, dtype=np.int32)
+    if cfg.sliding_window:
+        if cfg.global_every:
+            w[:] = cfg.sliding_window
+            w[cfg.global_every - 1::cfg.global_every] = 0   # LLLLLG pattern
+        else:
+            w[:] = cfg.sliding_window
+    return w
+
+
+def layer_thetas(cfg: ModelConfig) -> np.ndarray:
+    t = np.full(cfg.n_layers, cfg.rope_theta, dtype=np.float32)
+    if cfg.rope_theta_global and cfg.global_every:
+        t[cfg.global_every - 1::cfg.global_every] = cfg.rope_theta_global
+    return t
+
+
+def _ssm_dims(cfg: ModelConfig) -> S.SSMDims:
+    return S.SSMDims.from_config(cfg.d_model, cfg.ssm_state,
+                                 cfg.ssm_expand, cfg.ssm_headdim)
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for structures of later slices, naming
+    each one's ROADMAP item."""
+    todo = [(cfg.n_experts > 0, "MoE blocks", "A10a"),
+            (cfg.attn == "mla", "MLA attention", "A10b"),
+            (cfg.is_encdec, "the encoder-decoder", "A10c"),
+            (cfg.frontend != "none", f"the {cfg.frontend} frontend", "A10d")]
+    missing = [f"{what} (ROADMAP §{item})" for hit, what, item in todo
+               if hit]
+    if missing:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(missing)} not ported to repro_torch "
+            "yet")
+
+
+# ----------------------------------------------------------------- blocks
+class MambaBlock(nn.Module):
+    """``ln`` + Mamba-2 ``mixer``."""
+
+    def __init__(self, cfg: ModelConfig, device=None, dtype=torch.float32):
+        super().__init__()
+        self.ln = L.Norm(cfg.norm, cfg.d_model, device, dtype)
+        self.mixer = S.Mamba2(_ssm_dims(cfg), device, dtype)
+
+    def forward(self, x, cfg: ModelConfig, positions, window, theta, dtype):
+        """Returns (x, the layer's :class:`MambaCache`)."""
+        h = L.apply_norm(cfg.norm, self.ln, x)
+        out, cache = S.apply_mamba2(self.mixer, h, _ssm_dims(cfg), dtype,
+                                    return_cache=True)
+        return x + out, cache
+
+
+class AttnBlock(nn.Module):
+    """``ln1`` + GQA ``attn`` + ``ln2`` + ``mlp``: kinds ``attn`` and
+    ``shared`` (zamba2's one block applied at every marker)."""
+
+    def __init__(self, cfg: ModelConfig, device=None, dtype=torch.float32):
+        super().__init__()
+        d = cfg.d_model
+        self.ln1 = L.Norm(cfg.norm, d, device, dtype)
+        self.attn = L.GQA(d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                          cfg.qkv_bias, device, dtype)
+        self.ln2 = L.Norm(cfg.norm, d, device, dtype)
+        self.mlp = L.MLP(d, cfg.d_ff, cfg.act, device, dtype)
+
+    def forward(self, x, cfg: ModelConfig, positions, window, theta, dtype):
+        """Returns (x, {"k", "v"} of the layer's keys and values)."""
+        h = L.apply_norm(cfg.norm, self.ln1, x)
+        att, k, v = L.gqa_attention(
+            self.attn, h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+            head_dim=cfg.head_dim, positions=positions,
+            rope_theta=None if cfg.rope_theta == 0 else theta, causal=True,
+            window=window, dtype=dtype)
+        x = x + att
+        h2 = L.apply_norm(cfg.norm, self.ln2, x)
+        return x + L.apply_mlp(self.mlp, h2, cfg.act, dtype), {"k": k,
+                                                              "v": v}
+
+
+BLOCKS = {"mamba": MambaBlock, "attn": AttnBlock, "shared": AttnBlock}
+
+
+class LM(nn.Module):
+    """The decoder LM's parameters, uninitialised (see :func:`init_params`).
+
+    ``segments[i]`` holds segment i's layers (empty for a ``shared``
+    marker, which applies ``shared_block``)."""
+
+    def __init__(self, cfg: ModelConfig, device=None, dtype=torch.float32):
+        super().__init__()
+        check_supported(cfg)
+        self.cfg = cfg
+        self.plan = build_plan(cfg)
+        self.embed = L.Embed(cfg.vocab, cfg.d_model, device, dtype)
+        self.segments = nn.ModuleList(
+            nn.ModuleList([] if seg.kind == "shared" else
+                          [BLOCKS[seg.kind](cfg, device, dtype)
+                           for _ in range(seg.count)])
+            for seg in self.plan)
+        if cfg.shared_attn_every:
+            self.shared_block = AttnBlock(cfg, device, dtype)
+        self.final_norm = L.Norm(cfg.norm, cfg.d_model, device, dtype)
+        if not cfg.tie_embeddings:
+            self.unembed = L._empty(cfg.d_model, cfg.vocab, device=device,
+                                    dtype=dtype)
+
+
+# ----------------------------------------------------------------- init
+_ZEROS = ("bias", "bq", "bk", "bv", "conv_bias_x", "conv_bias_bc", "dt_bias")
+_ONES = ("scale", "d_skip")
+
+
+@torch.no_grad()
+def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
+                dtype=torch.float32) -> LM:
+    """A model with the JAX ``init_params`` shapes and init scales, drawn
+    from ``generator`` (on ``device``'s type) in parameter order.
+
+    Dense weights are N(0, 1) / sqrt(d_in), the embedding table
+    N(0, 1) / sqrt(d_model), conv kernels N(0, 1) / sqrt(d_conv); norms
+    and ``d_skip`` are 1, biases 0, ``a_log = log(linspace(1, 16, H))``.
+    Not JAX's random stream: the same seed gives other weights.
+    """
+    dev = resolve_device(device)
+    model = LM(cfg, dev, dtype)
+    for name, prm in model.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf in _ZEROS:
+            prm.zero_()
+        elif leaf in _ONES:
+            prm.fill_(1.0)
+        elif leaf == "a_log":
+            prm.copy_(torch.log(torch.linspace(1.0, 16.0, prm.shape[0])))
+        else:
+            draw = torch.randn(prm.shape, generator=generator, device=dev,
+                               dtype=torch.float32)
+            if leaf == "table":
+                draw /= math.sqrt(prm.shape[1])
+            else:            # (d_in, d_out) weights and (d_conv, C) kernels
+                draw /= math.sqrt(prm.shape[0])
+            prm.copy_(draw)
+    return model
+
+
+def param_count(model: nn.Module) -> int:
+    return sum(p.numel() for p in model.parameters())
+
+
+# ----------------------------------------------------------------- forward
+def run_stack(model: LM, cfg: ModelConfig, x, positions, dtype):
+    """Run the decoder segment plan over x.
+
+    Returns ``(x, leaves)``: per segment, the ``shared`` marker's k / v, or
+    the list of its layers' cache leaves (what prefill keeps)."""
+    windows, thetas = layer_windows(cfg), layer_thetas(cfg)
+    leaves = []
+    for seg, blocks in zip(model.plan, model.segments):
+        if seg.kind == "shared":
+            x, leaf = model.shared_block(x, cfg, positions, 0,
+                                         float(np.float32(cfg.rope_theta)),
+                                         dtype)
+            leaves.append(leaf)
+            continue
+        seg_leaves = []
+        for i, blk in enumerate(blocks):
+            layer = seg.start + i
+            x, leaf = blk(x, cfg, positions, int(windows[layer]),
+                          float(thetas[layer]), dtype)
+            seg_leaves.append(leaf)
+        leaves.append(seg_leaves)
+    return x, leaves
+
+
+def embed_inputs(model: LM, cfg: ModelConfig, tokens, dtype):
+    """Token embedding (+ sinusoidal positions when the arch has no RoPE).
+    Returns (x, positions)."""
+    x = L.embed(model.embed, tokens, dtype)
+    positions = torch.arange(x.shape[1], device=x.device)
+    if cfg.rope_theta == 0:
+        x = x + L.sinusoidal_positions(x.shape[1], cfg.d_model,
+                                       x.device)[None].to(dtype)
+    return x, positions
+
+
+def logits_fn(model: LM, cfg: ModelConfig, x, dtype):
+    x = L.apply_norm(cfg.norm, model.final_norm, x)
+    return L.unembed(model.embed, x, dtype, getattr(model, "unembed", None))
+
+
+@torch.no_grad()
+def forward_logits(model: LM, cfg: ModelConfig, batch, *,
+                   dtype=torch.bfloat16):
+    """Logits (B, S, vocab) of ``batch["tokens"]`` (B, S)."""
+    x, positions = embed_inputs(model, cfg, batch["tokens"], dtype)
+    x, _ = run_stack(model, cfg, x, positions, dtype)
+    return logits_fn(model, cfg, x, dtype)
+
+
+def forward_train(*args, **kwargs):
+    raise NotImplementedError("training is not ported to repro_torch yet "
+                              "(ROADMAP §A10e)")

@@ -1,5 +1,6 @@
 """Card-only checks of the port: the CUDA kernels against their plain
-versions, and the engine on the card against the engine on the CPU.
+versions, the scheduling engine on the card against the engine on the
+CPU, and the reduced zamba2 serving engine likewise.
 
 Every test here is marked ``cuda`` and skips without a CUDA device; this
 file imports no JAX, so it also runs where only PyTorch is installed:
@@ -109,3 +110,105 @@ def test_engine_on_card_matches_cpu(cuda_device, structure, lanes, backend):
                 "trace_busy", "trace_qlen"):
         np.testing.assert_array_equal(res["cpu"][key], res[cuda_device][key],
                                       err_msg=key)
+
+
+# ------------------------------------------------------------ LLM kernels
+LLM_TOL = {torch.float32: (2e-5, 2e-4), torch.bfloat16: (2e-2, 5e-2)}
+
+
+def _close(got, ref, tol):
+    torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol)
+
+
+def _rand(gen, *shape, dev, dtype=torch.float32, lo=None, hi=None):
+    t = (torch.randn(shape, generator=gen) if lo is None else
+         lo + (hi - lo) * torch.rand(shape, generator=gen))
+    return t.to(dev, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d", [(37, 128), (8, 80), (300, 2560)])
+def test_rmsnorm_kernel_matches_plain(cuda_device, dtype, rows, d):
+    from repro_torch.kernels.ref import rmsnorm_ref
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    gen = torch.Generator().manual_seed(rows)
+    x = _rand(gen, 2, rows, d, dev=cuda_device, dtype=dtype)
+    w = _rand(gen, d, dev=cuda_device)
+    got = rmsnorm(x, w)
+    assert got.dtype == dtype
+    _close(got, rmsnorm_ref(x, w), LLM_TOL[dtype][0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,sk,h,hkv,d,kw", [
+    (1, 77, 77, 4, 4, 80, {}),
+    (2, 40, 40, 8, 1, 32, dict(window=16)),
+    (2, 33, 33, 4, 2, 64, dict(causal=False)),
+    (3, 1, 96, 32, 4, 80, dict(q_offset=60, kv_valid_len=61)),
+    (2, 4, 8, 2, 2, 16, dict(kv_valid_len=0))])
+def test_flash_attention_kernel_matches_plain(cuda_device, dtype, b, sq, sk,
+                                              h, hkv, d, kw):
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import attention_ref
+    gen = torch.Generator().manual_seed(sq * sk)
+    q = _rand(gen, b, sq, h, d, dev=cuda_device, dtype=dtype)
+    k = _rand(gen, b, sk, hkv, d, dev=cuda_device, dtype=dtype)
+    v = _rand(gen, b, sk, hkv, d, dev=cuda_device, dtype=dtype)
+    got = flash_attention(q, k, v, **kw)
+    assert got.dtype == dtype
+    _close(got, attention_ref(q, k, v, **kw), LLM_TOL[dtype][0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,p,n,init", [
+    (1, 200, 4, 64, 64, False), (2, 50, 3, 16, 16, True),
+    (1, 130, 2, 64, 128, False)])
+def test_ssd_scan_kernel_matches_plain(cuda_device, dtype, b, s, h, p, n,
+                                       init):
+    from repro_torch.kernels.ref import ssd_ref
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    gen = torch.Generator().manual_seed(s)
+    args = (_rand(gen, b, s, h, p, dev=cuda_device, dtype=dtype),
+            _rand(gen, b, s, h, dev=cuda_device, dtype=dtype, lo=0.01,
+                  hi=0.5),
+            _rand(gen, h, dev=cuda_device, lo=0.5, hi=2.0),
+            _rand(gen, b, s, n, dev=cuda_device, dtype=dtype),
+            _rand(gen, b, s, n, dev=cuda_device, dtype=dtype))
+    s0 = _rand(gen, b, h, p, n, dev=cuda_device) if init else None
+    got = ssd_scan(*args, initial_state=s0)
+    ref = ssd_ref(*args, initial_state=s0)
+    for g, r in zip(got, ref):
+        _close(g, r, LLM_TOL[dtype][1])
+
+
+@pytest.mark.cuda
+def test_reduced_zamba2_engine_on_card_matches_cpu(cuda_device):
+    """The same seeded weights serve the same greedy tokens on the card
+    (through the kernels) as on the CPU (plain versions)."""
+    import copy
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg = get_config("zamba2-2.7b").reduced()
+    cpu = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    models = {"cpu": cpu, cuda_device: copy.deepcopy(cpu).to(cuda_device)}
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(2, cfg.vocab, size=n).astype(np.int32)
+               for n in (9, 30, 4, 17)]
+    out = {}
+    build.LAUNCH_COUNTS.clear()
+    for dev, model in models.items():
+        eng = ServeEngine(model, cfg, n_slots=2, max_len=64, device=dev)
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=6)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_drained()
+        out[dev] = [r.out_tokens for r in reqs]
+    assert out["cpu"] == out[cuda_device]
+    assert all(build.LAUNCH_COUNTS[k] > 0
+               for k in ("rmsnorm", "flash_attention", "ssd_scan"))

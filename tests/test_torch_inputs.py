@@ -2,9 +2,12 @@
 
 Trace generation, the scenario transform, lane construction and the
 batch-level statics are numpy code copied into the port; these tests hold
-the copies to the reference byte for byte at a small scale.
+the copies to the reference byte for byte at a small scale.  The model
+configs (``configs/base.py`` and the arch modules) are copied whole and
+held to the reference file for file.
 """
 import dataclasses
+import pathlib
 
 import numpy as np
 import pytest
@@ -146,3 +149,28 @@ def test_cell_store_roundtrip(tmp_path):
     with pytest.raises(ValueError):
         tcache.cell_fingerprint("haswell", 0, 0.05, 2388, 1.0, "min", 0.6,
                                 3, engine="jax")
+
+
+CONFIG_FILES = sorted(
+    p.name for p in (pathlib.Path(jcore.__file__).parents[1] / "configs")
+    .glob("*.py") if p.name not in ("__init__.py", "workloads.py"))
+
+
+@pytest.mark.parametrize("name", CONFIG_FILES)
+def test_config_module_is_a_byte_copy(name):
+    """``configs/base.py`` and the arch modules are copied whole."""
+    ref = pathlib.Path(jcore.__file__).parents[1] / "configs" / name
+    port = pathlib.Path(tcore.__file__).parents[1] / "configs" / name
+    assert port.read_bytes() == ref.read_bytes()
+
+
+def test_config_registry_matches_reference():
+    import repro.configs as jconfigs
+    import repro_torch.configs as tconfigs
+    assert tconfigs.ALL_ARCHS == jconfigs.ALL_ARCHS
+    assert tconfigs.list_archs() == jconfigs.list_archs()
+    for arch in jconfigs.ALL_ARCHS:
+        j, t = jconfigs.get_config(arch), tconfigs.get_config(arch)
+        assert dataclasses.asdict(t) == dataclasses.asdict(j)
+        assert (dataclasses.asdict(t.reduced())
+                == dataclasses.asdict(j.reduced()))

@@ -4,7 +4,9 @@
 * no file of the port (nor ``chip_smoke.py``) imports ``jax`` or ``repro``;
 * without a card, the entry points raise unless ``device="cpu"`` is given;
 * kernel backends refuse CPU tensors at the engine level;
-* structures and flags of the next slice raise ``NotImplementedError``.
+* structures and flags of later slices (pass features; MoE, MLA, the
+  encoder-decoder, frontends and training in the LLM layer) raise
+  ``NotImplementedError`` naming their ROADMAP item.
 
 Kernel launches need a card: the ``cuda``-marked tests in
 ``test_torch_cuda.py`` skip here; they and ``chip_smoke.py`` run on the
@@ -105,6 +107,62 @@ def test_entry_points_without_device_raise_on_a_cpu_box(no_card):
         main(["--workload", "theta", "--scale", "0.005", "--seeds", "1"])
 
 
+def test_llm_entry_points_without_device_raise_on_a_cpu_box(no_card):
+    from repro_torch.configs import get_config
+    from repro_torch.convert import cache_from_numpy, lm_params_from_numpy
+    from repro_torch.launch.serve import main
+    from repro_torch.models.decode import init_decode_cache
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.engine import ServeEngine
+    cfg = get_config("zamba2-2.7b").reduced()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_params(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_decode_cache(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lm_params_from_numpy({}, cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cache_from_numpy({}, cfg)
+    model = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServeEngine(model, cfg, n_slots=1, max_len=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["--arch", "zamba2-2.7b", "--reduced", "--requests", "1"])
+
+
+@pytest.mark.parametrize("arch,items", [
+    ("olmoe-1b-7b", ["A10a"]), ("deepseek-v2-236b", ["A10a", "A10b"]),
+    ("whisper-large-v3", ["A10c", "A10d"]), ("internvl2-2b", ["A10d"])])
+def test_llm_structures_of_later_slices_raise_not_implemented(arch, items):
+    from repro_torch.configs import get_config
+    from repro_torch.models.decode import init_decode_cache
+    from repro_torch.models.transformer import LM, init_params
+    cfg = get_config(arch).reduced()
+    for build in (lambda: LM(cfg, "cpu"),
+                  lambda: init_params(cfg, torch.Generator(), "cpu"),
+                  lambda: init_decode_cache(cfg, 1, 8, device="cpu")):
+        with pytest.raises(NotImplementedError) as err:
+            build()
+        for item in items:
+            assert f"ROADMAP §{item}" in str(err.value)
+
+
+def test_llm_training_raises_not_implemented():
+    from repro_torch.models.transformer import forward_train
+    with pytest.raises(NotImplementedError, match="ROADMAP §A10e"):
+        forward_train()
+
+
+def test_serve_engine_refuses_a_model_on_another_device():
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.engine import ServeEngine
+    cfg = get_config("zamba2-2.7b").reduced()
+    model = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(ValueError, match="lives on"):
+        ServeEngine(model, cfg, n_slots=1, max_len=8, device="meta")
+
+
 @pytest.mark.parametrize("backend", ["fused", "waterfill"])
 def test_kernel_backends_refuse_the_cpu(backend):
     from repro_torch.core import passes
@@ -162,7 +220,8 @@ def test_kernel_c_interface_matches_the_loader():
     sig = ""
     for fn in build._SIGNATURES:
         params = re.search(rf"int {fn}\(([^)]*)\)", src).group(1)
-        kinds = ["P" if "*" in prm else "I" for prm in params.split(",")]
+        kinds = ["P" if "*" in prm else "F" if prm.split()[0] == "float"
+                 else "I" for prm in params.split(",")]
         sig += f"{fn}={''.join(kinds)};"
     assert sig == build.expected_abi()
 

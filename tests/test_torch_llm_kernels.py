@@ -1,0 +1,237 @@
+"""The plain versions of the port's LLM kernels against the JAX package.
+
+Each plain version in ``repro_torch.kernels.ref`` (what the kernel wrappers
+run on CPU tensors, and what ``chip_smoke.py`` holds the CUDA kernels to
+on the card) is held, on the same numpy inputs, to
+
+* the Pallas kernel in interpret mode (as ``tests/test_kernels.py`` runs
+  it on the CPU),
+* the naive oracle ``repro/kernels/ref.py``, and
+* the model's function the port puts the kernel in place of
+  (``models/layers.rmsnorm``, ``chunked_attention``, ``ssm.ssd_chunked``).
+
+Tolerances (f32): rmsnorm and attention 2e-5, SSD 2e-4, those of
+``tests/test_kernels.py``.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels.flash_attention import \
+    flash_attention as pallas_attention  # noqa: E402
+from repro.kernels.rmsnorm import rmsnorm as pallas_rmsnorm  # noqa: E402
+from repro.kernels.ssd_scan import ssd_scan as pallas_ssd  # noqa: E402
+from repro.models import layers as jlayers  # noqa: E402
+from repro.models import ssm as jssm  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
+from repro_torch.kernels import ssd_scan as tssd  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention  # noqa
+from repro_torch.kernels.rmsnorm import rmsnorm  # noqa: E402
+
+ATOL = dict(atol=2e-5, rtol=2e-5)
+SSD_TOL = dict(atol=2e-4, rtol=2e-4)
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a))
+
+
+# ------------------------------------------------------------------ rmsnorm
+@pytest.mark.parametrize("shape", [(3, 5, 128), (7, 80), (1, 1, 80)])
+def test_rmsnorm_plain_matches_pallas_oracle_and_model(shape):
+    rng = np.random.default_rng(sum(shape))
+    x = rng.normal(size=shape).astype(np.float32)
+    w = rng.normal(size=shape[-1:]).astype(np.float32)
+    got = tref.rmsnorm_ref(_t(x), _t(w)).numpy()
+    pallas = pallas_rmsnorm(jnp.asarray(x), jnp.asarray(w), block_rows=4,
+                              interpret=True)
+    np.testing.assert_allclose(got, np.asarray(pallas), **ATOL)
+    np.testing.assert_allclose(got, np.asarray(jref.rmsnorm(x, w)), **ATOL)
+    model = jlayers.rmsnorm({"scale": jnp.asarray(w)}, jnp.asarray(x))
+    np.testing.assert_allclose(got, np.asarray(model), **ATOL)
+    np.testing.assert_array_equal(rmsnorm(_t(x), _t(w)).numpy(), got)
+
+
+def test_rmsnorm_keeps_the_input_dtype():
+    x = torch.randn(4, 128, generator=torch.Generator().manual_seed(0))
+    w = torch.ones(128)
+    assert rmsnorm(x.to(torch.bfloat16), w).dtype == torch.bfloat16
+    assert rmsnorm(x, w).dtype == torch.float32
+
+
+# ---------------------------------------------------------------- attention
+ATTN_CASES = {
+    # b, sq, sk, h, hkv, dh, causal, window
+    "causal-mha": (1, 32, 32, 4, 4, 32, True, 0),
+    "gqa-ragged": (2, 40, 40, 4, 2, 32, True, 0),
+    "bidirectional": (2, 24, 24, 4, 2, 16, False, 0),
+    "mqa-window": (1, 64, 64, 8, 1, 16, True, 24),
+    "odd-window": (2, 17, 33, 2, 2, 64, True, 8),
+    "dh80": (1, 37, 37, 4, 4, 80, True, 0),
+    "gqa8-dh80": (1, 20, 20, 8, 1, 80, True, 0),
+}
+
+
+def _qkv(rng, b, sq, sk, h, hkv, dh):
+    return (rng.normal(size=(b, sq, h, dh)).astype(np.float32),
+            rng.normal(size=(b, sk, hkv, dh)).astype(np.float32),
+            rng.normal(size=(b, sk, hkv, dh)).astype(np.float32))
+
+
+@pytest.mark.parametrize("case", sorted(ATTN_CASES))
+def test_attention_plain_matches_pallas_oracle_and_model(case):
+    b, sq, sk, h, hkv, dh, causal, window = ATTN_CASES[case]
+    rng = np.random.default_rng(len(case))
+    q, k, v = _qkv(rng, b, sq, sk, h, hkv, dh)
+    got = tref.attention_ref(_t(q), _t(k), _t(v), causal=causal,
+                             window=window, block_k=16).numpy()
+    pallas = pallas_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        window=window, block_q=16, block_k=16, interpret=True)
+    np.testing.assert_allclose(got, np.asarray(pallas), **ATOL)
+    oracle = jref.attention(q, k, v, causal=causal, window=window)
+    np.testing.assert_allclose(got, np.asarray(oracle), **ATOL)
+    if sq == sk:   # the model's own call: q and kv at positions 0..S-1
+        pos = jnp.arange(sq)
+        model = jlayers.chunked_attention(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), q_positions=pos,
+            kv_positions=pos, causal=causal,
+            window=jnp.asarray(window) if window else None, block_k=16)
+        np.testing.assert_allclose(got, np.asarray(model), **ATOL)
+    wrapped = flash_attention(_t(q), _t(k), _t(v), causal=causal,
+                              window=window, block_k=16)
+    np.testing.assert_array_equal(wrapped.numpy(), got)
+
+
+@pytest.mark.parametrize("h,hkv,dh,valid,window", [
+    (4, 2, 32, 37, 0), (32, 32, 80, 50, 0), (8, 1, 80, 64, 0),
+    (4, 4, 32, 61, 16)])
+def test_attention_plain_decode_mode(h, hkv, dh, valid, window):
+    """Sq = 1 against a cache of 64 rows, ``valid`` of them written: the
+    query sits at ``valid - 1`` (gqa_decode's q_offset = cache_len)."""
+    rng = np.random.default_rng(valid)
+    b, cache = 2, 64
+    q, k, v = _qkv(rng, b, 1, cache, h, hkv, dh)
+    kw = dict(causal=True, q_offset=valid - 1, kv_valid_len=valid)
+    got = tref.attention_ref(_t(q), _t(k), _t(v), window=window,
+                             block_k=16, **kw).numpy()
+    pallas = pallas_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), window=window,
+        block_q=8, block_k=16, interpret=True, **kw)
+    np.testing.assert_allclose(got, np.asarray(pallas), **ATOL)
+    np.testing.assert_allclose(
+        got, np.asarray(jref.attention(q, k, v, window=window, **kw)),
+        **ATOL)
+    model = jlayers.chunked_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        q_positions=jnp.asarray([valid - 1]), kv_positions=jnp.arange(cache),
+        causal=True, window=jnp.asarray(window) if window else None,
+        kv_valid_len=jnp.asarray(valid), block_k=1024)
+    np.testing.assert_allclose(got, np.asarray(model), **ATOL)
+
+
+def test_attention_rows_that_see_no_key_are_zero():
+    rng = np.random.default_rng(5)
+    q, k, v = _qkv(rng, 1, 4, 8, 2, 2, 16)
+    got = tref.attention_ref(_t(q), _t(k), _t(v), causal=True, q_offset=0,
+                             kv_valid_len=0)
+    assert torch.count_nonzero(got) == 0
+    exp = jref.attention(q, k, v, causal=True, kv_valid_len=0)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(exp))
+
+
+# ------------------------------------------------------------------ SSD
+def _ssd_inputs(rng, b, s, h, p, n):
+    return (rng.normal(size=(b, s, h, p)).astype(np.float32),
+            rng.uniform(0.01, 0.5, size=(b, s, h)).astype(np.float32),
+            rng.uniform(0.5, 2.0, size=(h,)).astype(np.float32),
+            rng.normal(size=(b, s, n)).astype(np.float32),
+            rng.normal(size=(b, s, n)).astype(np.float32))
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (1, 32, 2, 8, 16, 16), (2, 50, 3, 8, 16, 16), (1, 16, 1, 16, 8, 16),
+    (2, 33, 2, 4, 4, 8), (1, 140, 2, 16, 16, 128)])
+def test_ssd_plain_matches_pallas_oracle_and_model(b, s, h, p, n, chunk):
+    rng = np.random.default_rng(s * 7 + h)
+    x, dt, a, bm, cm = _ssd_inputs(rng, b, s, h, p, n)
+    y, st = tref.ssd_ref(*map(_t, (x, dt, a, bm, cm)), chunk=chunk)
+    jx = [jnp.asarray(t) for t in (x, dt, a, bm, cm)]
+    for name, (ye, ste) in {
+            "pallas": pallas_ssd(*jx, chunk=chunk, interpret=True),
+            "oracle": jref.ssd(*jx),
+            "model": jssm.ssd_chunked(*jx, chunk=chunk)}.items():
+        np.testing.assert_allclose(y.numpy(), np.asarray(ye), **SSD_TOL,
+                                   err_msg=name)
+        np.testing.assert_allclose(st.numpy(), np.asarray(ste), **SSD_TOL,
+                                   err_msg=name)
+
+
+def test_ssd_plain_initial_state_and_continuation():
+    rng = np.random.default_rng(11)
+    b, s, h, p, n, cut = 2, 40, 2, 8, 8, 24
+    x, dt, a, bm, cm = _ssd_inputs(rng, b, s, h, p, n)
+    s0 = rng.normal(size=(b, h, p, n)).astype(np.float32)
+    tx = list(map(_t, (x, dt, a, bm, cm)))
+    y, st = tref.ssd_ref(*tx, chunk=8, initial_state=_t(s0))
+    ye, ste = jref.ssd(*(jnp.asarray(t) for t in (x, dt, a, bm, cm)),
+                       initial_state=jnp.asarray(s0))
+    np.testing.assert_allclose(y.numpy(), np.asarray(ye), **SSD_TOL)
+    np.testing.assert_allclose(st.numpy(), np.asarray(ste), **SSD_TOL)
+    yp, stp = pallas_ssd(*(jnp.asarray(t) for t in (x, dt, a, bm, cm)),
+                            chunk=8, initial_state=jnp.asarray(s0),
+                            interpret=True)
+    np.testing.assert_allclose(y.numpy(), np.asarray(yp), **SSD_TOL)
+    np.testing.assert_allclose(st.numpy(), np.asarray(stp), **SSD_TOL)
+
+    def part(sl, init):
+        xs, dts, bs, cs = (t[:, sl] for t in (tx[0], tx[1], tx[3], tx[4]))
+        return tref.ssd_ref(xs, dts, tx[2], bs, cs, chunk=8,
+                            initial_state=init)
+    y_full, st_full = tref.ssd_ref(*tx, chunk=8)
+    y1, st1 = part(slice(0, cut), None)
+    y2, st2 = part(slice(cut, s), st1)
+    np.testing.assert_allclose(torch.cat([y1, y2], 1).numpy(),
+                               y_full.numpy(), **SSD_TOL)
+    np.testing.assert_allclose(st2.numpy(), st_full.numpy(), **SSD_TOL)
+
+
+@pytest.mark.parametrize("chunk,s,p,n,expect", [
+    (128, 1024, 64, 64, 128),    # zamba2-2.7b prefill: 180 KB per CTA
+    (128, 37, 64, 64, 37),       # a prompt shorter than a chunk
+    (128, 1024, 64, 128, 64),    # mamba2-1.3b's dstate: halved to fit
+    (16, 50, 8, 16, 16)])
+def test_ssd_kernel_chunk_fits_shared_memory(chunk, s, p, n, expect):
+    L = tssd.kernel_chunk(chunk, s, p, n)
+    assert L == expect
+    assert tssd.smem_bytes(L, p, n) <= tssd.MAX_SMEM_BYTES
+
+
+def test_ssd_plain_chunk_length_does_not_change_the_result():
+    """The kernel may scan in shorter chunks than asked (shared memory);
+    the function is the same."""
+    rng = np.random.default_rng(3)
+    tx = list(map(_t, _ssd_inputs(rng, 1, 70, 2, 8, 16)))
+    y1, s1 = tref.ssd_ref(*tx, chunk=64)
+    y2, s2 = tref.ssd_ref(*tx, chunk=16)
+    np.testing.assert_allclose(y1.numpy(), y2.numpy(), **SSD_TOL)
+    np.testing.assert_allclose(s1.numpy(), s2.numpy(), **SSD_TOL)
+
+
+def test_wrappers_refuse_other_devices():
+    x = torch.zeros(2, 8, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        rmsnorm(x, torch.ones(8, device="meta"))
+    q = torch.zeros(1, 2, 2, 8, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        tssd.ssd_scan(torch.zeros(1, 4, 2, 8, device="meta"),
+                      *(torch.zeros(1, 4, 2, device="meta"),
+                        torch.ones(2, device="meta"),
+                        torch.zeros(1, 4, 8, device="meta"),
+                        torch.zeros(1, 4, 8, device="meta")))
