@@ -16,7 +16,8 @@ Phases:
    W up to 8192; a 143,829-slot 1-D waterfill), bit-equal; then
    ``rmsnorm``, ``flash_attention`` and ``ssd_scan`` in f32 and bf16 at
    the serving path's zamba2-2.7b shapes, a ragged and a GQA shape
-   (Hkv = 4, 8 groups), within the tolerances of ``tests/test_kernels.py``
+   (Hkv = 4, 8 groups), gemma3-4b's and glm4-9b's attention shapes (head
+   dims 256 and 128), within the tolerances of ``tests/test_kernels.py``
    (f32 2e-5 / 2e-5 / 2e-4, bf16 2e-2 / 2e-2 / 5e-2); median times (CUDA
    events, 20 runs) of kernel and plain version;
 3. main path: theta at scale 1.0 (2,550 jobs on 4,392 nodes), 2 seeds,
@@ -33,9 +34,14 @@ Phases:
    tokens each, max_len 1280.  Every request must finish, every logit be
    finite and each LLM kernel launch, counted from 0 just before the run;
    prints parameters, weight GB, prefill tokens/s, decode ms per engine
-   step, decode tokens/s and launches.  Each LLM kernel is then timed and
-   checked on the run's largest calls, beside its plain version, its
-   bound and one PyTorch call of the same function where there is one;
+   step, decode tokens/s and launches.  Then gemma3-4b at full width
+   (head dim 256), f32: one 1,100-token prompt, past its 1,024-token
+   window, and 8 decode steps; logits finite, attention launched.  Each
+   LLM kernel is then timed and checked on the zamba2 run's largest calls,
+   beside its plain version, its bound (f32 attention prefill at the split
+   TF32 rate, 495 / 3 TFLOP/s; decode and the other kernels at the f32
+   CUDA-core rate, 67 TFLOP/s) and one PyTorch call of the same function
+   where there is one;
 5. scale: the greedy batch on haswell at scale 1.0 (the whole trace,
    28,259 jobs on 2,388 nodes) with ``fused``.  Should the time left in
    the smoke's 1,200 s limit not hold it at the rate this card ran the
@@ -62,6 +68,10 @@ import traceback
 ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
+TF32_OPS_PER_S = 495e12     # H100 SXM TF32 tensor cores, dense
+BF16_OPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
+# the f32 prefill attention runs each product as 3 TF32 products (split TF32)
+SPLIT_TF32_PASSES = 3
 PAPER_STRATEGIES = ("easy", "min", "pref", "avg", "keeppref")
 TIME_LIMIT_S = 1200.0
 # haswell at scale 1.0: scan steps of the greedy batch, and its wall per
@@ -95,6 +105,35 @@ def cuda_median_ms(fn, runs: int = 20, warmup: int = 3) -> float:
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def graph_ms(fn, calls: int = 20) -> float:
+    """Device ms per call: ``calls`` calls captured in one CUDA graph and
+    replayed (median of 5 replays), so no host work sits between launches
+    as it does in :func:`cuda_median_ms`."""
+    import torch
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()   # warm-up off the default stream, as capture needs
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
     return statistics.median(times)
 
 
@@ -583,6 +622,17 @@ LLM_PARITY_SHAPES = [
     ("flash_attention", "GQA decode window", dict(
         B=3, Sq=1, Sk=700, H=32, Hkv=4, D=80, q_offset=650,
         kv_valid_len=651, window=256)),
+    # gemma3-4b (8:4 heads of 256, window 1,024) and glm4-9b (32:2 of 128)
+    ("flash_attention", "gemma3 prefill window", dict(
+        B=1, Sq=1100, Sk=1100, H=8, Hkv=4, D=256, window=1024)),
+    ("flash_attention", "gemma3 decode window", dict(
+        B=1, Sq=1, Sk=1280, H=8, Hkv=4, D=256, q_offset=1107,
+        kv_valid_len=1108, window=1024)),
+    ("flash_attention", "glm4 prefill", dict(B=1, Sq=1000, Sk=1000, H=32,
+                                             Hkv=2, D=128)),
+    ("flash_attention", "glm4 decode", dict(B=8, Sq=1, Sk=1280, H=32, Hkv=2,
+                                            D=128, q_offset=1000,
+                                            kv_valid_len=1001)),
     ("ssd_scan", "prefill ragged", dict(B=1, S=1000, H=80, P=64, N=64)),
     ("ssd_scan", "initial state", dict(B=1, S=1024, H=80, P=64, N=64,
                                        init=True)),
@@ -612,6 +662,26 @@ def phase_llm_parity(report):
             log(f"[parity] {kernel} {label} {dname} {shape}: max |err| "
                 f"{err:.3g} <= tol {tol}; kernel {cuda_median_ms(kern):.4f}"
                 f" ms, plain {cuda_median_ms(plain):.4f} ms")
+
+
+def attention_rate(q, k, kw):
+    """(operations per second, its name) of the route the kernel takes for
+    this call: the decode variant computes on CUDA cores; the prefill
+    variant on the tensor cores, in f32 as split TF32 (3 TF32 products per
+    product, so a third of the TF32 rate)."""
+    import torch
+    from repro_torch.kernels.flash_attention import plan
+    b, sq, h, d = q.shape
+    p = plan(b, sq, k.shape[1], h, k.shape[2], d, q.element_size(),
+             causal=kw.get("causal", True), window=kw.get("window", 0),
+             q_offset=kw.get("q_offset", 0),
+             kv_valid=kw.get("kv_valid_len") or k.shape[1])
+    if p.variant == "decode":
+        return FP32_OPS_PER_S, "f32 CUDA cores, 67 TFLOP/s"
+    if q.dtype == torch.bfloat16:
+        return BF16_OPS_PER_S, "bf16 tensor cores, 989 TFLOP/s"
+    return (TF32_OPS_PER_S / SPLIT_TF32_PASSES,
+            "split TF32, 495 / 3 TFLOP/s")
 
 
 def attention_work(q, k, kw):
@@ -880,6 +950,55 @@ def phase_serve(report):
     report["serve_kept"] = {"rmsnorm": keeps[0].kept,
                             "flash_attention": keeps[1].kept,
                             "ssd_scan": keeps[2].kept}
+    del model
+    serve_gemma3(report)
+
+
+# gemma3-4b at full width: one prompt past the 1,024-token window of its
+# local layers, then 8 decode steps (head dim 256: ROADMAP C5)
+GEMMA3 = dict(prompt=1100, new=9, max_len=1152)
+
+
+def serve_gemma3(report):
+    """gemma3-4b (34 layers, d = 2560, 8:4 heads of 256), f32, random
+    weights from seed 0, one request: every logit finite and attention
+    launched through the kernel, counted from 0 just before the run."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models import decode as D
+    from repro_torch.models.transformer import init_params, param_count
+    cfg = get_config("gemma3-4b")
+    model = init_params(cfg, torch.Generator(DEVICE).manual_seed(0), DEVICE)
+    prompts = serve_prompts(cfg.vocab, 1, GEMMA3["prompt"], GEMMA3["prompt"],
+                            5)
+    pre, dec = Timed(D, "prefill"), Timed(D, "decode_step")
+    torch.cuda.synchronize()
+    build.LAUNCH_COUNTS.clear()  # this path's launches start here
+    with pre, dec:
+        reqs, _ = serve(model, cfg, prompts, slots=1,
+                        max_len=GEMMA3["max_len"], new=GEMMA3["new"],
+                        device=DEVICE)
+    torch.cuda.synchronize()
+    launches = build.LAUNCH_COUNTS["flash_attention"]
+    if pre.nonfinite or dec.nonfinite:
+        raise AssertionError(f"gemma3-4b: non-finite logits in "
+                             f"{pre.nonfinite} prefills and {dec.nonfinite} "
+                             "decode steps")
+    if not launches or dec.calls < GEMMA3["new"] - 1:
+        raise AssertionError(f"gemma3-4b: {launches} attention launches, "
+                             f"{dec.calls} decode steps")
+    report["gemma3"] = dict(
+        params=param_count(model), prompt=len(prompts[0]),
+        tokens=len(reqs[0].out_tokens), prefill_s=pre.seconds,
+        decode_ms_per_step=1e3 * dec.seconds / dec.calls,
+        flash_attention_launches=launches)
+    g = report["gemma3"]
+    log(f"[serve] gemma3-4b f32 on the card: {g['params']:,} parameters; "
+        f"a {g['prompt']}-token prompt (window 1,024) prefilled in "
+        f"{g['prefill_s']:.2f}s, {dec.calls} decode steps at "
+        f"{g['decode_ms_per_step']:.2f} ms; logits finite; flash_attention "
+        f"launches {launches}")
 
 
 def phase_llm_kernels_at_serve_shape(report):
@@ -902,12 +1021,14 @@ def phase_llm_kernels_at_serve_shape(report):
                 x = args[0]
                 flops, nbytes = 4.0 * x.numel(), \
                     2 * x.numel() * x.element_size() + 4 * x.shape[-1]
-            elif kernel == "flash_attention":
+            rate, rate_name = FP32_OPS_PER_S, "f32 CUDA cores, 67 TFLOP/s"
+            if kernel == "flash_attention":
                 flops, nbytes = attention_work(args[0], args[1], kw)
-            else:
+                rate, rate_name = attention_rate(args[0], args[1], kw)
+            elif kernel == "ssd_scan":
                 flops, nbytes = ssd_work(args[0], args[3], kw)
             b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            b_ops = flops / FP32_OPS_PER_S * 1e3
+            b_ops = flops / rate * 1e3
             rows.append({
                 "label": label, "shape": list(args[0].shape),
                 "kwargs": {k: v for k, v in kw.items()
@@ -916,15 +1037,27 @@ def phase_llm_kernels_at_serve_shape(report):
                 "plain_ms": cuda_median_ms(plain),
                 "bound_ms": max(b_bytes, b_ops),
                 "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+                "bound_rate": rate_name,
+                "bound_ms_f32_cuda_cores": max(
+                    b_bytes, flops / FP32_OPS_PER_S * 1e3),
                 "library_ms": None if lib is None else cuda_median_ms(lib)})
             r = rows[-1]
+            if kernel == "flash_attention":
+                # device time alone: the single-call times above include
+                # the wrapper's host work (PERF.md section 7)
+                r["device_ms"] = graph_ms(kern)
+                r["library_device_ms"] = None if lib is None else \
+                    graph_ms(lib)
+                log(f"[kernel] flash_attention {label} device time "
+                    f"{r['device_ms']:.4f} ms, SDPA "
+                    f"{r['library_device_ms']} ms (CUDA graph of 20 calls)")
             lib_txt = ("none" if r["library_ms"] is None
                        else f"{r['library_ms']:.4f} ms")
             log(f"[kernel] {kernel} at the serve shape {label} "
                 f"{r['shape']} {r['kwargs']}: {r['ms']:.4f} ms (plain "
                 f"{r['plain_ms']:.4f} ms, library {lib_txt}, bound "
-                f"{r['bound_ms']:.6f} ms by {r['bound_by']}); max |err| "
-                f"{err:.3g}")
+                f"{r['bound_ms']:.6f} ms by {r['bound_by']}, "
+                f"{r['bound_rate']}); max |err| {err:.3g}")
         main = max(rows, key=lambda r: r["bound_ms"])
         out.append({
             "name": kernel, "route": "cuda", "source": source,

@@ -55,7 +55,7 @@ _SIGNATURES = {
     "repro_schedule_tick": [_P] * 19 + [_I] * 12 + [_P],
     "repro_waterfill": [_P, _P, _P, _I, _I, _P],
     "repro_rmsnorm": [_P, _P, _P, _I, _I, _F, _I, _P],
-    "repro_flash_attention": [_P] * 4 + [_I] * 10 + [_F, _I, _P],
+    "repro_flash_attention": [_P] * 5 + [_I] * 10 + [_F, _I, _I, _P],
     "repro_ssd_scan": [_P] * 8 + [_I] * 7 + [_P],
 }
 _CODES = {_P: "P", _I: "I", _F: "F"}

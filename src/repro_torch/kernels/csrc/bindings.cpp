@@ -74,14 +74,16 @@ int repro_rmsnorm(const void* x, const void* w, void* out, int rows, int d,
 }
 
 int repro_flash_attention(const void* q, const void* k, const void* v,
-                          void* o, int B, int Sq, int Sk, int H, int Hkv,
-                          int D, int q_offset, int kv_valid, int window,
-                          int causal, float scale, int dtype, void* stream) {
+                          void* o, void* scratch, int B, int Sq, int Sk,
+                          int H, int Hkv, int D, int q_offset, int kv_valid,
+                          int window, int causal, float scale, int n_split,
+                          int dtype, void* stream) {
   repro::AttnArgs a;
   a.q = q;
   a.k = k;
   a.v = v;
   a.o = o;
+  a.scratch = static_cast<float*>(scratch);
   a.B = B;
   a.Sq = Sq;
   a.Sk = Sk;
@@ -93,6 +95,7 @@ int repro_flash_attention(const void* q, const void* k, const void* v,
   a.window = window;
   a.causal = causal;
   a.scale = scale;
+  a.n_split = n_split;
   return static_cast<int>(repro::launch_flash_attention(
       a, dtype, static_cast<cudaStream_t>(stream)));
 }

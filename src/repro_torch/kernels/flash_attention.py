@@ -1,15 +1,19 @@
-"""Flash attention: the CUDA kernel ``csrc/flash_attention.cu`` and its
+"""Flash attention: the CUDA kernels ``csrc/flash_attention.cu`` and their
 wrapper.
 
 Replaces the JAX package's Pallas
 ``repro/kernels/flash_attention.py::flash_attention``.
-:func:`flash_attention` launches the kernel for CUDA tensors and uses the
+:func:`flash_attention` launches a kernel for CUDA tensors and uses the
 plain version (:func:`repro_torch.kernels.ref.attention_ref`) only for
-tensors on the CPU.
+tensors on the CPU.  :func:`plan` picks the kernel's variant: split-KV
+decode when ``Sq * (H / Hkv) <= 16``, the tensor-core prefill otherwise.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
@@ -17,7 +21,59 @@ import torch
 from .build import check_launch, dtype_code, load_library, stream_of
 from .ref import attention_ref
 
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
+# a CTA's dynamic shared memory on Hopper (232,448 bytes)
+MAX_SMEM_BYTES = 227 * 1024
+# the kernel's constants (flash_attention.cu)
+PREFILL_BLOCK_Q = 64
+DECODE_BLOCK_K = 32
+DECODE_ROWS = 16
+# the decode variant aims at 4 CTAs on each of the 132 SMs
+DECODE_CTAS = 4 * 132
+MAX_SPLITS = 256
+
+
+@dataclass(frozen=True)
+class AttnPlan:
+    """What the kernel runs for one call: ``variant`` "prefill" or
+    "decode", the head dim padded to 16, the KV tile, the decode split
+    count (0 in prefill) and the CTA's shared memory in bytes."""
+    variant: str
+    d_pad: int
+    block_k: int
+    n_split: int
+    smem_bytes: int
+
+
+@functools.lru_cache(maxsize=1024)
+def plan(b: int, sq: int, sk: int, h: int, hkv: int, dh: int,
+         elem_bytes: int, *, causal: bool = True, window: int = 0,
+         q_offset: int = 0, kv_valid: Optional[int] = None) -> AttnPlan:
+    """The variant, tiles, split count and shared memory of one call
+    (``launch_typed`` and the ``*_smem_bytes`` functions of the kernel)."""
+    d_pad = -(-dh // 16) * 16
+    f32 = elem_bytes == 4
+    if sq * (h // hkv) <= DECODE_ROWS:
+        # [lo, hi): the keys some query of the call sees
+        lo = max(0, q_offset - window + 1) if window > 0 else 0
+        hi = min(sk if kv_valid is None else kv_valid, sk)
+        if causal:
+            hi = min(hi, q_offset + sq)
+        tiles = -(-max(hi - lo, 0) // DECODE_BLOCK_K)
+        n_split = max(1, min(-(-DECODE_CTAS // max(b * hkv, 1)), tiles,
+                             MAX_SPLITS))
+        ks = d_pad + (4 if f32 else 8)
+        smem = (elem_bytes * 2 * DECODE_BLOCK_K * (ks + d_pad + 8)
+                + 4 * (DECODE_ROWS * d_pad + DECODE_ROWS * DECODE_BLOCK_K
+                       + 3 * DECODE_ROWS))
+        return AttnPlan("decode", d_pad, DECODE_BLOCK_K, n_split, smem)
+    if f32:   # row strides: Q, K 16 words mod 32; V 4 mod 8
+        qk, vv = d_pad + (16 if d_pad % 32 == 0 else 0), d_pad + 4
+    else:
+        qk = vv = d_pad + 8
+    block_k = 32 if f32 else 64
+    smem = elem_bytes * (PREFILL_BLOCK_Q * qk + 2 * block_k * (qk + vv))
+    return AttnPlan("prefill", d_pad, block_k, 0, smem)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -56,14 +112,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = (softmax_scale if softmax_scale is not None
              else 1.0 / math.sqrt(dh))
     valid = sk if kv_valid_len is None else int(kv_valid_len)
+    p = plan(b, sq, sk, h, hkv, dh, q.element_size(), causal=bool(causal),
+             window=int(window), q_offset=int(q_offset), kv_valid=valid)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
+    scratch = None
+    if p.n_split:
+        scratch = torch.empty((b, h, sq, p.n_split, dh + 2),
+                              dtype=torch.float32, device=q.device)
     if q.numel():
         lib = load_library()
-        with torch.cuda.device(q.device):
+        # the device guard costs a few microseconds a call; skip it when q
+        # lies on the current device already
+        guard = (contextlib.nullcontext()
+                 if q.device.index == torch.cuda.current_device()
+                 else torch.cuda.device(q.device))
+        with guard:
             err = lib.repro_flash_attention(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                b, sq, sk, h, hkv, dh, int(q_offset), valid, int(window),
-                int(bool(causal)), scale, code, stream_of(q))
+                None if scratch is None else scratch.data_ptr(), b, sq, sk,
+                h, hkv, dh, int(q_offset), valid, int(window),
+                int(bool(causal)), scale, p.n_split, code, stream_of(q))
         check_launch(lib, err, "flash_attention")
     return out

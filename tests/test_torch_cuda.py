@@ -147,7 +147,20 @@ def test_rmsnorm_kernel_matches_plain(cuda_device, dtype, rows, d):
     (2, 40, 40, 8, 1, 32, dict(window=16)),
     (2, 33, 33, 4, 2, 64, dict(causal=False)),
     (3, 1, 96, 32, 4, 80, dict(q_offset=60, kv_valid_len=61)),
-    (2, 4, 8, 2, 2, 16, dict(kv_valid_len=0))])
+    (2, 4, 8, 2, 2, 16, dict(kv_valid_len=0)),
+    # gemma3's head dim with GQA and a window; glm4's 16:1 grouping
+    (1, 300, 300, 8, 4, 256, dict(window=100)),
+    (2, 130, 130, 16, 1, 128, {}),
+    # head dims padded inside the kernel (72 to 80; 20 to 32, whose bf16
+    # rows are copied element by element, not in 16-byte pieces)
+    (2, 100, 100, 4, 2, 72, {}),
+    (1, 50, 50, 4, 2, 20, {}),
+    (2, 1, 64, 4, 4, 20, dict(q_offset=40, kv_valid_len=41)),
+    # a decode reading a long cache over many splits
+    (2, 1, 4096, 8, 8, 80, dict(q_offset=3000, kv_valid_len=3001)),
+    # either side of the variant boundary (Sq * H / Hkv = 16 decodes)
+    (2, 2, 70, 16, 2, 64, dict(q_offset=60, kv_valid_len=62)),
+    (2, 4, 70, 16, 2, 64, dict(q_offset=60, kv_valid_len=64))])
 def test_flash_attention_kernel_matches_plain(cuda_device, dtype, b, sq, sk,
                                               h, hkv, d, kw):
     from repro_torch.kernels.flash_attention import flash_attention

@@ -27,6 +27,8 @@ from repro.kernels.rmsnorm import rmsnorm as pallas_rmsnorm  # noqa: E402
 from repro.kernels.ssd_scan import ssd_scan as pallas_ssd  # noqa: E402
 from repro.models import layers as jlayers  # noqa: E402
 from repro.models import ssm as jssm  # noqa: E402
+from repro_torch.configs import get_config, list_archs  # noqa: E402
+from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels import ssd_scan as tssd  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa
@@ -73,6 +75,8 @@ ATTN_CASES = {
     "odd-window": (2, 17, 33, 2, 2, 64, True, 8),
     "dh80": (1, 37, 37, 4, 4, 80, True, 0),
     "gqa8-dh80": (1, 20, 20, 8, 1, 80, True, 0),
+    "gqa2-window-dh256": (1, 40, 40, 8, 4, 256, True, 16),   # gemma3
+    "gqa16-dh128": (1, 24, 24, 16, 1, 128, True, 0),         # glm4
 }
 
 
@@ -132,6 +136,45 @@ def test_attention_plain_decode_mode(h, hkv, dh, valid, window):
         causal=True, window=jnp.asarray(window) if window else None,
         kv_valid_len=jnp.asarray(valid), block_k=1024)
     np.testing.assert_allclose(got, np.asarray(model), **ATOL)
+
+
+@pytest.mark.parametrize("elem_bytes", [4, 2], ids=["f32", "bf16"])
+@pytest.mark.parametrize("dh", [*range(16, 257, 16), 72])
+def test_attention_plan_fits_shared_memory(dh, elem_bytes):
+    """Each variant's CTA fits Hopper's shared memory at every head dim up
+    to 256, and the plan picks the variant and split count it should."""
+    # zamba2's serve decode: 8 slots at 1,027 cached rows, 32 KV heads
+    dec = tfa.plan(8, 1, 1280, 32, 32, dh, elem_bytes, q_offset=1026,
+                   kv_valid=1027)
+    assert (dec.variant, dec.n_split, dec.block_k) == ("decode", 3, 32)
+    assert dec.d_pad == -(-dh // 16) * 16
+    # a 996-token prefill
+    pre = tfa.plan(1, 996, 996, 32, 32, dh, elem_bytes)
+    assert (pre.variant, pre.n_split) == ("prefill", 0)
+    assert pre.block_k == (32 if elem_bytes == 4 else 64)
+    for p in (dec, pre):
+        assert p.smem_bytes <= tfa.MAX_SMEM_BYTES == 232_448
+    # Sq * H / Hkv = 16 still decodes; 32 does not
+    assert tfa.plan(2, 2, 70, 16, 2, dh, elem_bytes).variant == "decode"
+    assert tfa.plan(2, 4, 70, 16, 2, dh, elem_bytes).variant == "prefill"
+    # a long cache: 16 (batch, KV head) pairs take 33 splits, 4 CTAs an SM
+    long = tfa.plan(2, 1, 4096, 8, 8, dh, elem_bytes, q_offset=3000,
+                    kv_valid=3001)
+    assert long.n_split == 33
+    # no more splits than 32-key tiles; one split when no key is seen
+    assert tfa.plan(1, 1, 64, 4, 4, dh, elem_bytes, q_offset=40,
+                    kv_valid=41).n_split == 2
+    assert tfa.plan(2, 4, 8, 2, 2, dh, elem_bytes, kv_valid=0).n_split == 1
+
+
+@pytest.mark.parametrize("arch", list_archs())
+def test_attention_head_dims_fit_the_kernel(arch):
+    """Every registered config with attention runs its head dim through
+    the kernel (MLA, ROADMAP A10b, is not ported)."""
+    cfg = get_config(arch)
+    if cfg.attn == "gqa":
+        assert cfg.head_dim <= tfa.MAX_HEAD_DIM
+        assert cfg.n_heads % cfg.n_kv_heads == 0
 
 
 def test_attention_rows_that_see_no_key_are_zero():
