@@ -17,7 +17,9 @@ Phases:
    ``rmsnorm``, ``flash_attention`` and ``ssd_scan`` in f32 and bf16 at
    the serving path's zamba2-2.7b shapes, a ragged and a GQA shape
    (Hkv = 4, 8 groups), gemma3-4b's and glm4-9b's attention shapes (head
-   dims 256 and 128), within the tolerances of ``tests/test_kernels.py``
+   dims 256 and 128), a 4,096-token scan (32 chunks) and rmsnorm rows that
+   take scalar accesses (d = 2561; bf16 d = 20), within the tolerances of
+   ``tests/test_kernels.py``
    (f32 2e-5 / 2e-5 / 2e-4, bf16 2e-2 / 2e-2 / 5e-2); median times (CUDA
    events, 20 runs) of kernel and plain version;
 3. main path: theta at scale 1.0 (2,550 jobs on 4,392 nodes), 2 seeds,
@@ -38,15 +40,19 @@ Phases:
    (head dim 256), f32: one 1,100-token prompt, past its 1,024-token
    window, and 8 decode steps; logits finite, attention launched.  Each
    LLM kernel is then timed and checked on the zamba2 run's largest calls,
-   beside its plain version, its bound (f32 attention prefill at the split
-   TF32 rate, 495 / 3 TFLOP/s; decode and the other kernels at the f32
-   CUDA-core rate, 67 TFLOP/s) and one PyTorch call of the same function
-   where there is one;
+   beside its plain version, its bound (the f32 attention prefill and the
+   SSD scan at the split TF32 rate, 495 / 3 TFLOP/s, the SSD scan's work
+   counting C B^T once per chunk; decode and rmsnorm at the f32 CUDA-core
+   rate, 67 TFLOP/s) and one PyTorch call of the same function where there
+   is one, single calls with CUDA events and device times alone (a CUDA
+   graph of 20 calls) of the kernel and of that PyTorch call;
 5. scale: the greedy batch on haswell at scale 1.0 (the whole trace,
-   28,259 jobs on 2,388 nodes) with ``fused``.  Should the time left in
-   the smoke's 1,200 s limit not hold it at the rate this card ran the
-   theta greedy batch, the scale is cut to the largest of 0.5 and 0.25
-   that fits, and the cut is printed.
+   28,259 jobs on 2,388 nodes) with ``fused``, tick launches counted from
+   0 just before it; the tick kernel is then timed on the run's call at
+   its peak window (B = 16, W = 16,384) beside its plain version and
+   bound.  Should the time left in the smoke's 1,200 s limit not hold it
+   at the rate this card ran the theta greedy batch, the scale is cut to
+   the largest of 0.5 and 0.25 that fits, and the cut is printed.
 
 Prints the kernels' JSON line, the ``nvidia-smi`` name / power-limit line
 and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
@@ -467,30 +473,40 @@ def phase_main(report):
                           "waterfill": wf_cap.kept}
 
 
-def phase_kernels_at_main_shape(report):
-    """Time each kernel on a real main-path call's inputs and hold it
-    against its plain version there."""
-    import torch
-    from repro_torch.kernels.ref import waterfill_ref
-    from repro_torch.kernels.schedule_tick import fused_schedule_tick
-    from repro_torch.kernels.waterfill import waterfill
+def time_tick(args, kw):
+    """The tick kernel against its plain version on one real call's
+    inputs (bit-equal required): max |err|, single-call ms of both and the
+    bound (bytes or operations, whichever is larger)."""
     from repro_torch.kernels.ref import schedule_tick_ref
-    out = []
-    args, kw = report["captured"]["schedule_tick"]
+    from repro_torch.kernels.schedule_tick import fused_schedule_tick
     B, W = args[1].shape
     got = fused_schedule_tick(*args, **kw)
     ref = schedule_tick_ref(*args, **kw)
     err = 0.0
     for g, r in zip(got, ref):
         if not identical(g, r):
-            raise AssertionError("schedule_tick differs from plain on the "
-                                 "captured main-path call")
+            raise AssertionError(f"schedule_tick differs from plain on the "
+                                 f"captured main-path call B={B} W={W}")
         err = max(err, max_abs_err(g, r))
-    ms = cuda_median_ms(lambda: fused_schedule_tick(*args, **kw))
-    plain_ms = cuda_median_ms(lambda: schedule_tick_ref(*args, **kw))
-    nbytes = tick_bytes(B, W)
-    nops = tick_ops(B, W, kw["fill_rounds"])
-    b_bytes, b_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / FP32_OPS_PER_S * 1e3
+    b_bytes = tick_bytes(B, W) / HBM_BYTES_PER_S * 1e3
+    b_ops = tick_ops(B, W, kw["fill_rounds"]) / FP32_OPS_PER_S * 1e3
+    return {"max_abs_err": err,
+            "ms": cuda_median_ms(lambda: fused_schedule_tick(*args, **kw)),
+            "plain_ms": cuda_median_ms(
+                lambda: schedule_tick_ref(*args, **kw)),
+            "bound_ms": max(b_bytes, b_ops),
+            "bound_by": "bytes" if b_bytes >= b_ops else "operations"}
+
+
+def phase_kernels_at_main_shape(report):
+    """Time each kernel on a real main-path call's inputs and hold it
+    against its plain version there."""
+    from repro_torch.kernels.ref import waterfill_ref
+    from repro_torch.kernels.waterfill import waterfill
+    out = []
+    args, kw = report["captured"]["schedule_tick"]
+    B, W = args[1].shape
+    t = time_tick(args, kw)
     out.append({
         "name": "schedule_tick", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/schedule_tick.cu",
@@ -498,12 +514,13 @@ def phase_kernels_at_main_shape(report):
         "launches": report["launches"]["fused"]["schedule_tick"],
         "launches_by_backend": {b: c["schedule_tick"]
                                 for b, c in report["launches"].items()},
-        "max_abs_err": max(err, report["max_abs_err"]["schedule_tick"]),
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": max(b_bytes, b_ops),
-        "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+        "max_abs_err": max(t["max_abs_err"],
+                           report["max_abs_err"]["schedule_tick"]),
+        **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None, "shape": [B, W]})
     log(f"[kernel] schedule_tick at the main-path shape B={B} W={W}: "
-        f"{ms:.4f} ms (plain {plain_ms:.4f} ms, bound {b_bytes:.6f} ms)")
+        f"{t['ms']:.4f} ms (plain {t['plain_ms']:.4f} ms, bound "
+        f"{t['bound_ms']:.6f} ms)")
 
     (cap, tgt), _ = report["captured"]["waterfill"]
     got, ref = waterfill(cap, tgt), waterfill_ref(cap, tgt)
@@ -637,6 +654,10 @@ LLM_PARITY_SHAPES = [
     ("ssd_scan", "initial state", dict(B=1, S=1024, H=80, P=64, N=64,
                                        init=True)),
     ("ssd_scan", "batch 2", dict(B=2, S=300, H=80, P=64, N=64)),
+    ("ssd_scan", "32 chunks", dict(B=1, S=4096, H=80, P=64, N=64)),
+    # the rmsnorm kernel's scalar accesses (odd width; bf16 rows of 40 B)
+    ("rmsnorm", "odd width", dict(rows=7, d=2561)),
+    ("rmsnorm", "narrow", dict(rows=5, d=20)),
 ]
 
 
@@ -704,20 +725,36 @@ def attention_work(q, k, kw):
             es * (2 * q.numel() + 2 * b * hkv * d * rows))
 
 
-def ssd_work(x, b, kw, chunk=128):
-    """(flops, bytes) of the chunked SSD scan on these inputs."""
+def ssd_work(x, b, kw):
+    """(flops, bytes) the chunked SSD scan needs on these inputs: C B^T once
+    per (batch, chunk) over the lower triangle, the intra-chunk product and
+    the chunk state and output products per head; x, dt, B, C read once,
+    y and the state written once."""
+    from repro_torch.kernels.ssd_scan import plan
     bsz, s, h, p = x.shape
     n = b.shape[-1]
-    macs = 0
-    for t0 in range(0, s, chunk):
-        lc = min(chunk, s - t0)
-        macs += lc * (lc + 1) // 2 * (n + p) + 2 * lc * p * n
+    chunk = plan(bsz, s, h, p, n, kw.get("chunk", 128)).chunk
+    tri = sum(lc * (lc + 1) // 2 for lc in
+              (min(chunk, s - t0) for t0 in range(0, s, chunk)))
+    macs = bsz * (tri * n + h * (tri * p + 2 * s * p * n))
     es = x.element_size()
     nbytes = (es * (x.numel() + bsz * s * h + 2 * bsz * s * n)
               + 4 * (x.numel() + bsz * h * p * n + h))
     if kw.get("initial_state") is not None:
         nbytes += 4 * bsz * h * p * n
-    return 2.0 * macs * bsz * h, nbytes
+    return 2.0 * macs, nbytes
+
+
+def ssd_rate(x):
+    """(operations per second, its name) of the SSD kernels' route: every
+    product on the tensor cores in split TF32 (3 TF32 products each) for
+    f32 inputs; for bf16 inputs one operand is exact, so 2."""
+    import torch
+    if x.dtype == torch.bfloat16:
+        return (TF32_OPS_PER_S / 2,
+                "TF32 with one exact operand, 495 / 2 TFLOP/s")
+    return (TF32_OPS_PER_S / SPLIT_TF32_PASSES,
+            "split TF32, 495 / 3 TFLOP/s")
 
 
 def library_call(kernel: str, args, kw):
@@ -1027,6 +1064,7 @@ def phase_llm_kernels_at_serve_shape(report):
                 rate, rate_name = attention_rate(args[0], args[1], kw)
             elif kernel == "ssd_scan":
                 flops, nbytes = ssd_work(args[0], args[3], kw)
+                rate, rate_name = ssd_rate(args[0])
             b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             b_ops = flops / rate * 1e3
             rows.append({
@@ -1042,15 +1080,15 @@ def phase_llm_kernels_at_serve_shape(report):
                     b_bytes, flops / FP32_OPS_PER_S * 1e3),
                 "library_ms": None if lib is None else cuda_median_ms(lib)})
             r = rows[-1]
-            if kernel == "flash_attention":
-                # device time alone: the single-call times above include
-                # the wrapper's host work (PERF.md section 7)
-                r["device_ms"] = graph_ms(kern)
-                r["library_device_ms"] = None if lib is None else \
-                    graph_ms(lib)
-                log(f"[kernel] flash_attention {label} device time "
-                    f"{r['device_ms']:.4f} ms, SDPA "
-                    f"{r['library_device_ms']} ms (CUDA graph of 20 calls)")
+            # device time alone: the single-call times above include the
+            # wrapper's host work (PERF.md section 7)
+            r["device_ms"] = graph_ms(kern)
+            r["library_device_ms"] = None if lib is None else graph_ms(lib)
+            lib_dev = ("none" if lib is None
+                       else f"{r['library_device_ms']:.4f} ms")
+            log(f"[kernel] {kernel} {label} device time "
+                f"{r['device_ms']:.4f} ms, library {lib_dev} (CUDA graph "
+                f"of 20 calls; {report['gpu']})")
             lib_txt = ("none" if r["library_ms"] is None
                        else f"{r['library_ms']:.4f} ms")
             log(f"[kernel] {kernel} at the serve shape {label} "
@@ -1067,7 +1105,8 @@ def phase_llm_kernels_at_serve_shape(report):
                                + [report.get("max_abs_err", {}).get(kernel,
                                                                     0.0)]),
             **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                    "library_ms", "shape")},
+                                    "library_ms", "device_ms",
+                                    "library_device_ms", "shape")},
             "shapes": rows})
 
 
@@ -1085,22 +1124,48 @@ def haswell_scale(report, elapsed_s):
 
 
 def phase_scale(report, elapsed_s):
+    """haswell's greedy batch with ``fused``: tick launches counted from 0
+    just before the run, and the tick kernel timed on the run's call at
+    its peak window beside its plain version and bound."""
     import torch
+    from repro_torch.kernels import build, schedule_tick
     scale = haswell_scale(report, elapsed_s)
     if scale != 1.0:
         ms = report["greedy_s_per_step"] * 1e3
         log(f"[scale] {elapsed_s:.0f}s spent; at {ms:.2f} ms per theta "
             f"greedy step haswell at scale 1.0 would not end inside "
             f"{TIME_LIMIT_S:.0f}s")
-    t0 = time.monotonic()
-    todo, metrics, info = run_grid(("haswell",), scale, 1, "fused", "cuda",
-                                   strategies=("min", "pref", "keeppref"))
+    peak = Keep(schedule_tick, "fused_schedule_tick",
+                lambda a, k: ("peak", a[1].numel()))
     torch.cuda.synchronize()
+    build.LAUNCH_COUNTS.clear()  # this run's launches start here
+    t0 = time.monotonic()
+    with peak:
+        todo, metrics, info = run_grid(("haswell",), scale, 1, "fused",
+                                       "cuda",
+                                       strategies=("min", "pref", "keeppref"))
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = build.LAUNCH_COUNTS["schedule_tick"]
     check_cells(todo, metrics, info, "haswell")
+    if not launches:
+        raise AssertionError("haswell: the tick kernel never launched")
     cut = "" if scale == 1.0 else f" (CUT from scale 1.0 to {scale})"
     log(f"[scale] haswell scale {scale}{cut}: {len(todo)} greedy cells in "
-        f"{time.monotonic() - t0:.2f}s; {info['greedy_steps']} steps, peak "
-        f"window {info['greedy_window']}")
+        f"{wall:.2f}s; {info['greedy_steps']} steps, peak window "
+        f"{info['greedy_window']}; schedule_tick launches {launches}")
+    _size, args, kw = peak.kept["peak"]
+    B, W = args[1].shape
+    t = time_tick(args, kw)
+    t.update(shape=[B, W], launches=launches, scale=scale)
+    log(f"[kernel] schedule_tick at haswell's peak window B={B} W={W}: "
+        f"{t['ms']:.4f} ms (plain {t['plain_ms']:.4f} ms, bound "
+        f"{t['bound_ms']:.6f} ms by {t['bound_by']}); bit-equal; "
+        f"{report['gpu']}")
+    for row in report.get("kernels", []):
+        if row["name"] == "schedule_tick":
+            row["haswell"] = t
+            row["max_abs_err"] = max(row["max_abs_err"], t["max_abs_err"])
 
 
 def phase_profile(report):

@@ -20,8 +20,12 @@ exports ``repro_abi()``, each entry point's parameter kinds as the compiler
 sees them, and loading refuses a library whose kinds or counts differ from
 ``_SIGNATURES``.
 
-``LAUNCH_COUNTS`` counts kernel launches by name; each wrapper adds one
-where it launches its kernel, and nowhere else.
+Every wrapper launches through :func:`launch`, one lean prologue: the
+library is read without the lock once it is loaded, the current stream's
+raw handle comes without building a ``torch.cuda.Stream`` object, and a
+device guard is entered only when the tensor is not on the current device.
+``LAUNCH_COUNTS`` counts kernel launches by name; :func:`launch` adds one
+for each wrapper call that launches, and nothing else does.
 """
 from __future__ import annotations
 
@@ -34,10 +38,12 @@ import subprocess
 import threading
 import time
 
+import torch
+
 CSRC = pathlib.Path(__file__).resolve().with_name("csrc")
 SOURCES = ("schedule_tick.cu", "waterfill.cu", "rmsnorm.cu",
            "flash_attention.cu", "ssd_scan.cu", "bindings.cpp")
-HEADERS = ("kernels.h", "block.cuh", "dtype.cuh")
+HEADERS = ("kernels.h", "block.cuh", "dtype.cuh", "mma.cuh")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3",
               "--fmad=false", "-std=c++17", "-Xcompiler", "-fPIC",
               "-Xptxas=-v")
@@ -56,7 +62,7 @@ _SIGNATURES = {
     "repro_waterfill": [_P, _P, _P, _I, _I, _P],
     "repro_rmsnorm": [_P, _P, _P, _I, _I, _F, _I, _P],
     "repro_flash_attention": [_P] * 5 + [_I] * 10 + [_F, _I, _I, _P],
-    "repro_ssd_scan": [_P] * 8 + [_I] * 7 + [_P],
+    "repro_ssd_scan": [_P] * 9 + [_I] * 8 + [_P],
 }
 _CODES = {_P: "P", _I: "I", _F: "F"}
 
@@ -133,6 +139,8 @@ def expected_abi() -> str:
 def load_library() -> ctypes.CDLL:
     """The kernel library, built on first use (raises if it cannot be)."""
     global _LIB
+    if _LIB is not None:
+        return _LIB
     with _LOCK:
         if _LIB is not None:
             return _LIB
@@ -158,25 +166,31 @@ def load_library() -> ctypes.CDLL:
         return lib
 
 
-def dtype_code(t) -> int:
-    """The C code of an LLM kernel's activation type (``DType`` in
-    ``kernels.h``): 0 for float32, 1 for bfloat16; raises otherwise."""
-    import torch
-    codes = {torch.float32: 0, torch.bfloat16: 1}
-    if t.dtype not in codes:
-        raise ValueError(f"the kernels take float32 or bfloat16, not "
-                         f"{t.dtype}")
-    return codes[t.dtype]
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def stream_of(t) -> int:
-    """The current CUDA stream of ``t``'s device, as ctypes passes it."""
-    import torch
-    return torch.cuda.current_stream(t.device).cuda_stream
+def dtype_code(dtype) -> int:
+    """The C code of an LLM kernel's activation or weight type (``DType``
+    in ``kernels.h``): 0 for float32, 1 for bfloat16; raises otherwise."""
+    code = _DTYPE_CODES.get(dtype)
+    if code is None:
+        raise ValueError(f"the kernels take float32 or bfloat16, not {dtype}")
+    return code
 
 
-def check_launch(lib: ctypes.CDLL, err: int, name: str) -> None:
-    """Raise on a refused launch, else count it."""
+def launch(name: str, t, entry: str, *args) -> None:
+    """Call the library's ``entry`` with ``args`` and the current stream of
+    ``t``'s device (``torch._C._cuda_getCurrentRawStream``: the handle as
+    an int, with no ``torch.cuda.Stream`` object built), raise if the
+    launch was refused, else count one launch of ``name``."""
+    lib = _LIB if _LIB is not None else load_library()
+    fn = getattr(lib, entry)
+    dev = t.get_device()
+    if dev == torch._C._cuda_getDevice():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
     if err != 0:
         msg = lib.repro_error_string(err).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg} ({err})")

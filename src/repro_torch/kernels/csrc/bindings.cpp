@@ -67,10 +67,22 @@ int repro_waterfill(const void* cap, const void* target, void* out, int B,
 }
 
 int repro_rmsnorm(const void* x, const void* w, void* out, int rows, int d,
-                  float eps, int dtype, void* stream) {
-  return static_cast<int>(repro::launch_rmsnorm(
-      x, static_cast<const float*>(w), out, rows, d, eps, dtype,
-      static_cast<cudaStream_t>(stream)));
+                  float eps, int plan, void* stream) {
+  repro::NormArgs a;
+  a.x = x;
+  a.w = w;
+  a.out = out;
+  a.rows = rows;
+  a.d = d;
+  a.eps = eps;
+  a.dtype = plan & 1;
+  a.wdtype = (plan >> 1) & 1;
+  a.vec = (plan >> 2) & 63;
+  a.k = (plan >> 8) & 31;
+  a.rows_per_cta = (plan >> 13) & 7;
+  a.threads = (plan >> 16) & 2047;
+  return static_cast<int>(
+      repro::launch_rmsnorm(a, static_cast<cudaStream_t>(stream)));
 }
 
 int repro_flash_attention(const void* q, const void* k, const void* v,
@@ -102,8 +114,8 @@ int repro_flash_attention(const void* q, const void* k, const void* v,
 
 int repro_ssd_scan(const void* x, const void* dt, const void* a_rate,
                    const void* b, const void* c, const void* init, void* y,
-                   void* state, int B, int S, int H, int P, int N, int L,
-                   int dtype, void* stream) {
+                   void* state, void* scratch, int B, int S, int H, int P,
+                   int N, int L, int scan_ctas, int dtype, void* stream) {
   repro::SsdArgs a;
   a.x = x;
   a.dt = dt;
@@ -113,12 +125,14 @@ int repro_ssd_scan(const void* x, const void* dt, const void* a_rate,
   a.init = static_cast<const float*>(init);
   a.y = static_cast<float*>(y);
   a.state = static_cast<float*>(state);
+  a.scratch = static_cast<float*>(scratch);
   a.B = B;
   a.S = S;
   a.H = H;
   a.P = P;
   a.N = N;
   a.L = L;
+  a.scan_ctas = scan_ctas;
   return static_cast<int>(repro::launch_ssd_scan(
       a, dtype, static_cast<cudaStream_t>(stream)));
 }

@@ -17,8 +17,9 @@
 //     two buffers fits at D = 256) are copied with cp.async into a ring of
 //     two buffers, so the next tile loads while this one is computed.  Q
 //     stays in shared memory to leave registers to the O accumulator.
-//   * S = Q K^T and O += P V run as mma.sync with f32 accumulators: bf16 as
-//     m16n8k16, f32 as m16n8k8.tf32 in split TF32 (x = hi + lo, both TF32,
+//   * S = Q K^T and O += P V run as mma.sync (mma.cuh) with f32
+//     accumulators: bf16 as m16n8k16, f32 as m16n8k8.tf32 in split TF32
+//     (x = hi + lo, both TF32,
 //     rounded with integer ops; each product hi*hi + hi*lo + lo*hi), which
 //     keeps close to f32 accuracy at a third of the TF32 rate.  The softmax
 //     scale (times log2 e) multiplies S in f32 and the softmax runs in
@@ -67,6 +68,7 @@
 
 #include "dtype.cuh"
 #include "kernels.h"
+#include "mma.cuh"
 
 namespace repro {
 namespace {
@@ -176,62 +178,6 @@ __device__ __forceinline__ void zero_pad(T* dst, int stride, int rows, int D,
     const int j = i / w;
     dst[j * stride + D + (i - j * w)] = from_f32<T>(0.f);
   }
-}
-
-// Rounds x to TF32 (to nearest, ties away from zero: what
-// cvt.rna.tf32.f32 gives for finite x) in two full-rate integer ops.
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// x = hi + lo, both TF32
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// hi*hi + hi*lo + lo*hi, the small terms first
-__device__ __forceinline__ void mma_split(float* c, const uint32_t* ah,
-                                          const uint32_t* al, uint32_t bh0,
-                                          uint32_t bh1, uint32_t bl0,
-                                          uint32_t bl1) {
-  mma_tf32(c, al, bh0, bh1);
-  mma_tf32(c, ah, bl0, bl1);
-  mma_tf32(c, ah, bh0, bh1);
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// two bf16 values in one register, `lo` in the low half
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  __nv_bfloat162 v = __halves2bfloat162(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 __device__ __forceinline__ float quad_max(float v) {
@@ -807,26 +753,6 @@ __global__ void __launch_bounds__(kThreads) combine_kernel(AttnArgs a) {
 }
 
 // --------------------------------------------------------------- launch
-// Lets `Kernel` take `smem` bytes of dynamic shared memory.  The opt-in is
-// a driver call, so it is made once per kernel and device for the most
-// bytes asked so far.
-constexpr int kMaxDevices = 64;
-
-template <auto Kernel>
-cudaError_t allow_smem(size_t smem) {
-  static size_t allowed[kMaxDevices] = {};
-  if (smem <= 48 * 1024) return cudaSuccess;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < kMaxDevices && allowed[dev] >= smem) return cudaSuccess;
-  err = cudaFuncSetAttribute(Kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err == cudaSuccess && dev < kMaxDevices) allowed[dev] = smem;
-  return err;
-}
-
 template <typename T, int DP, int BK>
 cudaError_t launch_prefill(const AttnArgs& a, int vec, cudaStream_t stream) {
   const size_t smem = prefill_smem_bytes<T>(pad16(a.D), BK);

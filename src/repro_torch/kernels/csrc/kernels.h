@@ -47,13 +47,25 @@ cudaError_t launch_schedule_tick(const TickArgs& args, cudaStream_t stream);
 cudaError_t launch_waterfill(const int* cap, const int* target, int* out,
                              int B, int N, cudaStream_t stream);
 
-// Element type of the LLM kernels' activations (weights and states are f32).
+// Element type of the LLM kernels' activations and weights (states are
+// f32).
 enum DType : int { kF32 = 0, kBF16 = 1 };
 
 // RMSNorm over `rows` contiguous rows of width d: x * rsqrt(mean(x^2) + eps)
-// * w in f32, written in x's type.  w: (d,) f32.
-cudaError_t launch_rmsnorm(const void* x, const float* w, void* out, int rows,
-                           int d, float eps, int dtype, cudaStream_t stream);
+// * w in f32, written in x's type; w: (d,).  `plan` packs
+// (kernels/rmsnorm.py::pack) bits 0-1: x's and w's DType; 2-7: vec, the
+// elements a load moves (1, or 16 bytes of x when d and the pointers allow
+// it); 8-12: k, the vectors a thread holds; 13-15: rows a CTA (a warp each)
+// when above 1, else one row a CTA; 16-26: threads a CTA.
+struct NormArgs {
+  const void* x;
+  const void* w;
+  void* out;
+  int rows, d;
+  float eps;
+  int dtype, wdtype, vec, k, rows_per_cta, threads;
+};
+cudaError_t launch_rmsnorm(const NormArgs& args, cudaStream_t stream);
 
 // Online-softmax attention.  q, o: (B, Sq, H, D); k, v: (B, Sk, Hkv, D), all
 // contiguous and of one type; query head h reads KV head h / (H / Hkv).
@@ -82,7 +94,11 @@ cudaError_t launch_flash_attention(const AttnArgs& args, int dtype,
 
 // Mamba-2 chunked SSD scan.  x: (B, S, H, P); dt: (B, S, H); b, c: (B, S, N)
 // of one type; a: (H,) f32; init: (B, H, P, N) f32 or null.  Writes
-// y: (B, S, H, P) f32 and state: (B, H, P, N) f32.  L is the chunk length.
+// y: (B, S, H, P) f32 and state: (B, H, P, N) f32.  L is the chunk length
+// (at most 128); scan_ctas the CTAs of the chunk-scan kernel, from B * NC
+// (all of a chunk's heads in one CTA) to B * NC * H (one head a CTA).
+// scratch: f32, the chunks' states (B, NC, H, P, N) then their last cumsums
+// (B, NC, H), NC = ceil(S / L); null when S = 0.  P <= 128.
 struct SsdArgs {
   const void* x;
   const void* dt;
@@ -92,7 +108,8 @@ struct SsdArgs {
   const float* init;
   float* y;
   float* state;
-  int B, S, H, P, N, L;
+  float* scratch;
+  int B, S, H, P, N, L, scan_ctas;
 };
 cudaError_t launch_ssd_scan(const SsdArgs& args, int dtype,
                             cudaStream_t stream);

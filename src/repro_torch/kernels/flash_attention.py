@@ -10,7 +10,6 @@ decode when ``Sq * (H / Hkv) <= 16``, the tensor-core prefill otherwise.
 """
 from __future__ import annotations
 
-import contextlib
 import functools
 import math
 from dataclasses import dataclass
@@ -18,7 +17,7 @@ from typing import Optional
 
 import torch
 
-from .build import check_launch, dtype_code, load_library, stream_of
+from .build import dtype_code, launch
 from .ref import attention_ref
 
 MAX_HEAD_DIM = 256
@@ -108,7 +107,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          "dtype with H a multiple of Hkv")
     if dh > MAX_HEAD_DIM:
         raise ValueError(f"head dim {dh} > {MAX_HEAD_DIM}")
-    code = dtype_code(q)
+    code = dtype_code(q.dtype)
     scale = (softmax_scale if softmax_scale is not None
              else 1.0 / math.sqrt(dh))
     valid = sk if kv_valid_len is None else int(kv_valid_len)
@@ -121,17 +120,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         scratch = torch.empty((b, h, sq, p.n_split, dh + 2),
                               dtype=torch.float32, device=q.device)
     if q.numel():
-        lib = load_library()
-        # the device guard costs a few microseconds a call; skip it when q
-        # lies on the current device already
-        guard = (contextlib.nullcontext()
-                 if q.device.index == torch.cuda.current_device()
-                 else torch.cuda.device(q.device))
-        with guard:
-            err = lib.repro_flash_attention(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                None if scratch is None else scratch.data_ptr(), b, sq, sk,
-                h, hkv, dh, int(q_offset), valid, int(window),
-                int(bool(causal)), scale, p.n_split, code, stream_of(q))
-        check_launch(lib, err, "flash_attention")
+        launch("flash_attention", q, "repro_flash_attention", q.data_ptr(),
+               k.data_ptr(), v.data_ptr(), out.data_ptr(),
+               None if scratch is None else scratch.data_ptr(), b, sq, sk, h,
+               hkv, dh, int(q_offset), valid, int(window), int(bool(causal)),
+               scale, p.n_split, code)
     return out

@@ -12,7 +12,7 @@ import torch
 
 from repro_torch.core.passes import PassParams, bisect_rounds
 
-from .build import check_launch, load_library
+from .build import launch
 from .ref import schedule_tick_ref
 
 I32, F32, U8 = torch.int32, torch.float32, torch.uint8
@@ -64,17 +64,13 @@ def fused_schedule_tick(p: PassParams, state, alloc, remaining, start_t, act,
     take_lo, take_hi = prio_lo - 1, prio_hi
     give_lo, give_hi = -prio_hi - 1, -(prio_lo - 1) + 1
     if B and W:
-        lib = load_library()
-        with torch.cuda.device(state.device):
-            err = lib.repro_schedule_tick(
-                *(t.data_ptr() for t in ins),
-                None if depth is None else depth.data_ptr(),
-                out_state.data_ptr(), out_alloc.data_ptr(),
-                out_start.data_ptr(),
-                B, W, fill_rounds, prio_lo, prio_hi, shadow_iters,
-                take_lo, take_hi, bisect_rounds(take_lo, take_hi),
-                give_lo, give_hi, bisect_rounds(give_lo, give_hi),
-                torch.cuda.current_stream(state.device).cuda_stream)
-        check_launch(lib, err, "schedule_tick")
+        launch("schedule_tick", state, "repro_schedule_tick",
+               *(t.data_ptr() for t in ins),
+               None if depth is None else depth.data_ptr(),
+               out_state.data_ptr(), out_alloc.data_ptr(),
+               out_start.data_ptr(),
+               B, W, fill_rounds, prio_lo, prio_hi, shadow_iters,
+               take_lo, take_hi, bisect_rounds(take_lo, take_hi),
+               give_lo, give_hi, bisect_rounds(give_lo, give_hi))
     return (out_state.reshape(shape), out_alloc.reshape(shape),
             out_start.reshape(shape))

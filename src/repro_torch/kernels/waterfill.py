@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from .build import check_launch, load_library
+from .build import launch
 from .ref import waterfill_ref
 
 I32 = torch.int32
@@ -33,13 +33,8 @@ def waterfill(cap: torch.Tensor, target) -> torch.Tensor:
     tgt = tgt.expand(rows.shape[0]).contiguous()
     out = torch.empty_like(rows)
     if rows.numel():
-        lib = load_library()
-        with torch.cuda.device(cap.device):
-            err = lib.repro_waterfill(
-                rows.data_ptr(), tgt.data_ptr(), out.data_ptr(),
-                rows.shape[0], rows.shape[1],
-                torch.cuda.current_stream(cap.device).cuda_stream)
-        check_launch(lib, err, "waterfill")
+        launch("waterfill", cap, "repro_waterfill", rows.data_ptr(),
+               tgt.data_ptr(), out.data_ptr(), rows.shape[0], rows.shape[1])
     return out.reshape(cap.shape)
 
 

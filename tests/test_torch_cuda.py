@@ -128,13 +128,23 @@ def _rand(gen, *shape, dev, dtype=torch.float32, lo=None, hi=None):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("rows,d", [(37, 128), (8, 80), (300, 2560)])
-def test_rmsnorm_kernel_matches_plain(cuda_device, dtype, rows, d):
+@pytest.mark.parametrize("rows,d,kw", [
+    (37, 128, {}), (8, 80, {}), (300, 2560, {}),
+    # scalar accesses: an odd width, and bf16 rows of 40 bytes
+    (5, 2561, {}), (3, 20, {}),
+    # one row; a non-contiguous x; a bf16 weight
+    (1, 5120, {}), (6, 2560, dict(strided=True)),
+    (4, 5120, dict(weight=torch.bfloat16))])
+def test_rmsnorm_kernel_matches_plain(cuda_device, dtype, rows, d, kw):
     from repro_torch.kernels.ref import rmsnorm_ref
     from repro_torch.kernels.rmsnorm import rmsnorm
-    gen = torch.Generator().manual_seed(rows)
-    x = _rand(gen, 2, rows, d, dev=cuda_device, dtype=dtype)
-    w = _rand(gen, d, dev=cuda_device)
+    gen = torch.Generator().manual_seed(rows + d)
+    x = _rand(gen, 2, rows, 2 * d if kw.get("strided") else d,
+              dev=cuda_device, dtype=dtype)
+    if kw.get("strided"):
+        x = x[..., ::2]
+        assert not x.is_contiguous()
+    w = _rand(gen, d, dev=cuda_device, dtype=kw.get("weight", torch.float32))
     got = rmsnorm(x, w)
     assert got.dtype == dtype
     _close(got, rmsnorm_ref(x, w), LLM_TOL[dtype][0])
@@ -178,7 +188,12 @@ def test_flash_attention_kernel_matches_plain(cuda_device, dtype, b, sq, sk,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,s,h,p,n,init", [
     (1, 200, 4, 64, 64, False), (2, 50, 3, 16, 16, True),
-    (1, 130, 2, 64, 128, False)])
+    (1, 130, 2, 64, 128, False),
+    # 32 chunks; shorter than a chunk; an exact multiple of the chunk
+    (1, 4096, 2, 64, 64, False), (1, 37, 4, 64, 64, False),
+    (1, 256, 4, 64, 64, True),
+    # a batch of two from a state; zamba2's 80 heads (2 a CTA)
+    (2, 300, 6, 64, 64, True), (1, 700, 80, 64, 64, False)])
 def test_ssd_scan_kernel_matches_plain(cuda_device, dtype, b, s, h, p, n,
                                        init):
     from repro_torch.kernels.ref import ssd_ref

@@ -30,6 +30,7 @@ from repro.models import ssm as jssm  # noqa: E402
 from repro_torch.configs import get_config, list_archs  # noqa: E402
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
+from repro_torch.kernels import rmsnorm as trms  # noqa: E402
 from repro_torch.kernels import ssd_scan as tssd  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa
 from repro_torch.kernels.rmsnorm import rmsnorm  # noqa: E402
@@ -63,6 +64,36 @@ def test_rmsnorm_keeps_the_input_dtype():
     w = torch.ones(128)
     assert rmsnorm(x.to(torch.bfloat16), w).dtype == torch.bfloat16
     assert rmsnorm(x, w).dtype == torch.float32
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", [20, 80, 2560, 5120, 2561])
+def test_rmsnorm_plan_covers_the_row(d, dtype):
+    """The kernel's load width and CTA shape: 16-byte vectors where the
+    row's byte width allows them, a warp per narrow row (4 rows a CTA), a
+    CTA sized to a wide row, and every element held by some thread."""
+    expect = {  # (d, x bytes): (vec, per_thread, threads, rows_per_cta)
+        (20, 4): (4, 4, 128, 4), (20, 2): (1, 4, 128, 4),
+        (80, 4): (4, 4, 128, 4), (80, 2): (8, 4, 128, 4),
+        (2560, 4): (4, 4, 160, 1), (2560, 2): (8, 4, 96, 1),
+        (5120, 4): (4, 8, 160, 1), (5120, 2): (8, 4, 160, 1),
+        (2561, 4): (1, 16, 192, 1), (2561, 2): (1, 16, 192, 1)}
+    for wdtype in (torch.float32, torch.bfloat16):
+        p = trms.plan(d, dtype, wdtype)
+        assert (p.vec, p.per_thread, p.threads, p.rows_per_cta) == \
+            expect[d, dtype.itemsize]
+        assert p.code == trms.pack(dtype == torch.bfloat16,
+                                   wdtype == torch.bfloat16, *p[:4])
+        width = 32 if p.rows_per_cta > 1 else p.threads
+        assert width * p.per_thread * p.vec >= d
+        assert p.threads <= trms.MAX_THREADS and p.threads % 32 == 0
+    # a pointer off the 16-byte grid takes scalar accesses
+    assert trms.plan(d, dtype, dtype, aligned=False).vec == 1
+    with pytest.raises(ValueError, match="wider"):
+        trms.plan(8192 * 16 // dtype.itemsize + 16, dtype, dtype)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        trms.plan(d, torch.float16, dtype)
 
 
 # ---------------------------------------------------------------- attention
@@ -243,15 +274,53 @@ def test_ssd_plain_initial_state_and_continuation():
     np.testing.assert_allclose(st2.numpy(), st_full.numpy(), **SSD_TOL)
 
 
-@pytest.mark.parametrize("chunk,s,p,n,expect", [
-    (128, 1024, 64, 64, 128),    # zamba2-2.7b prefill: 180 KB per CTA
-    (128, 37, 64, 64, 37),       # a prompt shorter than a chunk
-    (128, 1024, 64, 128, 64),    # mamba2-1.3b's dstate: halved to fit
-    (16, 50, 8, 16, 16)])
-def test_ssd_kernel_chunk_fits_shared_memory(chunk, s, p, n, expect):
+@pytest.mark.parametrize("chunk,s,p,n,expect,kb", [
+    (128, 1024, 64, 64, 128, 169),   # zamba2-2.7b prefill
+    (128, 37, 64, 64, 37, 60),       # a prompt shorter than a chunk
+    (128, 1024, 64, 128, 64, 126),   # mamba2-1.3b's dstate: halved to fit
+    (256, 4096, 64, 64, 128, 169)])  # at most 8 tiles of 16 steps
+def test_ssd_kernel_chunk_fits_shared_memory(chunk, s, p, n, expect, kb):
+    """The chunk length and the larger tile CTA's shared memory (KB): the
+    chunk-scan CTA holds C B^T, C, B or x, and the state before the
+    chunk."""
     L = tssd.kernel_chunk(chunk, s, p, n)
     assert L == expect
+    assert tssd.smem_bytes(L, p, n) // 1024 == kb
     assert tssd.smem_bytes(L, p, n) <= tssd.MAX_SMEM_BYTES
+    if L < min(chunk, s, tssd.MAX_CHUNK):
+        assert tssd.smem_bytes(2 * L, p, n) > tssd.MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("b,s,h,p,n,plan", [
+    # zamba2-2.7b's 996-token prefill: 80 heads, 8 chunks, one wave of
+    # chunk-scan CTAs (16 or 17 a chunk, 4 or 5 heads each)
+    (1, 996, 80, 64, 64, (128, 8, 5, 640, 132)),
+    # mamba2-1.3b (64 heads, dstate 128): 16 chunks of 64
+    (1, 1000, 64, 64, 128, (64, 16, 8, 1024, 132)),
+    # a short prompt: one head a CTA; a batch of two
+    (1, 37, 80, 64, 64, (37, 1, 1, 80, 80)),
+    (2, 300, 80, 64, 64, (128, 3, 4, 480, 132))])
+def test_ssd_plan_fills_the_card(b, s, h, p, n, plan):
+    """Chunk length and count, the most heads a chunk-scan CTA serves, and
+    the CTAs of the chunk-state and chunk-scan kernels; at the zamba2 serve
+    shape both have at least one CTA for each of the 132 SMs."""
+    pl = tssd.plan(b, s, h, p, n)
+    assert (pl.chunk, pl.n_chunks, pl.heads_per_cta, pl.state_ctas,
+            pl.scan_ctas) == plan
+    assert pl.smem_bytes <= tssd.MAX_SMEM_BYTES
+    if (s, h) == (996, 80):
+        assert pl.state_ctas >= 132 and pl.scan_ctas >= 132
+    # the kernel's map of scan CTAs to (chunk, heads) covers each pair once
+    Q, K = b * pl.n_chunks, pl.scan_ctas
+    first = lambda i: (i * K + Q - 1) // Q  # noqa: E731
+    seen = []
+    for cid in range(K):
+        q = cid * Q // K
+        j, n_q = cid - first(q), first(q + 1) - first(q)
+        heads = range(j * h // n_q, (j + 1) * h // n_q)
+        assert 1 <= len(heads) <= pl.heads_per_cta
+        seen += [(q, hh) for hh in heads]
+    assert sorted(seen) == [(q, hh) for q in range(Q) for hh in range(h)]
 
 
 def test_ssd_plain_chunk_length_does_not_change_the_result():
