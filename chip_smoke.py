@@ -11,9 +11,13 @@ through ``repro_torch.serve.engine.ServeEngine``) and prints what it saw.
 Phases:
 
 1. environment: versions, the card's name and power limit, the build;
-2. kernel parity: the CUDA ``schedule_tick`` and ``waterfill`` kernels
-   against their plain versions on seeded random inputs (B = 64 lanes,
-   W up to 8192; a 143,829-slot 1-D waterfill), bit-equal; then
+2. kernel parity: the CUDA ``schedule_tick`` kernel against its plain
+   version, bit-equal, on two seeded random slot states (a plausible
+   mid-simulation one and a tight one that drives every branch) in every
+   tier of its plan (B = 64 at W = 128, 200, 1,000, 4,097 and 8,192;
+   16 x 16,384, 1 x 16,384 and 2 x 65,536), with and without a backfill
+   depth; single-call, device (CUDA graph) and plain times; ``waterfill``
+   bit-equal (B = 64, W up to 8192; a 143,829-slot 1-D row); then
    ``rmsnorm``, ``flash_attention`` and ``ssd_scan`` in f32 and bf16 at
    the serving path's zamba2-2.7b shapes, a ragged and a GQA shape
    (Hkv = 4, 8 groups), gemma3-4b's and glm4-9b's attention shapes (head
@@ -27,7 +31,10 @@ Phases:
    fused, waterfill and bisect; per-cell metrics must be identical across
    the three and every lane must finish.  Kernel launches are counted per
    run, from 0 just before it.  A small theta grid on the card must also
-   equal the plain path on the CPU bit for bit;
+   equal the plain path on the CPU bit for bit.  The tick and waterfill
+   kernels are then held to their plain versions on a captured call of
+   the run and timed there: single calls (CUDA events) and device time
+   (a CUDA graph of 20 calls);
 4. serve: reduced zamba2 with the same seeded weights on the card and on
    the CPU (2 slots, 4 requests) must give identical tokens and last
    logits within 1e-3; then zamba2-2.7b at full width and depth, f32
@@ -49,9 +56,10 @@ Phases:
 5. scale: the greedy batch on haswell at scale 1.0 (the whole trace,
    28,259 jobs on 2,388 nodes) with ``fused``, tick launches counted from
    0 just before it; the tick kernel is then timed on the run's call at
-   its peak window (B = 16, W = 16,384) beside its plain version and
-   bound.  Should the time left in the smoke's 1,200 s limit not hold it
-   at the rate this card ran the theta greedy batch, the scale is cut to
+   its peak window (B = 16, W = 16,384): single-call and device (CUDA
+   graph) times beside its plain version and bound.  Should the time
+   left in the smoke's 1,200 s limit not hold it at the rate this card
+   ran the theta greedy batch, the scale is cut to
    the largest of 0.5 and 0.25 that fits, and the cut is printed.
 
 Prints the kernels' JSON line, the ``nvidia-smi`` name / power-limit line
@@ -173,16 +181,68 @@ def random_tick_case(gen, B: int, W: int, device):
             torch.where(state == 2, rf(0.0, 1.0e5), 0.0),
             (torch.rand((B,), generator=gen) < 0.8)[:, None],
             capacity, rf(1.0e5, 2.0e5, (B,)))
-    moved = [PassParams(*(t.to(device) for t in args[0][:9]))]
+    return _tick_case_on(device, args)
+
+
+def _tick_case_on(device, args):
+    from repro_torch.core.passes import PassParams
+    p = args[0]
+    moved = [PassParams(*(t.to(device) for t in p[:9]))]
     moved += [t.to(device) for t in args[1:]]
     prio_lo = -int(p.prio_ref.max())
     prio_hi = int((p.max_nodes - p.prio_ref).max())
     return moved, prio_lo, prio_hi
 
 
-def tick_bytes(B: int, W: int) -> int:
-    # 11 int32/float32 rows + 2 uint8 rows in, 3 rows out, 3 lane scalars
-    return B * W * (11 * 4 + 2 + 3 * 4) + B * 12
+def tight_tick_case(gen, B: int, W: int, device):
+    """A slot state that drives every branch of the pass: a blocked head
+    on lanes with few free nodes, end estimates that tie (four remaining
+    fractions), short and long jobs on both sides of the shadow time, so
+    all three fill classes, the shrink and the expand act."""
+    import torch
+    from repro_torch.core.passes import PassParams
+
+    def ri(lo, hi, shape=(B, W)):
+        return torch.randint(lo, hi, shape, generator=gen, dtype=torch.int32)
+
+    def rand(shape=(B, W)):
+        return torch.rand(shape, generator=gen)
+
+    def pick(values):
+        v = torch.tensor(values, dtype=torch.float32)
+        return v[torch.randint(0, len(values), (B, W), generator=gen)]
+
+    u = rand()
+    state = torch.where(u < 0.05, 0, torch.where(
+        u < 0.6, 1, torch.where(u < 0.95, 2, 3))).to(torch.int32)
+    big = rand() < 0.05 + 0.45 * rand((B, 1))
+    mn = torch.where(big, ri(8, 40), ri(1, 4))
+    mx = mn + (rand() * (3 * mn + 2)).to(torch.int32)
+    want = torch.minimum(mn + (rand() * (2 * mn + 1)).to(torch.int32), mx)
+    alloc = torch.where(state == 2, torch.clamp(want + ri(-2, 3), min=1), 0)
+    busy = alloc.sum(dim=-1, dtype=torch.int32)
+    capacity = busy + ri(0, 40, (B,)) * ri(0, 2, (B,))
+    wall = torch.where(rand() < 0.5, 5.0 + 45.0 * rand(),
+                       100.0 + 4900.0 * rand())
+    p = PassParams(
+        malleable=rand() < 0.6, min_nodes=mn, max_nodes=mx, want=want,
+        floor=mn, shrink_floor=torch.clamp(mn - ri(0, 3), min=1),
+        prio_ref=mn + ri(0, 4), pfrac=pick([0.5, 0.9, 0.99]),
+        wall_work=wall)
+    return _tick_case_on(device, (
+        p, state, alloc, pick([0.05, 0.2, 0.5, 0.9]),
+        torch.where(state == 2, 40.0 * rand(), float("nan")),
+        (rand((B,)) < 0.9)[:, None], capacity, 30.0 + 30.0 * rand((B,))))
+
+
+def tick_bytes(args, kw) -> int:
+    """Bytes one call moves: every tensor the kernel reads, as the launch
+    takes it (``act`` one byte a lane or a full row, ``depth`` only when
+    given), and the three output rows."""
+    from repro_torch.kernels.schedule_tick import kernel_args
+    rows, _, _ = kernel_args(*args, kw.get("backfill_depth"))
+    read = sum(t.numel() * t.element_size() for t in rows if t is not None)
+    return read + 3 * args[1].numel() * 4
 
 
 def tick_ops(B: int, W: int, fill_rounds: int) -> int:
@@ -278,22 +338,38 @@ def waterfill_parity(cap, tgt):
             lambda: waterfill_ref(cap, tgt))
 
 
+# one or more shapes in every tier of the tick kernel's plan: warp (W <=
+# 256), CTA, cluster (haswell's peak window, one lane of it and the tier's
+# widest: 8 CTAs of 512 threads) and global
+TICK_PARITY_SHAPES = ((64, 128), (64, 200), (64, 1000), (64, 4097),
+                      (64, 8192), (16, 16_384), (1, 16_384), (16, 32_768),
+                      (2, 65_536))
+
+
 def phase_parity(report):
     import torch
+    from repro_torch.kernels.schedule_tick import plan
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(11)
     errs = report.setdefault("max_abs_err", {"schedule_tick": 0.0,
                                              "waterfill": 0.0})
-    for W in (128, 1000, 2048, 8192):
-        case = random_tick_case(gen, 64, W, dev)
+    for B, W in TICK_PARITY_SHAPES:
+        pl = plan(B, W)
         for depth in (None, 2):
             d = None if depth is None else torch.full(
-                (64,), depth, dtype=torch.int32, device=dev)
-            err, kern, plain = tick_parity(case, d)
+                (B,), depth, dtype=torch.int32, device=dev)
+            err, kern, plain = tick_parity(tight_tick_case(gen, B, W, dev),
+                                           d)
             errs["schedule_tick"] = max(errs["schedule_tick"], err)
-            log(f"[parity] schedule_tick B=64 W={W} depth={depth}: "
-                f"bit-equal; kernel {cuda_median_ms(kern):.3f} ms, plain "
-                f"{cuda_median_ms(plain):.3f} ms")
+            err, kern, plain = tick_parity(random_tick_case(gen, B, W, dev),
+                                           d)
+            errs["schedule_tick"] = max(errs["schedule_tick"], err)
+            log(f"[parity] schedule_tick B={B} W={W} depth={depth} "
+                f"({pl.tier}, cluster {pl.cluster}, {pl.threads} threads x "
+                f"{pl.k} slots): bit-equal on both cases; kernel "
+                f"{cuda_median_ms(kern):.4f} ms, device "
+                f"{graph_ms(kern):.4f} ms, plain {cuda_median_ms(plain):.3f} "
+                "ms")
     for shape in ((64, 128), (64, 1000), (64, 2048), (64, 8192), (143_829,)):
         cap = torch.randint(0, 64, shape, generator=gen,
                             dtype=torch.int32).to(dev)
@@ -488,10 +564,11 @@ def time_tick(args, kw):
             raise AssertionError(f"schedule_tick differs from plain on the "
                                  f"captured main-path call B={B} W={W}")
         err = max(err, max_abs_err(g, r))
-    b_bytes = tick_bytes(B, W) / HBM_BYTES_PER_S * 1e3
+    b_bytes = tick_bytes(args, kw) / HBM_BYTES_PER_S * 1e3
     b_ops = tick_ops(B, W, kw["fill_rounds"]) / FP32_OPS_PER_S * 1e3
     return {"max_abs_err": err,
             "ms": cuda_median_ms(lambda: fused_schedule_tick(*args, **kw)),
+            "device_ms": graph_ms(lambda: fused_schedule_tick(*args, **kw)),
             "plain_ms": cuda_median_ms(
                 lambda: schedule_tick_ref(*args, **kw)),
             "bound_ms": max(b_bytes, b_ops),
@@ -515,12 +592,15 @@ def phase_kernels_at_main_shape(report):
         "launches_by_backend": {b: c["schedule_tick"]
                                 for b, c in report["launches"].items()},
         "max_abs_err": max(t["max_abs_err"],
-                           report["max_abs_err"]["schedule_tick"]),
-        **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+                           report.get("max_abs_err", {}).get(
+                               "schedule_tick", 0.0)),
+        **{k: t[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                             "bound_by")},
         "library_ms": None, "shape": [B, W]})
     log(f"[kernel] schedule_tick at the main-path shape B={B} W={W}: "
-        f"{t['ms']:.4f} ms (plain {t['plain_ms']:.4f} ms, bound "
-        f"{t['bound_ms']:.6f} ms)")
+        f"{t['ms']:.4f} ms, device {t['device_ms']:.4f} ms (plain "
+        f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.6f} ms); "
+        f"{report['gpu']}")
 
     (cap, tgt), _ = report["captured"]["waterfill"]
     got, ref = waterfill(cap, tgt), waterfill_ref(cap, tgt)
@@ -529,6 +609,7 @@ def phase_kernels_at_main_shape(report):
                              "main-path call")
     rows = cap.reshape(-1, cap.shape[-1])
     ms = cuda_median_ms(lambda: waterfill(cap, tgt))
+    device_ms = graph_ms(lambda: waterfill(cap, tgt))
     plain_ms = cuda_median_ms(lambda: waterfill_ref(cap, tgt))
     nbytes = 2 * 4 * rows.numel() + 4 * rows.shape[0]
     nops = 3 * rows.numel()
@@ -541,12 +622,15 @@ def phase_kernels_at_main_shape(report):
         "launches_by_backend": {b: c["waterfill"]
                                 for b, c in report["launches"].items()},
         "max_abs_err": max(max_abs_err(got, ref),
-                           report["max_abs_err"]["waterfill"]),
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": max(b_bytes, b_ops),
+                           report.get("max_abs_err", {}).get(
+                               "waterfill", 0.0)),
+        "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+        "bound_ms": max(b_bytes, b_ops),
         "bound_by": "bytes" if b_bytes >= b_ops else "operations",
         "library_ms": None, "shape": list(rows.shape)})
     log(f"[kernel] waterfill at the main-path shape {tuple(rows.shape)}: "
-        f"{ms:.4f} ms (plain {plain_ms:.4f} ms, bound {b_bytes:.6f} ms)")
+        f"{ms:.4f} ms, device {device_ms:.4f} ms (plain {plain_ms:.4f} ms, "
+        f"bound {b_bytes:.6f} ms); {report['gpu']}")
     report["kernels"] = out
 
 
@@ -1159,7 +1243,8 @@ def phase_scale(report, elapsed_s):
     t = time_tick(args, kw)
     t.update(shape=[B, W], launches=launches, scale=scale)
     log(f"[kernel] schedule_tick at haswell's peak window B={B} W={W}: "
-        f"{t['ms']:.4f} ms (plain {t['plain_ms']:.4f} ms, bound "
+        f"{t['ms']:.4f} ms, device {t['device_ms']:.4f} ms (plain "
+        f"{t['plain_ms']:.4f} ms, bound "
         f"{t['bound_ms']:.6f} ms by {t['bound_by']}); bit-equal; "
         f"{report['gpu']}")
     for row in report.get("kernels", []):

@@ -58,7 +58,7 @@ _LOCK = threading.Lock()
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "repro_schedule_tick": [_P] * 19 + [_I] * 12 + [_P],
+    "repro_schedule_tick": [_P] * 20 + [_I] * 14 + [_P],
     "repro_waterfill": [_P, _P, _P, _I, _I, _P],
     "repro_rmsnorm": [_P, _P, _P, _I, _I, _F, _I, _P],
     "repro_flash_attention": [_P] * 5 + [_I] * 10 + [_F, _I, _I, _P],

@@ -20,9 +20,9 @@ int repro_schedule_tick(
     const void* prio_ref, const void* max_nodes, const void* pfrac,
     const void* wall_work, const void* capacity, const void* t_now,
     const void* depth, void* out_state, void* out_alloc, void* out_start,
-    int B, int W, int fill_rounds, int prio_lo, int prio_hi,
-    int shadow_iters, int take_lo, int take_hi, int take_iters, int give_lo,
-    int give_hi, int give_iters, void* stream) {
+    void* scratch, int B, int W, int act_lane, int plan, int fill_rounds,
+    int prio_lo, int prio_hi, int shadow_iters, int take_lo, int take_hi,
+    int take_iters, int give_lo, int give_hi, int give_iters, void* stream) {
   repro::TickArgs a;
   a.state = static_cast<const int*>(state);
   a.alloc = static_cast<const int*>(alloc);
@@ -43,8 +43,16 @@ int repro_schedule_tick(
   a.out_state = static_cast<int*>(out_state);
   a.out_alloc = static_cast<int*>(out_alloc);
   a.out_start = static_cast<float*>(out_start);
+  a.scratch = static_cast<unsigned char*>(scratch);
   a.B = B;
   a.W = W;
+  a.act_lane = act_lane;
+  // kernels/schedule_tick.py::TickPlan.code: bits 0-1 the tier, 2-5 the
+  // cluster, 6-11 the warps a CTA, 12-27 the slots a thread
+  a.tier = plan & 3;
+  a.cluster = (plan >> 2) & 15;
+  a.threads = ((plan >> 6) & 63) * 32;
+  a.k = (plan >> 12) & 0xffff;
   a.fill_rounds = fill_rounds;
   a.prio_lo = prio_lo;
   a.prio_hi = prio_hi;

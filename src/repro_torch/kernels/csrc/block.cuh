@@ -50,21 +50,8 @@ __device__ __forceinline__ T block_reduce(T v, Op op, T* sh) {
   return r;
 }
 
-struct SumOp {
-  __device__ __forceinline__ int operator()(int a, int b) const { return a + b; }
-};
 struct SumFloatOp {
   __device__ __forceinline__ float operator()(float a, float b) const { return a + b; }
-};
-struct MaxIntOp {
-  __device__ __forceinline__ int operator()(int a, int b) const { return a > b ? a : b; }
-};
-struct MinIntOp {
-  __device__ __forceinline__ int operator()(int a, int b) const { return a < b ? a : b; }
-};
-// Plain comparison (not fmaxf): the rows hold no NaN, and -inf stays -inf.
-struct MaxFloatOp {
-  __device__ __forceinline__ float operator()(float a, float b) const { return a > b ? a : b; }
 };
 
 }  // namespace repro

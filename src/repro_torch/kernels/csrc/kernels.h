@@ -6,8 +6,16 @@
 namespace repro {
 
 // One greedy, class-free Steps-1..3 scheduling pass over B lanes of W slots
-// (row-major (B, W) tensors, slots in FCFS order).  `depth` may be null
-// (unbounded EASY scan).  Outputs may not alias inputs.
+// (row-major (B, W) tensors, slots in FCFS order).  `act` is (B, W) bytes, or
+// one byte a lane when `act_lane` is set; `depth` may be null (unbounded
+// EASY scan).  Outputs may not alias inputs.  The launch plan
+// (kernels/schedule_tick.py::plan): `tier`, `threads` a CTA (32 a lane in
+// the warp tier), `k` slots a thread and `cluster` CTAs a lane; the global
+// tier keeps the rows in `scratch`, B * cluster * threads * k * 37 bytes
+// (null in the other tiers).
+enum TickTier : int { kTickWarp = 0, kTickCta = 1, kTickCluster = 2,
+                      kTickGlobal = 3 };
+
 struct TickArgs {
   const int* state;
   const int* alloc;
@@ -28,15 +36,18 @@ struct TickArgs {
   int* out_state;
   int* out_alloc;
   float* out_start;
+  unsigned char* scratch;
   int B;
   int W;
+  int act_lane;
+  int tier, threads, k, cluster;
   int fill_rounds;
   int prio_lo;
   int prio_hi;
   int shadow_iters;
-  // take_desc_prefix bounds (lo, hi] and bisection rounds for the Step-2
-  // shrink and the Step-3 give (computed on the host exactly as the JAX
-  // pass does: ceil(log2(max(hi - lo, 1))) + 1)
+  // take_desc_prefix bounds (lo, hi] and bisection rounds of the Step-2
+  // shrink and the Step-3 give, from prio_lo / prio_hi as the plain pass
+  // derives them (kernels/schedule_tick.py::bisect_bounds)
   int take_lo, take_hi, take_iters;
   int give_lo, give_hi, give_iters;
 };

@@ -60,11 +60,16 @@ def _bits(x):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,W", [
+    (16, 128), (16, 300), (64, 1000),   # warp tier, CTA tier
+    (16, 16_384), (16, 32_768),         # cluster tier (256, 512 threads)
+    (2, 65_536)])                       # global tier
 @pytest.mark.parametrize("depth", [None, 2])
-def test_tick_kernel_matches_plain(cuda_device, depth):
-    args = _tick_case(np.random.default_rng(9), cuda_device)
+def test_tick_kernel_matches_plain(cuda_device, depth, B, W):
+    """Bit-equal to the plain pass in every tier of the kernel's plan."""
+    args = _tick_case(np.random.default_rng(9), cuda_device, B, W)
     d = None if depth is None else torch.full(
-        (16,), depth, dtype=torch.int32, device=cuda_device)
+        (B,), depth, dtype=torch.int32, device=cuda_device)
     got = fused_schedule_tick(*args, backfill_depth=d, **KW)
     ref = schedule_tick_ref(*args, backfill_depth=d, **KW)
     for g, r in zip(got, ref):
