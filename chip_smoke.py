@@ -17,7 +17,10 @@ Phases:
    tier of its plan (B = 64 at W = 128, 200, 1,000, 4,097 and 8,192;
    16 x 16,384, 1 x 16,384 and 2 x 65,536), with and without a backfill
    depth; single-call, device (CUDA graph) and plain times; ``waterfill``
-   bit-equal (B = 64, W up to 8192; a 143,829-slot 1-D row); then
+   bit-equal in every tier of its plan (31 x 128, 64 x 1,000, 64 x 4,097,
+   132 x 2,048, 16 x 16,384, 1 x 16,384, a 143,829-slot 1-D row) for
+   targets of 0, mid-row and above the row total, with and without
+   ``order``, and after the replays of a CUDA graph; then
    ``rmsnorm``, ``flash_attention`` and ``ssd_scan`` in f32 and bf16 at
    the serving path's zamba2-2.7b shapes, a ragged and a GQA shape
    (Hkv = 4, 8 groups), gemma3-4b's and glm4-9b's attention shapes (head
@@ -34,7 +37,10 @@ Phases:
    equal the plain path on the CPU bit for bit.  The tick and waterfill
    kernels are then held to their plain versions on a captured call of
    the run and timed there: single calls (CUDA events) and device time
-   (a CUDA graph of 20 calls);
+   (a CUDA graph of 20 calls); waterfill also at the six shapes of
+   ``WATERFILL_TIMED_SHAPES`` (``--phases env,waterfill`` times those
+   alone, with calls an earlier tree's waterfill also takes: an A/B of
+   two trees runs this file from a copy of each);
 4. serve: reduced zamba2 with the same seeded weights on the card and on
    the CPU (2 slots, 4 requests) must give identical tokens and last
    logits within 1e-3; then zamba2-2.7b at full width and depth, f32
@@ -122,10 +128,12 @@ def cuda_median_ms(fn, runs: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def graph_ms(fn, calls: int = 20) -> float:
+def graph_ms(fn, calls: int = 20, check=None) -> float:
     """Device ms per call: ``calls`` calls captured in one CUDA graph and
     replayed (median of 5 replays), so no host work sits between launches
-    as it does in :func:`cuda_median_ms`."""
+    as it does in :func:`cuda_median_ms`.  ``check``, when given, is called
+    on each captured call's output after the last replay (a kernel whose
+    scratch outlived a launch shows there)."""
     import torch
     fn()
     side = torch.cuda.Stream()
@@ -135,8 +143,7 @@ def graph_ms(fn, calls: int = 20) -> float:
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
+        outs = [fn() for _ in range(calls)]
     graph.replay()
     torch.cuda.synchronize()
     times = []
@@ -148,6 +155,9 @@ def graph_ms(fn, calls: int = 20) -> float:
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b) / calls)
+    if check is not None:
+        for out in outs:
+            check(out)
     return statistics.median(times)
 
 
@@ -325,17 +335,65 @@ def tick_parity(case, depth, fill_rounds=2, shadow_iters=26):
     return err, kern, plain
 
 
-def waterfill_parity(cap, tgt):
+def waterfill_case(gen, shape, device):
+    """Node counts 0..63 (a fifth of them 0) and priorities -4..4 of one
+    shape, made on the host from ``gen``."""
+    import torch
+    cap = (torch.randint(0, 64, shape, generator=gen, dtype=torch.int32)
+           * (torch.rand(shape, generator=gen) < 0.8)).to(torch.int32)
+    prio = torch.randint(-4, 5, shape, generator=gen, dtype=torch.int32)
+    total = cap.sum(dim=-1, dtype=torch.int32)
+    frac = torch.rand(total.shape, generator=gen)
+    mid = (frac * total.float()).to(torch.int32)
+    return cap.to(device), prio.to(device), mid.to(device)
+
+
+def waterfill_args(cap, tgt, order):
+    """The call's arguments, ``order`` only when given (so the timing runs
+    unchanged against a tree whose waterfill takes no order, for A/B)."""
+    return (cap, tgt) if order is None else (cap, tgt, order)
+
+
+def waterfill_check(cap, tgt, order=None, label=""):
+    """A function that raises unless its argument equals the plain
+    version's take on these inputs, bit for bit, and else returns the
+    max |difference| (0.0)."""
+    from repro_torch.kernels.ref import waterfill_ref
+    ref = waterfill_ref(*waterfill_args(cap, tgt, order))
+
+    def check(got):
+        if not identical(got, ref):
+            raise AssertionError(f"waterfill kernel differs from plain in "
+                                 f"{int((got != ref).sum())} slots {label}")
+        return max_abs_err(got, ref)
+    return check
+
+
+def time_waterfill(cap, tgt, order=None):
+    """The waterfill kernel beside its plain version on one call's inputs:
+    single-call ms (CUDA events), device ms (a CUDA graph of 20 calls,
+    each output held to the plain version after the replays), the plain
+    version's ms and the bound (each input read once, the take written
+    once; 3 operations a slot at the f32 CUDA-core rate)."""
     import torch
     from repro_torch.kernels.ref import waterfill_ref
     from repro_torch.kernels.waterfill import waterfill
-    got, ref = waterfill(cap, tgt), waterfill_ref(cap, tgt)
-    torch.cuda.synchronize()
-    if not identical(got, ref):
-        raise AssertionError(f"waterfill kernel differs from plain in "
-                             f"{int((got != ref).sum())} slots")
-    return (max_abs_err(got, ref), lambda: waterfill(cap, tgt),
-            lambda: waterfill_ref(cap, tgt))
+    args = waterfill_args(cap, tgt, order)
+    check = waterfill_check(cap, tgt, order, f"at {tuple(cap.shape)}")
+    err = check(waterfill(*args))
+
+    nbytes = 2 * cap.numel() * 4 + (
+        tgt.numel() * 4 if torch.is_tensor(tgt) else 0)
+    if order is not None:
+        nbytes += order.numel() * order.element_size()
+    b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    b_ops = 3 * cap.numel() / FP32_OPS_PER_S * 1e3
+    return {"shape": list(cap.shape), "order": order is not None,
+            "max_abs_err": err, "ms": cuda_median_ms(lambda: waterfill(*args)),
+            "device_ms": graph_ms(lambda: waterfill(*args), check=check),
+            "plain_ms": cuda_median_ms(lambda: waterfill_ref(*args)),
+            "bound_ms": max(b_bytes, b_ops),
+            "bound_by": "bytes" if b_bytes >= b_ops else "operations"}
 
 
 # one or more shapes in every tier of the tick kernel's plan: warp (W <=
@@ -351,8 +409,7 @@ def phase_parity(report):
     from repro_torch.kernels.schedule_tick import plan
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(11)
-    errs = report.setdefault("max_abs_err", {"schedule_tick": 0.0,
-                                             "waterfill": 0.0})
+    errs = report.setdefault("max_abs_err", {"schedule_tick": 0.0})
     for B, W in TICK_PARITY_SHAPES:
         pl = plan(B, W)
         for depth in (None, 2):
@@ -370,17 +427,117 @@ def phase_parity(report):
                 f"{cuda_median_ms(kern):.4f} ms, device "
                 f"{graph_ms(kern):.4f} ms, plain {cuda_median_ms(plain):.3f} "
                 "ms")
-    for shape in ((64, 128), (64, 1000), (64, 2048), (64, 8192), (143_829,)):
-        cap = torch.randint(0, 64, shape, generator=gen,
-                            dtype=torch.int32).to(dev)
+    waterfill_parity(gen, dev)
+
+
+# every tier of the waterfill kernel's plan: warp (theta's 31 x 128), CTA
+# (64 x 1,000, 132 x 2,048) and look-back (64 x 4,097, haswell's peak
+# window 16 x 16,384, one lane of it, Eagle's 143,829 jobs as one row)
+WATERFILL_PARITY_SHAPES = ((31, 128), (64, 1000), (64, 4097), (132, 2048),
+                           (16, 16_384), (1, 16_384), (143_829,))
+# timed in the kernels line (and alone by ``--phases env,waterfill``)
+WATERFILL_TIMED_SHAPES = ((31, 128), (16, 16_384), (1, 16_384), (64, 1000),
+                          (132, 2048), (143_829,))
+
+
+def waterfill_parity(gen, dev):
+    """The waterfill kernel bit-equal to its plain version at every parity
+    shape, for targets of 0, mid-row and above each row's total, with and
+    without ``order`` (argsort of random priorities), and after the
+    replays of a CUDA graph of 20 calls (mid-row targets)."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels.waterfill import plan, waterfill
+    sms = build.sm_count(dev.index or 0)
+    for shape in WATERFILL_PARITY_SHAPES:
+        cap, prio, mid = waterfill_case(gen, shape, dev)
         total = cap.sum(dim=-1, dtype=torch.int32)
-        frac = torch.rand(total.shape, generator=gen).to(dev)
-        tgt = (frac * 1.2 * total.float()).to(torch.int32)
-        err, kern, plain = waterfill_parity(cap, tgt)
-        errs["waterfill"] = max(errs["waterfill"], err)
-        log(f"[parity] waterfill shape={shape}: bit-equal; kernel "
-            f"{cuda_median_ms(kern):.3f} ms, plain "
-            f"{cuda_median_ms(plain):.3f} ms")
+        order = torch.argsort(prio, dim=-1, stable=True)
+        for o in (None, order):
+            for tgt in (0, mid, total + 17):
+                waterfill_check(cap, tgt, o, f"at {shape}")(
+                    waterfill(cap, tgt, o))
+        B, N = (1, shape[0]) if len(shape) == 1 else shape
+        pl = plan(B, N, sms)
+        dev_ms = [graph_ms(lambda o=o: waterfill(cap, mid, o),
+                           check=waterfill_check(cap, mid, o, "after replay"))
+                  for o in (None, order)]
+        log(f"[parity] waterfill {shape} ({pl.tier}, {pl.threads} threads x "
+            f"{pl.k} slots, {pl.grid} CTAs): bit-equal for 3 targets with "
+            f"and without order and after a CUDA-graph replay; device "
+            f"{dev_ms[0]:.4f} ms, with order {dev_ms[1]:.4f} ms")
+
+
+def time_waterfill_shapes(report):
+    """The waterfill kernel timed at :data:`WATERFILL_TIMED_SHAPES` on
+    seeded counts with mid-row targets (no order: the same call on this
+    tree and on earlier ones, for A/B runs)."""
+    import torch
+    gen = torch.Generator().manual_seed(17)
+    rows = []
+    for shape in WATERFILL_TIMED_SHAPES:
+        cap, _prio, mid = waterfill_case(gen, shape, torch.device("cuda"))
+        t = time_waterfill(cap, mid)
+        rows.append(t)
+        log(f"[waterfill] {shape}: {t['ms']:.4f} ms, device "
+            f"{t['device_ms']:.4f} ms (plain {t['plain_ms']:.4f} ms, bound "
+            f"{t['bound_ms']:.6f} ms by {t['bound_by']}); bit-equal after "
+            f"a CUDA-graph replay; {report['gpu']}")
+    return rows
+
+
+# the shapes at which kernels/waterfill.py::plan's cuts were chosen, and
+# the hand-made plans (tier, threads, slots a thread) timed at each: warp
+# or CTA, rows a warp-tier CTA, CTA or look-back, look-back tile sizes
+WATERFILL_PLAN_CHOICES = {
+    (31, 128): (("warp", 32, 4), ("warp", 128, 4), ("cta", 32, 4)),
+    (31, 256): (("warp", 32, 8), ("cta", 64, 4)),
+    (31, 512): (("warp", 32, 16), ("cta", 128, 4)),
+    (1000, 128): (("warp", 32, 4), ("warp", 128, 4)),
+    (64, 1000): (("warp", 32, 32), ("cta", 256, 4), ("cta", 128, 8)),
+    (8, 2000): (("cta", 512, 4), ("lookback", 256, 4)),
+    (16, 4096): (("cta", 1024, 4), ("cta", 512, 8), ("lookback", 256, 4)),
+    (16, 8192): (("cta", 1024, 8), ("lookback", 256, 4),
+                 ("lookback", 256, 8)),
+    (64, 4097): (("cta", 544, 8), ("lookback", 256, 4)),
+    (16, 16_384): (("cta", 1024, 16), ("lookback", 128, 4),
+                   ("lookback", 256, 4), ("lookback", 256, 8)),
+    (143_829,): (("lookback", 256, 4), ("lookback", 256, 8),
+                 ("lookback", 512, 4)),
+}
+
+
+def time_waterfill_plans(report):
+    """Device ms (CUDA graph of 20 calls, held to the plain version after
+    the replays) of hand-made waterfill plans, without and with ``order``
+    (``--phases env,waterfill-plans``: how the plan's cuts were set)."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels import waterfill as wf
+    gen = torch.Generator().manual_seed(3)
+    sms = build.sm_count(0)
+    for shape, plans in WATERFILL_PLAN_CHOICES.items():
+        cap, prio, mid = waterfill_case(gen, shape, torch.device("cuda"))
+        order = torch.argsort(prio, dim=-1, stable=True)
+        B, N = (1, shape[0]) if len(shape) == 1 else shape
+        log(f"[plans] {shape}: plan() picks {wf.plan(B, N, sms)[:3]}")
+        for tier, threads, k in plans:
+            pl = wf.make_plan(B, N, tier, threads, k)
+            ms = []
+            for o in (None, order):
+                def call(o=o):
+                    out = torch.empty_like(cap)
+                    scratch = (torch.empty(pl.scratch, dtype=torch.int64,
+                                           device=cap.device)
+                               if pl.scratch else None)
+                    build.launch("waterfill", cap, "repro_waterfill",
+                                 *wf.kernel_args(cap, mid, o, out, scratch,
+                                                 pl, False))
+                    return out
+                ms.append(graph_ms(call, check=waterfill_check(cap, mid, o)))
+            log(f"[plans]   {tier} {threads} threads x {k} slots, {pl.grid} "
+                f"CTAs: device {ms[0]:.4f} ms, with order {ms[1]:.4f} ms")
+    log(f"[plans] {report['gpu']}")
 
 
 class Patch:
@@ -578,8 +735,8 @@ def time_tick(args, kw):
 def phase_kernels_at_main_shape(report):
     """Time each kernel on a real main-path call's inputs and hold it
     against its plain version there."""
-    from repro_torch.kernels.ref import waterfill_ref
-    from repro_torch.kernels.waterfill import waterfill
+    from repro_torch.kernels import build
+    from repro_torch.kernels.waterfill import plan
     out = []
     args, kw = report["captured"]["schedule_tick"]
     B, W = args[1].shape
@@ -602,18 +759,10 @@ def phase_kernels_at_main_shape(report):
         f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.6f} ms); "
         f"{report['gpu']}")
 
-    (cap, tgt), _ = report["captured"]["waterfill"]
-    got, ref = waterfill(cap, tgt), waterfill_ref(cap, tgt)
-    if not identical(got, ref):
-        raise AssertionError("waterfill differs from plain on the captured "
-                             "main-path call")
-    rows = cap.reshape(-1, cap.shape[-1])
-    ms = cuda_median_ms(lambda: waterfill(cap, tgt))
-    device_ms = graph_ms(lambda: waterfill(cap, tgt))
-    plain_ms = cuda_median_ms(lambda: waterfill_ref(cap, tgt))
-    nbytes = 2 * 4 * rows.numel() + 4 * rows.shape[0]
-    nops = 3 * rows.numel()
-    b_bytes, b_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / FP32_OPS_PER_S * 1e3
+    (cap, tgt), kw = report["captured"]["waterfill"]
+    t = time_waterfill(cap, tgt, kw.get("order"))
+    B, N = (1, cap.shape[0]) if cap.ndim == 1 else tuple(cap.shape)
+    tier = plan(B, N, build.sm_count(cap.get_device())).tier
     out.append({
         "name": "waterfill", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/waterfill.cu",
@@ -621,16 +770,15 @@ def phase_kernels_at_main_shape(report):
         "launches": report["launches"]["waterfill"]["waterfill"],
         "launches_by_backend": {b: c["waterfill"]
                                 for b, c in report["launches"].items()},
-        "max_abs_err": max(max_abs_err(got, ref),
-                           report.get("max_abs_err", {}).get(
-                               "waterfill", 0.0)),
-        "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
-        "bound_ms": max(b_bytes, b_ops),
-        "bound_by": "bytes" if b_bytes >= b_ops else "operations",
-        "library_ms": None, "shape": list(rows.shape)})
-    log(f"[kernel] waterfill at the main-path shape {tuple(rows.shape)}: "
-        f"{ms:.4f} ms, device {device_ms:.4f} ms (plain {plain_ms:.4f} ms, "
-        f"bound {b_bytes:.6f} ms); {report['gpu']}")
+        **{k: t[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms",
+                             "bound_ms", "bound_by", "shape", "order")},
+        "tier": tier, "library_ms": None,
+        "shapes": time_waterfill_shapes(report)})
+    log(f"[kernel] waterfill at the main-path shape {tuple(cap.shape)} "
+        f"({tier} tier, order {t['order']}): {t['ms']:.4f} ms, device "
+        f"{t['device_ms']:.4f} ms (plain {t['plain_ms']:.4f} ms, bound "
+        f"{t['bound_ms']:.6f} ms by {t['bound_by']}); bit-equal after a "
+        f"CUDA-graph replay; {report['gpu']}")
     report["kernels"] = out
 
 
@@ -1284,7 +1432,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="env,parity,main,serve,scale",
                     help="comma-separated subset of env,parity,main,serve,"
-                         "scale (the default) and the opt-in profile")
+                         "scale (the default) and the opt-in waterfill, "
+                         "waterfill-plans and profile")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -1320,6 +1469,10 @@ def main(argv=None) -> int:
             phase_llm_kernels_at_serve_shape(report)
         if "scale" in phases:
             phase_scale(report, time.monotonic() - t_start)
+        if "waterfill" in phases:
+            time_waterfill_shapes(report)
+        if "waterfill-plans" in phases:
+            time_waterfill_plans(report)
         if "profile" in phases:
             phase_profile(report)
     except Exception:

@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 import hashlib
 import os
 import pathlib
@@ -43,7 +44,7 @@ import torch
 CSRC = pathlib.Path(__file__).resolve().with_name("csrc")
 SOURCES = ("schedule_tick.cu", "waterfill.cu", "rmsnorm.cu",
            "flash_attention.cu", "ssd_scan.cu", "bindings.cpp")
-HEADERS = ("kernels.h", "block.cuh", "dtype.cuh", "mma.cuh")
+HEADERS = ("kernels.h", "block.cuh", "dtype.cuh", "mma.cuh", "atomics.cuh")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3",
               "--fmad=false", "-std=c++17", "-Xcompiler", "-fPIC",
               "-Xptxas=-v")
@@ -59,7 +60,7 @@ _LOCK = threading.Lock()
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "repro_schedule_tick": [_P] * 20 + [_I] * 14 + [_P],
-    "repro_waterfill": [_P, _P, _P, _I, _I, _P],
+    "repro_waterfill": [_P] * 5 + [_I] * 4 + [_P],
     "repro_rmsnorm": [_P, _P, _P, _I, _I, _F, _I, _P],
     "repro_flash_attention": [_P] * 5 + [_I] * 10 + [_F, _I, _I, _P],
     "repro_ssd_scan": [_P] * 9 + [_I] * 8 + [_P],
@@ -176,6 +177,13 @@ def dtype_code(dtype) -> int:
     if code is None:
         raise ValueError(f"the kernels take float32 or bfloat16, not {dtype}")
     return code
+
+
+@functools.lru_cache(maxsize=16)
+def sm_count(device: int) -> int:
+    """The multiprocessors of CUDA device ``device`` (the launch plans fill
+    the card with them)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def launch(name: str, t, entry: str, *args) -> None:

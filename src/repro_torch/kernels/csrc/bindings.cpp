@@ -67,11 +67,27 @@ int repro_schedule_tick(
       repro::launch_schedule_tick(a, static_cast<cudaStream_t>(stream)));
 }
 
-int repro_waterfill(const void* cap, const void* target, void* out, int B,
-                    int N, void* stream) {
-  return static_cast<int>(repro::launch_waterfill(
-      static_cast<const int*>(cap), static_cast<const int*>(target),
-      static_cast<int*>(out), B, N, static_cast<cudaStream_t>(stream)));
+int repro_waterfill(const void* cap, const void* target, const void* order,
+                    void* out, void* scratch, int B, int N, int target_value,
+                    int plan, void* stream) {
+  repro::WaterfillArgs a;
+  a.cap = static_cast<const int*>(cap);
+  a.target = static_cast<const int*>(target);
+  a.order = static_cast<const long long*>(order);
+  a.out = static_cast<int*>(out);
+  a.scratch = static_cast<unsigned long long*>(scratch);
+  a.B = B;
+  a.N = N;
+  a.target_value = target_value;
+  // kernels/waterfill.py::pack: bits 0-1 the tier, 2-7 the slots a thread,
+  // 8-13 the warps a CTA, 14 16-byte accesses, 15 one target for every row
+  a.tier = plan & 3;
+  a.k = (plan >> 2) & 63;
+  a.threads = ((plan >> 8) & 63) * 32;
+  a.vec = (plan >> 14) & 1;
+  a.target_shared = (plan >> 15) & 1;
+  return static_cast<int>(
+      repro::launch_waterfill(a, static_cast<cudaStream_t>(stream)));
 }
 
 int repro_rmsnorm(const void* x, const void* w, void* out, int rows, int d,

@@ -54,9 +54,33 @@ struct TickArgs {
 
 cudaError_t launch_schedule_tick(const TickArgs& args, cudaStream_t stream);
 
-// Per-row prefix waterfill over B rows of N int32 capacities.
-cudaError_t launch_waterfill(const int* cap, const int* target, int* out,
-                             int B, int N, cudaStream_t stream);
+// Per-row prefix waterfill over B rows of N int32 capacities (row-major):
+// take = clip(target - exclusive_cumsum(cap), 0, cap).  `target` is (B,),
+// one int for every row (`target_shared`), or null for `target_value`.
+// `order` (null, or a (B, N) int64 permutation of each row) reads cap and
+// writes out in that order: out[order[i]] takes cap[order[i]].  The launch
+// plan (kernels/waterfill.py::plan): `tier`, `threads` a CTA, `k` slots a
+// thread (the warp tier gives each row one warp, several rows a CTA; the
+// look-back tier cuts rows into tiles of threads * k slots); `vec`: 16-byte
+// loads and stores (no order, k % 4 == 0, cap and out 16-byte aligned and
+// every row starting on 4 ints).  `scratch`: the look-back tier's tile
+// counter and descriptors, 1 + B * ceil(N / (threads * k)) words (null in
+// the other tiers), cleared by the launch.  Outputs may not alias inputs.
+enum WaterfillTier : int { kWaterfillWarp = 0, kWaterfillCta = 1,
+                           kWaterfillLookback = 2 };
+
+struct WaterfillArgs {
+  const int* cap;
+  const int* target;
+  const long long* order;
+  int* out;
+  unsigned long long* scratch;
+  int B, N;
+  int target_value, target_shared;
+  int tier, threads, k, vec;
+};
+
+cudaError_t launch_waterfill(const WaterfillArgs& args, cudaStream_t stream);
 
 // Element type of the LLM kernels' activations and weights (states are
 // f32).

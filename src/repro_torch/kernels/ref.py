@@ -29,15 +29,21 @@ def schedule_tick_ref(p, state, alloc, remaining, start_t, act, capacity,
         backfill_depth=backfill_depth)
 
 
-def waterfill_ref(cap, target):
+def waterfill_ref(cap, target, order=None):
     """Per-row prefix waterfill: ``clip(min(target, total) - excl_cumsum(cap),
     0, cap)``.
 
     ``cap``: ``(N,)`` or ``(B, W)`` int32 >= 0 in priority order;
     ``target``: a scalar, or one int per row.  Each row's take sums to
-    ``min(target, row total)``.
+    ``min(target, row total)``.  With ``order`` (a permutation of each row,
+    argsort's output) the row is visited in that order and the take
+    scattered back: ``repro.core.passes._pallas_give``'s gather, waterfill
+    and scatter.
     """
     cap = torch.as_tensor(cap, dtype=I32)
+    if order is not None:
+        take = waterfill_ref(torch.gather(cap, -1, order), target)
+        return torch.zeros_like(cap).scatter_(-1, order, take)
     target = torch.as_tensor(target, dtype=I32, device=cap.device)
     cum = torch.cumsum(cap, dim=-1, dtype=I32)
     if cap.shape[-1]:

@@ -19,7 +19,7 @@ import torch
 
 from repro_torch.core.passes import PassParams, bisect_rounds
 
-from .build import launch
+from .build import launch, sm_count
 from .ref import schedule_tick_ref
 
 I32, F32 = torch.int32, torch.float32
@@ -103,11 +103,6 @@ def plan(B: int, W: int, sms: int = H100_SMS) -> TickPlan:
         c //= 2
     k = -(-W // (c * GLOBAL_THREADS))
     return make_plan(B, "global", GLOBAL_THREADS, k, c)
-
-
-@functools.lru_cache(maxsize=16)
-def _sm_count(device: int) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _row(t, shape, dtype, name):
@@ -198,7 +193,7 @@ def fused_schedule_tick(p: PassParams, state, alloc, remaining, start_t, act,
     out_alloc = torch.empty_like(alloc)
     out_start = torch.empty_like(start_t)
     if B and W:
-        pl = plan(B, W, _sm_count(dev))
+        pl = plan(B, W, sm_count(dev))
         scratch = (torch.empty(pl.scratch, dtype=torch.uint8,
                                device=state.device) if pl.scratch else None)
         launch("schedule_tick", state, "repro_schedule_tick",

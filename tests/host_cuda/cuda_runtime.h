@@ -1,22 +1,31 @@
-// Host emulation of the CUDA subset that csrc/schedule_tick.cu uses, so
-// tests/test_torch_tick_host.py can run the kernel's own source on a CPU:
-// every CUDA thread is a std::thread, and warps, CTAs and clusters
-// synchronise through std::barrier (C++20).  Warp shuffles and reductions
-// exchange values through the warp's array between two barrier phases; a
-// cluster's CTAs run together, and map_shared_rank() points into a sibling
-// CTA's dynamic shared memory.  It checks the kernel's logic (indices,
-// reductions, scans, barrier counts), not its speed or the GPU's memory
-// model.  The test rewrites the kernel's `extern __shared__` array into
+// Host emulation of the CUDA subset that csrc/schedule_tick.cu and
+// csrc/waterfill.cu use, so tests/test_torch_{tick,waterfill}_host.py can
+// run the kernels' own source on a CPU: every CUDA thread is a std::thread,
+// and warps, CTAs and clusters synchronise through std::barrier (C++20).
+// Warp shuffles, votes and reductions exchange values through the warp's
+// array between two barrier phases; a cluster's CTAs run together, and
+// map_shared_rank() points into a sibling CTA's dynamic shared memory.
+// Atomics go through std::atomic_ref.  The grid runs one cluster at a time
+// in blockIdx order, or (emu::config, from the test) every CTA at once,
+// released together.  An acquire load that spins past the launch's time
+// limit reads all ones from then on and the launch returns
+// cudaErrorLaunchTimeout, so a wait that can never end fails the test
+// instead of hanging it.  It checks the kernels' logic (indices,
+// reductions, scans, barrier counts), not their speed or the GPU's memory
+// model.  The tests rewrite a kernel's `extern __shared__` array into
 // emu::dynamic_smem().
 #pragma once
 #include <math.h>
 
+#include <atomic>
 #include <barrier>
+#include <chrono>
 #include <cassert>
 #include <climits>
 #include <cmath>
 #include <cstddef>
 #include <cstring>
+#include <latch>
 #include <memory>
 #include <thread>
 #include <vector>
@@ -56,7 +65,7 @@ inline float __int_as_float(int i) {
 
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
-       cudaErrorNotSupported = 801 };
+       cudaErrorLaunchTimeout = 702, cudaErrorNotSupported = 801 };
 typedef void* cudaStream_t;
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 enum cudaLaunchAttributeID { cudaLaunchAttributeClusterDimension = 4 };
@@ -88,6 +97,10 @@ cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int) {
 inline const char* cudaGetErrorString(cudaError_t e) {
   return e == cudaSuccess ? "no error" : "refused by the host emulation";
 }
+inline cudaError_t cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
+  std::memset(p, v, n);
+  return cudaSuccess;
+}
 
 namespace emu {
 struct Warp {
@@ -111,6 +124,21 @@ struct Thread {
   int lane;
 };
 inline thread_local Thread cur;
+
+// Set by the test between launches (others.cpp: repro_emu_config).
+struct Config {
+  bool all_at_once = false;   // run every CTA of the grid together
+  int release_delay_us = 0;   // a release store waits this long first
+  double time_limit_s = 60.0;  // of a launch's spin-waits
+};
+inline Config config;
+inline std::chrono::steady_clock::time_point deadline;
+inline std::atomic<bool> timed_out{false};
+// true once the launch is past its time limit (a spinning load gives up)
+inline bool past_deadline() {
+  if (std::chrono::steady_clock::now() > deadline) timed_out = true;
+  return timed_out;
+}
 
 inline unsigned char* dynamic_smem() { return cur.block->smem.data(); }
 
@@ -171,6 +199,21 @@ int warp_reduce(int v, Op op) {
   emu::done();
   return r;
 }
+inline unsigned __ballot_sync(unsigned, bool pred) {
+  emu::post(pred ? 1 : 0);
+  unsigned r = 0;
+  for (int l = 0; l < 32; ++l) r |= static_cast<unsigned>(emu::read(l)) << l;
+  emu::done();
+  return r;
+}
+inline int __ffs(unsigned x) { return __builtin_ffs(static_cast<int>(x)); }
+inline unsigned atomicAdd(unsigned* p, unsigned v) {
+  return std::atomic_ref<unsigned>(*p).fetch_add(v);
+}
+inline void __threadfence() {
+  std::atomic_thread_fence(std::memory_order_seq_cst);
+}
+
 inline int __reduce_add_sync(unsigned, int v) {
   return warp_reduce(v, [](int a, int b) {
     return static_cast<int>(static_cast<unsigned>(a) +
@@ -184,7 +227,8 @@ inline int __reduce_min_sync(unsigned, int v) {
   return warp_reduce(v, [](int a, int b) { return a < b ? a : b; });
 }
 
-// Runs the grid one cluster at a time, each CTA thread a std::thread.
+// Runs the grid one cluster at a time (or all at once, emu::config), each
+// CTA thread a std::thread.
 template <class... Exp, class... Act>
 cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg,
                                void (*kernel)(Exp...), Act&&... args) {
@@ -196,32 +240,45 @@ cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg,
   if (c < 1 || c > 8 || grid % c || nt % 32 || nt == 0 || nt > 1024 ||
       cfg->dynamicSmemBytes > 232448)
     return cudaErrorInvalidValue;
-  for (unsigned first = 0; first < grid; first += c) {
-    emu::Cluster cl;
-    cl.bar = std::make_unique<std::barrier<>>(c * nt);
+  emu::timed_out = false;
+  using Clock = std::chrono::steady_clock;
+  emu::deadline = Clock::now() + std::chrono::duration_cast<Clock::duration>(
+                                     std::chrono::duration<double>(
+                                         emu::config.time_limit_s));
+  const unsigned step = emu::config.all_at_once ? grid : c;
+  for (unsigned first = 0; first < grid; first += step) {
+    std::vector<std::unique_ptr<emu::Cluster>> clusters;
     std::vector<std::unique_ptr<emu::Block>> blocks;
-    for (unsigned r = 0; r < c; ++r) {
-      auto b = std::make_unique<emu::Block>();
-      b->bar = std::make_unique<std::barrier<>>(nt);
-      b->smem.assign(cfg->dynamicSmemBytes + 16, 0xcd);  // not zeroed
+    for (unsigned b = 0; b < step; ++b) {
+      if (b % c == 0) {
+        clusters.push_back(std::make_unique<emu::Cluster>());
+        clusters.back()->bar = std::make_unique<std::barrier<>>(c * nt);
+      }
+      auto blk = std::make_unique<emu::Block>();
+      blk->bar = std::make_unique<std::barrier<>>(nt);
+      blk->smem.assign(cfg->dynamicSmemBytes + 16, 0xcd);  // not zeroed
       for (unsigned w = 0; w < nt / 32; ++w)
-        b->warps.push_back(std::make_unique<emu::Warp>());
-      cl.blocks.push_back(b.get());
-      blocks.push_back(std::move(b));
+        blk->warps.push_back(std::make_unique<emu::Warp>());
+      clusters.back()->blocks.push_back(blk.get());
+      blocks.push_back(std::move(blk));
     }
+    std::latch start(static_cast<std::ptrdiff_t>(step) * nt);
     std::vector<std::thread> threads;
-    for (unsigned r = 0; r < c; ++r)
+    for (unsigned b = 0; b < step; ++b)
       for (unsigned t = 0; t < nt; ++t)
-        threads.emplace_back([&, r, t] {
+        threads.emplace_back([&, b, t] {
+          emu::Cluster* cl = clusters[b / c].get();
           threadIdx = dim3(t);
-          blockIdx = dim3(first + r);
+          blockIdx = dim3(first + b);
           blockDim = dim3(nt);
           gridDim = dim3(grid);
-          emu::cur = {cl.blocks[r], &cl, r, cl.blocks[r]->warps[t / 32].get(),
+          emu::cur = {cl->blocks[b % c], cl, b % c,
+                      cl->blocks[b % c]->warps[t / 32].get(),
                       static_cast<int>(t % 32)};
+          start.arrive_and_wait();  // every thread of the step starts at once
           kernel(args...);
         });
     for (auto& th : threads) th.join();
   }
-  return cudaSuccess;
+  return emu::timed_out ? cudaErrorLaunchTimeout : cudaSuccess;
 }

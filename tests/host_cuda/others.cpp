@@ -1,12 +1,10 @@
-// The other kernels' launchers, which bindings.cpp names: refused under the
-// host emulation, which runs schedule_tick.cu alone.
+// The LLM kernels' launchers, which bindings.cpp names: refused under the
+// host emulation, which runs the grid kernels alone (each test links one
+// of them and the other's stub: no_schedule_tick.cpp, no_waterfill.cpp).
+// repro_emu_config sets how the emulation runs the next launches.
 #include "kernels.h"
 
 namespace repro {
-cudaError_t launch_waterfill(const int*, const int*, int*, int, int,
-                             cudaStream_t) {
-  return cudaErrorNotSupported;
-}
 cudaError_t launch_rmsnorm(const NormArgs&, cudaStream_t) {
   return cudaErrorNotSupported;
 }
@@ -17,3 +15,10 @@ cudaError_t launch_ssd_scan(const SsdArgs&, int, cudaStream_t) {
   return cudaErrorNotSupported;
 }
 }  // namespace repro
+
+extern "C" void repro_emu_config(int all_at_once, int release_delay_us,
+                                 double time_limit_s) {
+  emu::config.all_at_once = all_at_once != 0;
+  emu::config.release_delay_us = release_delay_us;
+  emu::config.time_limit_s = time_limit_s;
+}

@@ -13,7 +13,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import STRATEGIES, Workload  # noqa: E402
-from repro_torch.core.passes import PassParams  # noqa: E402
+from repro_torch.core.passes import PassParams, give_asc_prefix  # noqa
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import waterfill as wf  # noqa: E402
 from repro_torch.kernels.ref import schedule_tick_ref, waterfill_ref  # noqa
 from repro_torch.kernels.schedule_tick import fused_schedule_tick  # noqa
 from repro_torch.kernels.waterfill import waterfill  # noqa: E402
@@ -86,6 +88,58 @@ def test_waterfill_kernel_matches_plain(cuda_device):
     assert torch.equal(waterfill(cap, tgt), waterfill_ref(cap, tgt))
     assert torch.equal(waterfill(cap[0], tgt[0]), waterfill_ref(cap[0],
                                                                 tgt[0]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,tier", [
+    ((31, 128), "warp"), ((7, 33), "warp"), ((300, 256), "warp"),
+    ((64, 1000), "cta"), ((132, 2048), "cta"), ((16, 4095), "cta"),
+    ((64, 4097), "lookback"), ((16, 16_384), "lookback"),
+    ((1, 16_384), "lookback"), ((143_829,), "lookback")])
+def test_waterfill_kernel_matches_plain_in_every_tier(cuda_device, shape,
+                                                      tier):
+    """Bit-equal to the plain version in the tier the plan picks, for
+    targets <= 0, inside and above each row's total (Python ints, per-row
+    tensors, one 0-d tensor for all rows), with and without ``order``, and
+    again in a second launch (the look-back's scratch starts clean)."""
+    B, N = (1, shape[0]) if len(shape) == 1 else shape
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert wf.plan(B, N, sms).tier == tier
+    gen = torch.Generator().manual_seed(N + B)
+    cap = (torch.randint(0, 64, shape, generator=gen, dtype=torch.int32)
+           * (torch.rand(shape, generator=gen) < 0.8)).to(torch.int32)
+    prio = torch.randint(-4, 5, shape, generator=gen, dtype=torch.int32)
+    cap, prio = cap.to(cuda_device), prio.to(cuda_device)
+    total = cap.sum(dim=-1, dtype=torch.int32)
+    frac = torch.rand(total.shape, generator=gen).to(cuda_device)
+    targets = [0, -5, int(total.min()) // 2, int(total.max()) + 1,
+               (frac * total.float()).to(torch.int32), total - 3,
+               total + 17, torch.zeros_like(total)]
+    if len(shape) == 2:
+        targets.append(torch.tensor(int(total.min()) // 3,
+                                    dtype=torch.int32, device=cuda_device))
+    for order in (None, torch.argsort(prio, dim=-1, stable=True)):
+        for tgt in targets:
+            ref = waterfill_ref(cap, tgt, order)
+            for _ in range(2):
+                assert torch.equal(waterfill(cap, tgt, order), ref)
+
+
+@pytest.mark.cuda
+def test_greedy_give_waterfill_is_one_launch(cuda_device):
+    """The give is one argsort and one kernel launch, equal to the
+    bisection give."""
+    gen = torch.Generator().manual_seed(5)
+    prio = torch.randint(-4, 5, (31, 128), generator=gen,
+                         dtype=torch.int32).to(cuda_device)
+    room = torch.randint(0, 6, (31, 128), generator=gen,
+                         dtype=torch.int32).to(cuda_device)
+    idle = torch.randint(0, 400, (31,), generator=gen,
+                         dtype=torch.int32).to(cuda_device)
+    before = build.LAUNCH_COUNTS["waterfill"]
+    give = wf.greedy_give_waterfill(prio, room, idle)
+    assert build.LAUNCH_COUNTS["waterfill"] == before + 1
+    assert torch.equal(give, give_asc_prefix(prio, room, idle, -5, 5))
 
 
 @pytest.mark.cuda

@@ -58,7 +58,8 @@ def tick_lib():
                 [cxx, "-std=c++20", "-O1", "-fPIC", "-shared", "-pthread",
                  "-Wno-unknown-pragmas", "-I", str(HOST), "-I",
                  str(build.CSRC), str(cpp), str(build.CSRC / "bindings.cpp"),
-                 str(HOST / "others.cpp"), "-o", str(tmp)],
+                 str(HOST / "others.cpp"), str(HOST / "no_waterfill.cpp"),
+                 "-o", str(tmp)],
                 capture_output=True, text=True)
             if done.returncode != 0 and "barrier" in done.stderr:
                 pytest.skip(f"{cxx} has no C++20 <barrier>")
