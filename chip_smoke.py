@@ -59,7 +59,22 @@ Phases:
    rate, 67 TFLOP/s) and one PyTorch call of the same function where there
    is one, single calls with CUDA events and device times alone (a CUDA
    graph of 20 calls) of the kernel and of that PyTorch call;
-5. scale: the greedy batch on haswell at scale 1.0 (the whole trace,
+5. registry: the rest of the strategy registry through ``run_cells``, on
+   theta at scale 0.1 (255 jobs on 4,392 nodes, 1 seed, proportions 0.2 /
+   0.6 / 1.0): SJF with MIN, KEEPPREF, PREF_COMMON_POOL and
+   STEAL_AGREEMENT (greedy, pooled and stealing batches; 13 cells) under
+   fused, waterfill and bisect, and on-demand job classes (10% rigid, 10%
+   on-demand) with PREF, RIGID_SJF and PREF_COMMON_POOL (a greedy batch of
+   FCFS and SJF lanes, a pooled batch; 8 cells) under fused and bisect.
+   Per-cell metrics identical across backends, every lane finished, the
+   tick launched only by the SJF fused run, waterfill by every fused and
+   waterfill run, nothing by bisect; both runs on the card equal the CPU
+   bit for bit at scale 0.02; a captured SJF-permuted tick call and a
+   captured pooled / stealing give held to their plain versions and timed
+   as in phase 3; each batch's wall, steps, window and ms per step, and the
+   SJF greedy step beside the main phase's FCFS one.  Cut to scale 0.05,
+   printed, if the time left would not hold it;
+6. scale: the greedy batch on haswell at scale 1.0 (the whole trace,
    28,259 jobs on 2,388 nodes) with ``fused``, tick launches counted from
    0 just before it; the tick kernel is then timed on the run's call at
    its peak window (B = 16, W = 16,384): single-call and device (CUDA
@@ -98,6 +113,11 @@ TIME_LIMIT_S = 1200.0
 # step over the theta fused greedy batch's (PERF.md section 5)
 HASWELL_STEPS = 52_160
 HASWELL_STEP_RATIO = 1.25
+# the registry phase at theta scale 0.1: scan steps of its batches that run
+# the plain pass, and the plain pass's wall per step over the theta fused
+# greedy batch's (PERF.md section 5)
+REGISTRY_STEPS = 8_000
+REGISTRY_STEP_RATIO = 3.3
 
 
 def log(msg: str) -> None:
@@ -577,12 +597,13 @@ class Capture(Patch):
         return self.inner(*args, **kwargs)
 
 
-def run_grid(workloads, scale, seeds, backend, device, strategies=None):
+def run_grid(workloads, scale, seeds, backend, device, **spec_kw):
+    """``run_cells`` over a spec of ``workloads`` at ``scale`` (``spec_kw``:
+    strategies, proportions, scenario); returns (todo, metrics, info)."""
     from repro_torch.experiments.backend_torch import run_cells
     from repro_torch.experiments.spec import ExperimentSpec
-    kw = {} if strategies is None else {"strategies": strategies}
     spec = ExperimentSpec(workloads=workloads, scale=scale, seeds=seeds,
-                          **kw)
+                          **spec_kw)
     todo = [(w, c) for w in spec.workloads for c in spec.cells()]
     t0 = time.monotonic()
     metrics, info = run_cells(
@@ -615,39 +636,49 @@ def check_cells(todo, metrics, info, label):
                                  "outside [0, 1]")
 
 
-def small_theta_on_both_devices():
+def theta_on_both_devices(tag, scale, **spec_kw):
     """The engine on the card (fused) equals the plain path on the CPU,
-    bit for bit, on a small theta grid (scale 0.05, 1 seed)."""
+    bit for bit, on a small theta grid (1 seed; ``spec_kw`` as in
+    :func:`run_grid`), one batch per structure."""
     import numpy as np
-    from repro_torch.core import CLUSTERS, get_strategy
+    from repro_torch.core import get_strategy
     from repro_torch.experiments.spec import ExperimentSpec, prepare_workload
     from repro_torch.sweep.batch import (EngineConfig, build_lanes,
                                          simulate_lanes)
-    spec = ExperimentSpec(workloads=("theta",), scale=0.05, seeds=1)
+    spec = ExperimentSpec(workloads=("theta",), scale=scale, seeds=1,
+                          **spec_kw)
     cl, w, _ = prepare_workload(spec, "theta")
-    for structure in ("greedy", "balanced"):
-        lanes = [(get_strategy(s), p, sd) for s, p, sd in spec.cells()
-                 if get_strategy(s).structure == structure]
+    groups = {}
+    for s, p, sd in spec.cells():
+        groups.setdefault(get_strategy(s).structure, []).append(
+            (get_strategy(s), p, sd))
+    for structure, lanes in groups.items():
         res = {}
         for dev, backend in (("cpu", "bisect"), ("cuda", "fused")):
-            batch, _ = build_lanes(w, CLUSTERS["theta"].nodes, lanes,
-                                   tick=cl.tick, device=dev)
+            batch, _ = build_lanes(
+                w, cl.nodes, lanes, config=spec.transform, tick=cl.tick,
+                backfill_depth=spec.scenario.backfill_depth,
+                queue_order=spec.scenario.queue_order, device=dev)
             res[dev] = simulate_lanes(batch, EngineConfig(
                 structure=structure, expand_backend=backend))
         for key in ("state", "alloc", "start_t", "end_t", "expand_ops",
                     "shrink_ops", "bf_starts", "sched_steps"):
             if not np.array_equal(res["cpu"][key], res["cuda"][key],
                                   equal_nan=True):
-                raise AssertionError(f"theta scale 0.05 {structure}: {key} "
-                                     "on the card differs from the CPU")
-        log(f"[main] theta scale 0.05 {structure} ({len(lanes)} lanes): "
+                raise AssertionError(f"theta scale {scale} {structure}: "
+                                     f"{key} on the card differs from the "
+                                     "CPU")
+        if not (res["cpu"]["finished"] and res["cuda"]["finished"]):
+            raise AssertionError(f"theta scale {scale} {structure}: lanes "
+                                 "did not finish")
+        log(f"[{tag}] theta scale {scale} {structure} ({len(lanes)} lanes): "
             "the card (fused) == the plain path on the CPU, bit for bit")
 
 
 def phase_main(report):
     import torch
     from repro_torch.kernels import build, schedule_tick, waterfill
-    small_theta_on_both_devices()
+    theta_on_both_devices("main", 0.05)
 
     runs = {}
     tick_cap = Capture(schedule_tick, "fused_schedule_tick")
@@ -1401,6 +1432,151 @@ def phase_scale(report, elapsed_s):
             row["max_abs_err"] = max(row["max_abs_err"], t["max_abs_err"])
 
 
+def registry_runs():
+    """The registry phase's two theta runs: ``(name, spec keywords,
+    backends)`` (1 seed, proportions 0.2 / 0.6 / 1.0)."""
+    from repro_torch.core.scenario import JobClasses, ScenarioConfig
+    props = (0.2, 0.6, 1.0)
+    return (
+        ("sjf", dict(proportions=props, scenario=ScenarioConfig(
+            queue_order="sjf"), strategies=(
+                "min", "keeppref", "pref_common_pool", "steal_agreement")),
+         ("fused", "waterfill", "bisect")),
+        ("classes", dict(proportions=props, scenario=ScenarioConfig(
+            job_classes=JobClasses(rigid=0.1, on_demand=0.1,
+                                   malleable=0.8)), strategies=(
+                "pref", "rigid_sjf", "pref_common_pool")),
+         ("fused", "bisect")),
+    )
+
+
+def registry_scale(report, elapsed_s):
+    """0.1, or 0.05 when the phase's predicted wall (its plain-pass steps
+    at this card's theta greedy rate times the plain / fused step ratio)
+    would not end inside the time limit."""
+    rate = report.get("greedy_s_per_step")
+    if rate is None:
+        return 0.1
+    left = 0.95 * TIME_LIMIT_S - elapsed_s
+    if REGISTRY_STEPS * REGISTRY_STEP_RATIO * rate <= left:
+        return 0.1
+    return 0.05
+
+
+def check_registry_launches(name, runs):
+    """The kernels each backend must (and must not) launch in one run."""
+    fused = runs["fused"][2]
+    want_tick = name == "sjf"   # run 1's greedy lanes are class-free
+    if (fused["schedule_tick"] > 0) != want_tick or not fused["waterfill"]:
+        raise AssertionError(f"registry {name}: fused run launches {fused}")
+    if "waterfill" in runs:
+        wf = runs["waterfill"][2]
+        if wf["schedule_tick"] or not wf["waterfill"]:
+            raise AssertionError(f"registry {name}: waterfill run launches "
+                                 f"{wf}")
+    if any(runs["bisect"][2].values()):
+        raise AssertionError(f"registry {name}: bisect run launches "
+                             f"{runs['bisect'][2]}")
+
+
+def phase_registry(report, elapsed_s):
+    """The strategy registry through the port's entry point: theta with
+    SJF (greedy, pooled and stealing batches) and with on-demand job
+    classes (a greedy batch of FCFS and SJF lanes, a pooled batch), under
+    each backend; metrics identical across backends, launches as each
+    backend routes them, the card equal to the CPU on small runs, and the
+    tick (an SJF-permuted call) and waterfill (a pooled / stealing give)
+    held to their plain versions on captured calls and timed there."""
+    import torch
+    from repro_torch.kernels import build, schedule_tick, waterfill
+    from repro_torch.core import CLUSTERS, traces
+    scale = registry_scale(report, elapsed_s)
+    cut = "" if scale == 0.1 else " (CUT from scale 0.1 to 0.05)"
+    log(f"[registry] theta at scale {scale}{cut}: "
+        f"{traces.generate('theta', seed=0, scale=scale).n_jobs} jobs on "
+        f"{CLUSTERS['theta'].nodes:,} nodes (scale 1.0: 2,550; the cut is the "
+        "job count), 1 seed, proportions 0.2 / 0.6 / 1.0")
+    out = {"scale": scale, "runs": {}}
+    tick_cap = Capture(schedule_tick, "fused_schedule_tick")
+    wf_cap = Capture(waterfill, "waterfill")
+    for name, spec_kw, backends in registry_runs():
+        theta_on_both_devices("registry", 0.02, **spec_kw)
+        runs = {}
+        for backend in backends:
+            capture = backend == "fused" and name == "sjf"
+            torch.cuda.synchronize()
+            build.LAUNCH_COUNTS.clear()  # this run's launches start here
+            if capture:
+                with tick_cap, wf_cap:
+                    todo, metrics, info = run_grid(
+                        ("theta",), scale, 1, backend, "cuda", **spec_kw)
+            else:
+                todo, metrics, info = run_grid(("theta",), scale, 1, backend,
+                                               "cuda", **spec_kw)
+            torch.cuda.synchronize()
+            delta = {k: build.LAUNCH_COUNTS[k]
+                     for k in ("schedule_tick", "waterfill")}
+            check_cells(todo, metrics, info, f"registry {name}/{backend}")
+            runs[backend] = (metrics, info, delta)
+            log(f"[registry] {name} {backend}: {len(todo)} cells in "
+                f"{info['wall_s']:.2f}s; launches {delta}")
+            for c in info["chunks"]:
+                log(f"[registry]   {c['structure']}: {c['lanes']} lanes "
+                    f"{c['wall_s']:.2f}s {c['steps']} steps window "
+                    f"{c['window']} "
+                    f"{1e3 * c['wall_s'] / c['steps']:.2f} ms/step")
+        base = runs["fused"][0]
+        for backend in backends[1:]:
+            if not same_metrics(base, runs[backend][0]):
+                raise AssertionError(f"registry {name}: per-cell metrics "
+                                     f"differ between fused and {backend}")
+        check_registry_launches(name, runs)
+        log(f"[registry] {name}: per-cell metrics identical under "
+            f"{' / '.join(backends)}; launches as routed")
+        out["runs"][name] = {
+            "cells": len(todo),
+            "launches": {b: runs[b][2] for b in backends},
+            "batches": {b: {c["structure"]: {
+                k: c[k] for k in ("lanes", "wall_s", "steps", "window")}
+                for c in runs[b][1]["chunks"]} for b in backends}}
+    sjf = out["runs"]["sjf"]["batches"]["fused"]["greedy"]
+    s_step = sjf["wall_s"] / sjf["steps"]
+    fcfs = report.get("greedy_s_per_step")
+    log(f"[registry] fused greedy s/step: SJF {s_step:.6f} (theta scale "
+        f"{scale}) beside FCFS "
+        + (f"{fcfs:.6f} (main phase, theta scale 1.0)" if fcfs else
+           "not measured (main phase not run)") + f"; {report['gpu']}")
+
+    args, kw = tick_cap.kept
+    if args[0].sort_key is None:
+        raise AssertionError("registry: the captured tick call is not SJF")
+    t = time_tick(args, kw)
+    B, W = args[1].shape
+    t.update(shape=[B, W], launches=out["runs"]["sjf"]["launches"][
+        "fused"]["schedule_tick"])
+    out["schedule_tick"] = t
+    log(f"[kernel] schedule_tick on a captured SJF-permuted call B={B} "
+        f"W={W}: {t['ms']:.4f} ms, device {t['device_ms']:.4f} ms (plain "
+        f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.6f} ms by "
+        f"{t['bound_by']}); bit-equal; {report['gpu']}")
+    (cap, tgt), kw = wf_cap.kept
+    t = time_waterfill(cap, tgt, kw.get("order"))
+    t.update(launches={n: r["launches"]["fused"]["waterfill"]
+                       for n, r in out["runs"].items()})
+    out["waterfill"] = t
+    log(f"[kernel] waterfill on a captured pooled / stealing give "
+        f"{tuple(cap.shape)} (order {t['order']}): {t['ms']:.4f} ms, device "
+        f"{t['device_ms']:.4f} ms (plain {t['plain_ms']:.4f} ms, bound "
+        f"{t['bound_ms']:.6f} ms by {t['bound_by']}); bit-equal after a "
+        f"CUDA-graph replay; {report['gpu']}")
+    report["registry"] = out
+    for row in report.get("kernels", []):
+        if row["name"] in ("schedule_tick", "waterfill"):
+            row["registry"] = out[row["name"]]
+            row["max_abs_err"] = max(row["max_abs_err"],
+                                     out[row["name"]]["max_abs_err"])
+
+
 def phase_profile(report):
     """Opt-in (``--phases env,profile``): a torch.profiler trace of a small
     theta grid (scale 0.1, 1 seed, fused) -- the device's busy share of the
@@ -1430,10 +1606,11 @@ def phase_profile(report):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="env,parity,main,serve,scale",
+    ap.add_argument("--phases",
+                    default="env,parity,main,serve,registry,scale",
                     help="comma-separated subset of env,parity,main,serve,"
-                         "scale (the default) and the opt-in waterfill, "
-                         "waterfill-plans and profile")
+                         "registry,scale (the default) and the opt-in "
+                         "waterfill, waterfill-plans and profile")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -1467,6 +1644,8 @@ def main(argv=None) -> int:
         if "serve" in phases:
             phase_serve(report)
             phase_llm_kernels_at_serve_shape(report)
+        if "registry" in phases:
+            phase_registry(report, time.monotonic() - t_start)
         if "scale" in phases:
             phase_scale(report, time.monotonic() - t_start)
         if "waterfill" in phases:

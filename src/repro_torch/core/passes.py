@@ -1,30 +1,40 @@
 """The masked fixed-shape scheduling pass (paper §2.1 Steps 1-3) in PyTorch.
 
 The port of ``repro.core.passes`` family 3, the pass the batched engine runs
-once per scan step: slot arrays are ``(..., W)`` in FCFS (submit-rank)
-order, leading axes are lanes, and every phase is a masked cumulative sum,
-reduction or integer/float bisection -- no sort on the reference path.
+once per scan step: slot arrays are ``(..., W)`` in queue order, leading
+axes are lanes, and every phase is a masked cumulative sum, reduction or
+integer/float bisection -- no sort on the reference path.
 
-Structures ported here: ``greedy`` (EASY / MIN / PREF / KEEPPREF) and
-``balanced`` (AVG), class-free, FCFS queue order.  ``pooled`` / ``stealing``,
-``with_classes`` and ``with_sjf`` raise :class:`NotImplementedError`; they
-are the next slice of the port (ROADMAP.md §A, item A5).
+Every structure of the strategy registry runs here: ``greedy`` (EASY / MIN
+/ PREF / KEEPPREF), ``balanced`` (AVG), ``pooled`` (PREF_COMMON_POOL: a
+common-pool start pass after Step 2) and ``stealing`` (STEAL_AGREEMENT: a
+shrink-to-average transfer after Step 2).  Two static flags widen the
+queue: ``with_classes`` puts queued on-demand slots ahead of the others
+(:func:`priority_head`, :func:`queue_ranks`, :func:`queue_cumsum`), and
+``with_sjf`` runs the pass over slots permuted by ``sort_key`` (a stable
+argsort) and restores slot order after it.
 
-``expand_backend`` picks how a greedy lane runs on the card:
+``expand_backend`` picks how a lane runs on the card:
 
-* ``"fused"`` -- the whole pass as the hand-written CUDA kernel
+* ``"fused"`` -- a greedy, class-free lane (FCFS or SJF-permuted) runs
+  the whole pass as the hand-written CUDA kernel
   (:mod:`repro_torch.kernels.schedule_tick`); the default on ``cuda``;
+  other lanes run this module's pass with the greedy give below;
 * ``"waterfill"`` -- this module's pass with the Step-3 greedy give through
   the CUDA prefix-waterfill kernel (:mod:`repro_torch.kernels.waterfill`),
   the counterpart of the JAX package's ``"pallas"``;
 * ``"bisect"`` -- this module's pass alone, the only value allowed on the
   CPU.
 
-Balanced lanes run this module's pass under every backend.  The JAX pass
-skips whole phases with ``lax.cond`` on batch-wide predicates; each skip is
-a per-lane value identity (no head admits nothing, ``need == 0`` takes
-nothing, ``idle == 0`` gives nothing), so here every phase runs
-unconditionally and no step waits on the host.
+Under every backend but ``bisect`` the greedy give of a lane that runs this
+module's pass (pooled, stealing, classes, or ``waterfill``) goes through
+the waterfill kernel, as the JAX pass sends it through Pallas; balanced
+lanes have no greedy give.  The JAX pass skips whole phases with
+``lax.cond`` on batch-wide predicates; each skip is a per-lane value
+identity (no head admits nothing, ``need == 0`` takes nothing, ``idle ==
+0`` gives nothing, ``taken == 0`` pools nothing, ``transfer == 0`` steals
+nothing), so here every phase runs unconditionally and no step waits on
+the host.
 
 Integer arithmetic stays in int32 (``cumsum``/``sum`` are told so), float
 in float32, and ``//`` on the negative bisection bounds is floor division,
@@ -39,6 +49,7 @@ import numpy as np
 import torch
 
 from .jobs import QUEUED, RUNNING
+from .strategies import STRUCTURES
 
 I32 = torch.int32
 F32 = torch.float32
@@ -49,7 +60,6 @@ SHADOW_ITERS = 26
 _SHADOW_EPS = 1e-3  # absolute slack on "finishes before the reservation"
 
 EXPAND_BACKENDS = ("fused", "waterfill", "bisect")
-_NEXT_SLICE = "ROADMAP.md §A item A5 (slice 2 of the port)"
 
 
 def start_policies(strategy, malleable, mn, pref, req, xp=np):
@@ -76,8 +86,12 @@ class PassParams(NamedTuple):
 
     ``wall_work`` is ``walltime * S(nodes_req)``, so the walltime-padded
     remaining-duration estimate at allocation ``a`` is
-    ``remaining * wall_work / S(a)``.  ``on_demand``, ``pref_nodes`` and
-    ``sort_key`` belong to structures and flags of the next slice.
+    ``remaining * wall_work / S(a)``.  The three optional fields are read
+    by one flag or structure each: ``on_demand`` (queued on-demand slots
+    outrank the rest) only under ``with_classes=True``, ``pref_nodes``
+    (the preferred allocation) only by ``structure="pooled"``, and
+    ``sort_key`` (the queue-order key: submit rank under FCFS, walltime
+    estimate under SJF; ``inf`` on padding) only under ``with_sjf=True``.
     """
 
     malleable: torch.Tensor   # bool
@@ -89,9 +103,9 @@ class PassParams(NamedTuple):
     prio_ref: torch.Tensor    # i32 greedy priority = alloc - prio_ref
     pfrac: torch.Tensor       # f32 Amdahl parallel fraction
     wall_work: torch.Tensor   # f32 walltime * S(nodes_req)
-    on_demand: object = None
-    pref_nodes: object = None
-    sort_key: object = None
+    on_demand: object = None   # bool queue-priority class
+    pref_nodes: object = None  # i32 preferred allocation
+    sort_key: object = None    # f32 queue-order key
 
 
 def bisect_rounds(lo0: int, hi0: int) -> int:
@@ -123,6 +137,38 @@ def _rowcumsum(x):
 def first_true(mask):
     """Mask of the first True slot per lane (all-False lanes stay empty)."""
     return mask & (_rowcumsum(mask.to(I32)) == 1)
+
+
+def priority_head(queued, on_demand):
+    """Mask of the queue head under class priority: the first queued
+    on-demand slot when any exists, else the first queued slot."""
+    q_od = queued & on_demand
+    return torch.where(q_od.any(dim=-1, keepdim=True), first_true(q_od),
+                       first_true(queued & ~on_demand))
+
+
+def queue_ranks(queued, on_demand=None):
+    """1-based per-slot queue position (head == 1) in queue order: slot
+    order without classes; with classes every queued on-demand slot ranks
+    ahead of every other.  Non-queued slots get arbitrary ranks."""
+    if on_demand is None:
+        return _rowcumsum(queued.to(I32))
+    q_od = queued & on_demand
+    return torch.where(on_demand, _rowcumsum(q_od.to(I32)),
+                       _rowsum(q_od)[..., None]
+                       + _rowcumsum((queued & ~on_demand).to(I32)))
+
+
+def queue_cumsum(amount, mask, on_demand=None):
+    """Cumulative ``amount`` over ``mask`` slots in queue order: slot order
+    without classes; with classes every on-demand slot accumulates before
+    any other."""
+    if on_demand is None:
+        return _rowcumsum(torch.where(mask, amount, 0))
+    a_od = torch.where(mask & on_demand, amount, 0)
+    a_n = torch.where(mask & ~on_demand, amount, 0)
+    return torch.where(on_demand, _rowcumsum(a_od),
+                       _rowsum(a_od)[..., None] + _rowcumsum(a_n))
 
 
 def take_desc_prefix(prio, amount, need, lo0: int, hi0: int):
@@ -218,20 +264,46 @@ def schedule_tick(p: PassParams, state, alloc, remaining, start_t, act,
     ``backfill_depth`` (per-lane or ``None``) bounds the EASY scan to the
     first ``depth`` queued candidates behind the head, and the static
     ``prio_lo``/``prio_hi`` bound ``alloc - prio_ref`` while ``span_max``
-    bounds ``max_nodes - min_nodes``.  Returns ``(state, alloc, start_t)``.
+    bounds ``max_nodes - min_nodes``.  ``pool_share`` (f32) and
+    ``steal_margin`` (i32) are per-lane parameters of the pooled and
+    stealing structures.  Returns ``(state, alloc, start_t)``.
+
+    ``with_sjf`` permutes every slot tensor by a stable argsort of
+    ``p.sort_key``, runs the pass with ``with_sjf=False`` and restores
+    slot order; per-lane tensors are not permuted.  ``act`` is broadcast
+    to the slots and permuted, except when it is one flag a lane (a
+    trailing axis of 1), which every permutation leaves as it is.  An
+    FCFS lane's key is monotone, so its permutation is the identity.
     """
-    del pool_share, steal_margin  # pooled / stealing lanes: next slice
-    if structure in ("pooled", "stealing"):
-        raise NotImplementedError(
-            f"structure {structure!r} is not ported yet ({_NEXT_SLICE})")
-    if structure not in ("greedy", "balanced"):
+    if structure not in STRUCTURES:
         raise ValueError(f"unknown pass structure {structure!r}")
-    if with_classes or with_sjf:
-        raise NotImplementedError(
-            "with_classes / with_sjf are not ported yet "
-            f"({_NEXT_SLICE})")
     check_backend(expand_backend, state.device)
-    if expand_backend == "fused" and structure == "greedy":
+    if with_sjf:
+        perm = torch.argsort(p.sort_key, dim=-1, stable=True)
+        inv = torch.empty_like(perm).scatter_(
+            -1, perm, torch.arange(perm.shape[-1], device=perm.device)
+            .expand_as(perm))
+
+        def fwd(a):
+            return torch.gather(a, -1, perm)
+
+        def rev(a):
+            return torch.gather(a, -1, inv)
+
+        per_lane = act.dim() == state.dim() and act.shape[-1] == 1
+        out = schedule_tick(
+            PassParams(*(None if f is None else fwd(f) for f in p)),
+            fwd(state), fwd(alloc), fwd(remaining), fwd(start_t),
+            act if per_lane else fwd(act.expand(state.shape)), capacity,
+            t_now, structure=structure, fill_rounds=fill_rounds,
+            prio_lo=prio_lo, prio_hi=prio_hi, span_max=span_max,
+            shadow_iters=shadow_iters, expand_backend=expand_backend,
+            backfill_depth=backfill_depth, with_classes=with_classes,
+            with_sjf=False, pool_share=pool_share,
+            steal_margin=steal_margin)
+        return tuple(rev(a) for a in out)
+    if (expand_backend == "fused" and structure == "greedy"
+            and not with_classes):
         from repro_torch.kernels.schedule_tick import fused_schedule_tick
         return fused_schedule_tick(
             p, state, alloc, remaining, start_t, act, capacity, t_now,
@@ -239,37 +311,59 @@ def schedule_tick(p: PassParams, state, alloc, remaining, start_t, act,
             shadow_iters=shadow_iters, backfill_depth=backfill_depth)
     return plain_tick(
         p, state, alloc, remaining, start_t, act, capacity, t_now,
-        balanced=structure == "balanced", fill_rounds=fill_rounds,
-        prio_lo=prio_lo, prio_hi=prio_hi, span_max=span_max,
-        shadow_iters=shadow_iters,
-        waterfill_give=expand_backend == "waterfill",
-        backfill_depth=backfill_depth)
+        structure=structure, fill_rounds=fill_rounds, prio_lo=prio_lo,
+        prio_hi=prio_hi, span_max=span_max, shadow_iters=shadow_iters,
+        waterfill_give=expand_backend != "bisect",
+        backfill_depth=backfill_depth, with_classes=with_classes,
+        pool_share=pool_share, steal_margin=steal_margin)
 
 
 def plain_tick(p: PassParams, state, alloc, remaining, start_t, act,
-               capacity, t_now, *, balanced: bool, fill_rounds: int,
+               capacity, t_now, *, structure: str, fill_rounds: int,
                prio_lo: int, prio_hi: int, span_max: int,
                shadow_iters: int = SHADOW_ITERS,
-               waterfill_give: bool = False, backfill_depth=None):
-    """The class-free FCFS pass in plain PyTorch (greedy or balanced).
+               waterfill_give: bool = False, backfill_depth=None,
+               with_classes: bool = False, pool_share=None,
+               steal_margin=None):
+    """The pass in plain PyTorch, over slots already in queue order.
 
     ``waterfill_give`` routes the greedy Step-3 give through the CUDA
-    prefix-waterfill kernel in sorted priority order.
+    prefix-waterfill kernel in sorted priority order.  Without
+    ``with_classes`` every class-aware helper takes its class-free form.
     """
     inf = float("inf")
+    balanced = structure == "balanced"
     level_iters = int(math.ceil(math.log2(span_max + 2))) + 1
     tn = t_now[..., None]
+    od = p.on_demand if with_classes else None
+
+    def head(queued):
+        return first_true(queued) if od is None else priority_head(queued,
+                                                                   od)
 
     running = state == RUNNING
     free = capacity - _rowsum(torch.where(running, alloc, 0))
 
-    # -- Step 1: FCFS prefix + head fallback ------------------------------
+    # -- Step 1: queue prefix + head fallback -----------------------------
     queued = (state == QUEUED) & act
-    cumw = _rowcumsum(torch.where(queued, p.want, 0))
-    s1 = queued & (cumw <= free[..., None])
-    used = torch.where(s1, cumw, 0).amax(dim=-1)
-    leftover = free - used
-    h_mask = first_true(queued & ~s1)
+    if od is None:
+        cumw = _rowcumsum(torch.where(queued, p.want, 0))
+        s1 = queued & (cumw <= free[..., None])
+        used = torch.where(s1, cumw, 0).amax(dim=-1)
+        leftover = free - used
+    else:
+        # queued on-demand slots start first; the others join the prefix
+        # only once every queued on-demand job has started
+        q_od = queued & od
+        cumw_od = _rowcumsum(torch.where(q_od, p.want, 0))
+        s1o = q_od & (cumw_od <= free[..., None])
+        all_od = ~(q_od & ~s1o).any(dim=-1)
+        rem = free - torch.where(s1o, cumw_od, 0).amax(dim=-1)
+        q_n = queued & ~od
+        cumw_n = _rowcumsum(torch.where(q_n, p.want, 0))
+        s1 = s1o | (q_n & (cumw_n <= rem[..., None]) & all_od[..., None])
+        leftover = rem - torch.where(s1 & ~od, cumw_n, 0).amax(dim=-1)
+    h_mask = head(queued & ~s1)
     hfloor = _rowsum(torch.where(h_mask, p.floor, 0))
     hwant = _rowsum(torch.where(h_mask, p.want, 0))
     h_ok = (hfloor > 0) & (hfloor <= leftover)
@@ -285,7 +379,7 @@ def plain_tick(p: PassParams, state, alloc, remaining, start_t, act,
 
     # -- EASY backfill under the head's shadow-time reservation -----------
     queued = (state == QUEUED) & act
-    h_mask = first_true(queued)
+    h_mask = head(queued)
     hfloor = _rowsum(torch.where(h_mask, p.floor, 0))
     hwant = _rowsum(torch.where(h_mask, p.want, 0))
     has_head = hfloor > 0
@@ -294,7 +388,7 @@ def plain_tick(p: PassParams, state, alloc, remaining, start_t, act,
     else:
         # rank cutoff over the queue snapshot at scan entry: the head
         # holds rank 1, candidates 1..depth behind it ranks 2..depth+1
-        depth_ok = _rowcumsum(queued.to(I32)) <= backfill_depth[..., None] + 1
+        depth_ok = queue_ranks(queued, od) <= backfill_depth[..., None] + 1
     run = state == RUNNING
     est = torch.where(
         run, tn + remaining * p.wall_work / speedup_f32(alloc, p.pfrac), inf)
@@ -307,7 +401,7 @@ def plain_tick(p: PassParams, state, alloc, remaining, start_t, act,
                         torch.where(has_head, free - hfloor, free))
 
     def cumfit(amount, mask, lim):
-        cum = _rowcumsum(torch.where(mask, amount, 0))
+        cum = queue_cumsum(amount, mask, od)
         s = mask & (cum <= lim[..., None])
         return s, torch.where(s, cum, 0).amax(dim=-1)
 
@@ -380,6 +474,55 @@ def plain_tick(p: PassParams, state, alloc, remaining, start_t, act,
     state = torch.where(h_upd, RUNNING, state)
     start_t = torch.where(h_upd, tn, start_t)
     free = free - torch.where(h_ok, h_alloc, 0)
+
+    # -- Step 2b: the pooled / stealing structure's extra pass ------------
+    if structure == "pooled":
+        # running malleable jobs' surplus above preferred is a common pool;
+        # queued malleable candidates behind the head start at their floor
+        # from it in queue order, and donors shrink back toward preferred
+        run_m = (state == RUNNING) & p.malleable
+        over_pref = torch.where(
+            run_m, torch.clamp(alloc - p.pref_nodes, min=0), 0)
+        pool_amt = _rowsum(over_pref)
+        share = 1.0 if pool_share is None else pool_share
+        # f32 product truncated to int32, as XLA converts it
+        budget = torch.minimum((share * pool_amt.to(F32)).to(I32), pool_amt)
+        q_pool = (state == QUEUED) & act
+        cand = q_pool & p.malleable & ~head(q_pool)
+        cumf = queue_cumsum(p.floor, cand, od)
+        sp = cand & (cumf <= budget[..., None])
+        taken = torch.where(sp, cumf, 0).amax(dim=-1)
+        pr = _clip(alloc - p.prio_ref, prio_lo, prio_hi)
+        alloc = alloc - take_desc_prefix(pr, over_pref, taken,
+                                         prio_lo - 1, prio_hi)
+        alloc = torch.where(sp, p.floor, alloc)
+        state = torch.where(sp, RUNNING, state)
+        start_t = torch.where(sp, tn, start_t)
+    elif structure == "stealing":
+        # over-average running malleable jobs (beyond the margin) donate
+        # their surplus above max(average, shrink floor), highest priority
+        # first; under-average ones take up to min(average, max_nodes),
+        # lowest priority first
+        run_m = (state == RUNNING) & p.malleable
+        n_run = _rowsum(run_m)
+        avg = torch.div(_rowsum(torch.where(run_m, alloc, 0)),
+                        torch.clamp(n_run, min=1), rounding_mode="floor")
+        margin = 0 if steal_margin is None else steal_margin
+        sfl = torch.where(run_m, torch.minimum(p.shrink_floor, alloc), alloc)
+        donor = run_m & (alloc > (avg + margin)[..., None])
+        donor_amt = torch.where(
+            donor, torch.clamp(alloc - torch.maximum(avg[..., None], sfl),
+                               min=0), 0)
+        taker_room = torch.where(
+            run_m, torch.clamp(torch.minimum(avg[..., None], p.max_nodes)
+                               - alloc, min=0), 0)
+        transfer = torch.minimum(_rowsum(donor_amt), _rowsum(taker_room))
+        pr = _clip(alloc - p.prio_ref, prio_lo, prio_hi)
+        alloc = (alloc
+                 - take_desc_prefix(pr, donor_amt, transfer,
+                                    prio_lo - 1, prio_hi)
+                 + give_asc_prefix(pr, taker_room, transfer,
+                                   prio_lo - 1, prio_hi))
 
     # -- Step 3: expand into remaining idle nodes -------------------------
     expandable = (state == RUNNING) & p.malleable

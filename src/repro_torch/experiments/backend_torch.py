@@ -1,8 +1,11 @@
 """Batched PyTorch experiment backend: the whole grid as device lanes.
 
 The port of ``repro.experiments.backend_jax.run_cells``: cells become lanes
-grouped by static pass structure (greedy-structured strategies
-EASY / MIN / PREF / KEEPPREF share one batch; AVG runs a balanced batch),
+grouped by static pass structure (greedy-structured strategies EASY / MIN /
+PREF / KEEPPREF / RIGID_SJF share one batch; AVG runs a balanced batch,
+PREF_COMMON_POOL a pooled one and STEAL_AGREEMENT a stealing one; each
+structure's ``<structure>_lanes`` / ``_steps`` / ``_window`` land in
+``info``), the scenario's queue order and job classes travel in the lanes,
 lanes of different workloads pad-stack into one batch
 (:func:`repro_torch.sweep.batch.concat_lanes`), and per-cell metrics come
 back through :mod:`repro_torch.sweep.metrics`.  Only lanes that ran to

@@ -1,0 +1,125 @@
+"""Argparse wiring of the port's grid CLI: flags <-> :class:`ExperimentSpec`.
+
+The port of ``repro.experiments.cli``'s spec and scenario flags, so every
+strategy of the registry and every scenario axis can be asked for from
+``python -m repro_torch.experiments``.  The port's only engine is
+``torch``, so there is no ``--engine``; of the execution knobs it takes
+``--window``, ``--events`` and ``--chunk``, which never change results and
+never enter a fingerprint.
+"""
+from __future__ import annotations
+
+import argparse
+
+from repro_torch.core import CLUSTERS
+from repro_torch.core.scenario import (DEFAULT_BACKFILL_DEPTH,
+                                       DEFAULT_WALLTIME_SEED, WALLTIME_DISTS,
+                                       JobClasses, ScenarioConfig)
+from repro_torch.core.strategies import (MALLEABLE_STRATEGY_NAMES,
+                                         SWEEP_PROPORTIONS,
+                                         registered_strategy_names)
+
+from .spec import ExperimentSpec
+
+
+def add_spec_arguments(ap: argparse.ArgumentParser) -> None:
+    """Flags that define the experiment (everything in the fingerprint);
+    the defaults are the paper grid on theta at full scale."""
+    ap.add_argument("--workload", nargs="+", default=["theta"],
+                    choices=sorted(CLUSTERS),
+                    help="one workload, or several to run as one batch "
+                         "per structure")
+    ap.add_argument("--scale", type=float, default=1.0,
+                    help="trace scale (1.0 = paper-size workloads)")
+    ap.add_argument("--trace-seed", type=int, default=0,
+                    help="trace-generator seed")
+    ap.add_argument("--seeds", type=int, default=2,
+                    help="transform seeds per (strategy, proportion)")
+    ap.add_argument("--proportions", type=float, nargs="*",
+                    default=list(SWEEP_PROPORTIONS))
+    # choices follow the registry; the default stays the paper's subset
+    ap.add_argument("--strategies", nargs="*",
+                    default=list(MALLEABLE_STRATEGY_NAMES),
+                    choices=list(registered_strategy_names(
+                        sweepable_only=True)))
+    add_scenario_arguments(ap)
+
+
+def add_scenario_arguments(ap: argparse.ArgumentParser) -> None:
+    """The scenario axes (:mod:`repro_torch.core.scenario`), one flag each."""
+    ap.add_argument("--walltime-factor", type=float, default=1.0,
+                    help="scales walltime slack: 0 = exact estimates, "
+                         "1 = the trace's padding, 4 = 4x padding")
+    ap.add_argument("--walltime-jitter", type=float, default=0.0,
+                    help="per-job spread of walltime slack (0 = uniform; "
+                         "distribution set by --walltime-dist)")
+    ap.add_argument("--walltime-dist", choices=list(WALLTIME_DISTS),
+                    default="lognormal",
+                    help="per-job walltime-accuracy distribution the "
+                         "jitter draws from")
+    ap.add_argument("--walltime-seed", type=int,
+                    default=DEFAULT_WALLTIME_SEED,
+                    help="seed of the jitter draw")
+    ap.add_argument("--arrival-compression", type=float, default=1.0,
+                    help="divides submission times: 2.0 doubles the "
+                         "arrival rate at a fixed work mix")
+    ap.add_argument("--backfill-depth", type=int,
+                    default=DEFAULT_BACKFILL_DEPTH,
+                    help="EASY backfill scan depth")
+    ap.add_argument("--queue-order", choices=["fcfs", "sjf"],
+                    default="fcfs",
+                    help="waiting-queue order: fcfs (default) or sjf keyed "
+                         "on walltime estimates (rigid_sjf pins sjf)")
+    ap.add_argument("--rigid-frac", type=float, default=0.0,
+                    help="job-class mix: fraction pinned rigid")
+    ap.add_argument("--on-demand-frac", type=float, default=0.0,
+                    help="job-class mix: fraction on-demand (pinned rigid, "
+                         "ahead of the others in the queue)")
+    ap.add_argument("--class-seed", type=int, default=0,
+                    help="job-class assignment permutation seed")
+
+
+def scenario_from_args(args: argparse.Namespace) -> ScenarioConfig:
+    return ScenarioConfig(
+        walltime_factor=args.walltime_factor,
+        walltime_jitter=args.walltime_jitter,
+        walltime_dist=args.walltime_dist,
+        walltime_seed=args.walltime_seed,
+        arrival_compression=args.arrival_compression,
+        backfill_depth=args.backfill_depth,
+        queue_order=args.queue_order,
+        job_classes=JobClasses(
+            rigid=args.rigid_frac,
+            on_demand=args.on_demand_frac,
+            malleable=1.0 - args.rigid_frac - args.on_demand_frac,
+            seed=args.class_seed),
+    )
+
+
+def spec_from_args(args: argparse.Namespace) -> ExperimentSpec:
+    return ExperimentSpec(
+        workloads=tuple(args.workload),
+        scale=args.scale,
+        trace_seed=args.trace_seed,
+        seeds=args.seeds,
+        proportions=tuple(args.proportions),
+        strategies=tuple(args.strategies),
+        scenario=scenario_from_args(args),
+    )
+
+
+def add_execution_arguments(ap: argparse.ArgumentParser) -> None:
+    """Engine knobs that never change results (never fingerprinted)."""
+    ap.add_argument("--window", type=int, default=0,
+                    help="active-set window ladder floor (0 = start at the "
+                         "rung the lane statics predict)")
+    ap.add_argument("--events", type=int, default=4,
+                    help="per-lane events retired per scan step (event "
+                         "compression; 1 disables)")
+    ap.add_argument("--chunk", type=int, default=160,
+                    help="scan steps between window compactions")
+
+
+def execution_options_from_args(args: argparse.Namespace) -> dict:
+    return {"window": args.window, "events": args.events,
+            "chunk": args.chunk}

@@ -24,7 +24,7 @@ def schedule_tick_ref(p, state, alloc, remaining, start_t, act, capacity,
     computes), as plain PyTorch ops.  Returns ``(state, alloc, start_t)``."""
     return plain_tick(
         p, state, alloc, remaining, start_t, act, capacity, t_now,
-        balanced=False, fill_rounds=fill_rounds, prio_lo=prio_lo,
+        structure="greedy", fill_rounds=fill_rounds, prio_lo=prio_lo,
         prio_hi=prio_hi, span_max=0, shadow_iters=shadow_iters,
         backfill_depth=backfill_depth)
 

@@ -2,8 +2,11 @@
 
 The port of ``repro.sweep.batch``: many (strategy, proportion, seed --
 and workload) lanes of the paper's grid advance in lockstep on one device.
-The scheduling pass itself is :func:`repro_torch.core.passes.schedule_tick`;
-this module owns the simulation substrate, with the JAX engine's semantics:
+The scheduling pass itself is :func:`repro_torch.core.passes.schedule_tick`,
+for every structure of the strategy registry (a batch holds one), with the
+on-demand queue priority and the SJF queue order switched on by the lane
+statics ``with_classes`` / ``with_sjf`` (:func:`lane_statics`).  This module
+owns the simulation substrate, with the JAX engine's semantics:
 
 1. **Event-quantized steps.**  Each scan step jumps a lane to the tick of
    its next submission or completion; a pass that changed state while jobs
@@ -50,9 +53,9 @@ from repro_torch.core.speedup import (TransformConfig, amdahl_speedup,
 from repro_torch.core.strategies import Strategy, effective_queue_order
 
 # Bump when engine semantics change: invalidates the port's cache entries.
-# v1: the JAX engine's v4 semantics for greedy / balanced FCFS class-free
-# lanes (shadow-time EASY backfill with a depth cutoff, per-lane
-# capacity/tick, multi-trace batching, event compression).
+# v1: the JAX engine's v4 semantics (shadow-time EASY backfill with a depth
+# cutoff, per-lane capacity/tick, multi-trace batching, event compression),
+# for every structure, job-class mix and queue order.
 ENGINE_VERSION = 1
 
 _TICK_EPS = 1e-6   # ceil guard, matches the DES event quantization
@@ -104,7 +107,7 @@ class BatchedLanes(NamedTuple):
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
-    structure: str = "greedy"   # greedy | balanced
+    structure: str = "greedy"   # greedy | balanced | pooled | stealing
     window: int = 0             # ladder floor; 0 = start at the rung that
                                 # covers the lane-statics peak-active bound
     chunk: int = 160            # scan steps between compactions
@@ -363,12 +366,6 @@ def simulate_lanes(batch: BatchedLanes, cfg: EngineConfig,
     dev = batch.submit.device
     backend = resolve_backend(cfg.expand_backend, dev)
     st = lane_statics(batch) if statics is None else statics
-    if cfg.structure not in ("greedy", "balanced") or st["with_classes"] \
-            or st.get("with_sjf", False):
-        raise NotImplementedError(
-            "the port runs greedy / balanced class-free FCFS lanes; pooled "
-            "and stealing structures, job classes and SJF are ROADMAP.md "
-            "§A item A5 (slice 2 of the port)")
     prio_lo, prio_hi = st["prio_lo"], st["prio_hi"]
     span_max = st["span_max"]
     min_depth = st["min_depth"]
@@ -436,7 +433,8 @@ def simulate_lanes(batch: BatchedLanes, cfg: EngineConfig,
         full, counters, ys, all_done = _chunk(
             batch, full, counters, W=W, cfg=cfg, prio_lo=prio_lo,
             prio_hi=prio_hi, span_max=span_max,
-            depth_bounded=min_depth < W, backend=backend)
+            depth_bounded=min_depth < W, backend=backend,
+            with_classes=st["with_classes"], with_sjf=st["with_sjf"])
         traces.append(tuple(_np(y) for y in ys))
         done_now = bool(all_done)
         execute_s += time.monotonic() - t_call
@@ -482,8 +480,11 @@ def _rowsum(x):
 
 def _chunk(batch: BatchedLanes, full, counters, *, W: int, cfg: EngineConfig,
            prio_lo: int, prio_hi: int, span_max: int, depth_bounded: bool,
-           backend: str):
+           backend: str, with_classes: bool, with_sjf: bool):
     """Compaction + ``cfg.chunk`` scan steps + scatter-back for one window.
+
+    ``with_classes`` / ``with_sjf`` are the batch's lane statics: they turn
+    on the pass's on-demand queue priority and queue-order permutation.
 
     Returns ``(full, counters, (trace_t, trace_busy, trace_qlen), all_done)``
     with the three trace tensors ``(B, chunk * events)``.
@@ -547,7 +548,9 @@ def _chunk(batch: BatchedLanes, full, counters, *, W: int, cfg: EngineConfig,
         malleable=bj.malleable, min_nodes=bj.min_nodes,
         max_nodes=bj.max_nodes, want=bj.want, floor=bj.floor,
         shrink_floor=bj.shrink_floor, prio_ref=bj.prio_ref,
-        pfrac=bj.pfrac, wall_work=bj.wall_work)
+        pfrac=bj.pfrac, wall_work=bj.wall_work, on_demand=bj.on_demand,
+        pref_nodes=bj.pref_nodes,
+        sort_key=bj.sort_key if with_sjf else None)
 
     bstate = g2(state, DONE)
     balloc = g2(full["alloc"], 0)
@@ -635,7 +638,9 @@ def _chunk(batch: BatchedLanes, full, counters, *, W: int, cfg: EngineConfig,
             capacity, t_now, structure=cfg.structure,
             fill_rounds=cfg.fill_rounds, prio_lo=prio_lo, prio_hi=prio_hi,
             span_max=span_max, expand_backend=backend,
-            backfill_depth=depth)
+            backfill_depth=depth, with_classes=with_classes,
+            with_sjf=with_sjf, pool_share=bj.pool_share,
+            steal_margin=bj.steal_margin)
 
         # net per-invocation op accounting (jobs running before & after)
         still = running0 & (bstate == RUNNING)

@@ -4,9 +4,10 @@
 * no file of the port (nor ``chip_smoke.py``) imports ``jax`` or ``repro``;
 * without a card, the entry points raise unless ``device="cpu"`` is given;
 * kernel backends refuse CPU tensors at the engine level;
-* structures and flags of later slices (pass features; MoE, MLA, the
-  encoder-decoder, frontends and training in the LLM layer) raise
-  ``NotImplementedError`` naming their ROADMAP item.
+* structures of later slices (MoE, MLA, the encoder-decoder, frontends
+  and training in the LLM layer) raise ``NotImplementedError`` naming
+  their ROADMAP item, while every structure and flag of the scheduling
+  pass runs.
 
 Kernel launches need a card: the ``cuda``-marked tests in
 ``test_torch_cuda.py`` skip here; they and ``chip_smoke.py`` run on the
@@ -187,14 +188,19 @@ def test_next_slice_features_raise_not_implemented(kw):
     i = torch.ones((B, W), dtype=torch.int32)
     f = torch.ones((B, W), dtype=torch.float32)
     p = PassParams(torch.ones((B, W), dtype=torch.bool), i, i, i, i, i, i,
-                   f, f)
+                   f, f, on_demand=torch.ones((B, W), dtype=torch.bool),
+                   pref_nodes=i, sort_key=f)
     args = (p, i, i, f, f, torch.ones((B, 1), dtype=torch.bool),
             torch.full((B,), 4, dtype=torch.int32),
             torch.zeros((B,), dtype=torch.float32))
     kw = dict(dict(structure="greedy"), **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the registry's structures and flags once raised here; all now run
+    out = schedule_tick(*args, fill_rounds=2, prio_lo=-1, prio_hi=1,
+                        span_max=1, **kw)
+    assert [tuple(t.shape) for t in out] == [(B, W)] * 3
+    with pytest.raises(ValueError, match="unknown pass structure"):
         schedule_tick(*args, fill_rounds=2, prio_lo=-1, prio_hi=1,
-                      span_max=1, **kw)
+                      span_max=1, structure="nested")
 
 
 def test_chip_smoke_fails_without_a_card_or_without_the_repo(no_card,
