@@ -6,7 +6,8 @@
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, holds
 each against its plain PyTorch version on the card, drives the port's two
 main paths (the paper grid on the batched engine through
-``repro_torch.experiments.backend_torch.run_cells``, and LLM serving
+``repro_torch.experiments.backend_torch.run_cells`` and the experiment
+layer around it, ``python -m repro_torch.experiments``; and LLM serving
 through ``repro_torch.serve.engine.ServeEngine``) and prints what it saw.
 Phases:
 
@@ -30,9 +31,12 @@ Phases:
    (f32 2e-5 / 2e-5 / 2e-4, bf16 2e-2 / 2e-2 / 5e-2); median times (CUDA
    events, 20 runs) of kernel and plain version;
 3. main path: theta at scale 1.0 (2,550 jobs on 4,392 nodes), 2 seeds,
-   the paper's five strategies (41 cells), under ``expand_backend`` =
-   fused, waterfill and bisect; per-cell metrics must be identical across
-   the three and every lane must finish.  Kernel launches are counted per
+   the paper's five strategies (41 cells) under ``expand_backend`` =
+   fused, and its greedy-structured strategies (EASY, MIN, PREF,
+   KEEPPREF: 31 cells) under waterfill and bisect (AVG's balanced lanes
+   run the same plain pass under every backend and launch nothing); the
+   31 cells' metrics must be identical across the three and every lane
+   must finish.  Kernel launches are counted per
    run, from 0 just before it.  A small theta grid on the card must also
    equal the plain path on the CPU bit for bit.  The tick and waterfill
    kernels are then held to their plain versions on a captured call of
@@ -74,7 +78,25 @@ Phases:
    as in phase 3; each batch's wall, steps, window and ms per step, and the
    SJF greedy step beside the main phase's FCFS one.  Cut to scale 0.05,
    printed, if the time left would not hold it;
-6. scale: the greedy batch on haswell at scale 1.0 (the whole trace,
+6. experiment: ``python -m repro_torch.experiments``'s ``main(argv)`` as
+   a user runs it, each group of runs in a fresh temporary directory
+   outside the repository, kernel launches counted from 0 before each
+   run: (a) haswell at scale 0.02, 2 seeds, ``--crosscheck 2
+   --require-crosscheck`` with a cell store, an artifact, a Chrome trace,
+   a JSONL log and the heartbeat (rc 0, the tick launched, the artifact
+   reloads for its spec, the trace holds the pipeline's spans); (b) the
+   same with ``--expect-cached`` (rc 0, no kernel launched, the two DES
+   cells read from the store); (c) ``--engine des --workers 2`` on that
+   store (rc 0, the crosschecked cells read from it); (d) knl and eagle
+   at scale 0.01 in one run, ``--crosscheck 2`` (each crosschecked cell's
+   worst relative error); (e) knl at 0.01, MIN and KEEPPREF, swept over
+   ``backfill_depth`` 1 / 4 / 256 (the table); (f) the DES crosscheck of
+   4 of the main phase's fused theta scale-1.0 cells (seed 0), its deltas
+   and DES seconds printed and not gated: a breach there is the batched
+   engine's methodology gap, which the port shares with the JAX engine.
+   Each run prints its wall, cells computed, store hits, launches and
+   DES seconds;
+7. scale: the greedy batch on haswell at scale 1.0 (the whole trace,
    28,259 jobs on 2,388 nodes) with ``fused``, tick launches counted from
    0 just before it; the tick kernel is then timed on the run's call at
    its peak window (B = 16, W = 16,384): single-call and device (CUDA
@@ -675,6 +697,13 @@ def theta_on_both_devices(tag, scale, **spec_kw):
             "the card (fused) == the plain path on the CPU, bit for bit")
 
 
+# the strategies of the main phase's waterfill and bisect runs: the
+# greedy-structured ones (31 lanes), whose pass each backend routes
+# differently; AVG's balanced lanes run the same plain pass under every
+# backend and launch nothing, so the fused run alone takes them
+GREEDY_STRATEGIES = ("min", "pref", "keeppref")
+
+
 def phase_main(report):
     import torch
     from repro_torch.kernels import build, schedule_tick, waterfill
@@ -685,34 +714,37 @@ def phase_main(report):
     wf_cap = Capture(waterfill, "waterfill")
     with tick_cap, wf_cap:
         for backend in ("fused", "waterfill", "bisect"):
+            spec_kw = {} if backend == "fused" else {
+                "strategies": GREEDY_STRATEGIES}
             torch.cuda.synchronize()
             build.LAUNCH_COUNTS.clear()  # this path's launches start here
             todo, metrics, info = run_grid(("theta",), 1.0, 2, backend,
-                                           "cuda")
+                                           "cuda", **spec_kw)
             torch.cuda.synchronize()
             delta = {k: build.LAUNCH_COUNTS[k]
                      for k in ("schedule_tick", "waterfill")}
             check_cells(todo, metrics, info, f"theta/{backend}")
             runs[backend] = (metrics, info, delta)
-            walls = {c["structure"]: c["wall_s"] for c in info["chunks"]}
+            batches = "; ".join(
+                f"{c['structure']} {c['lanes']} lanes {c['steps']} steps "
+                f"window {c['window']} {c['wall_s']:.2f}s"
+                for c in info["chunks"])
             log(f"[main] theta scale 1.0 {backend}: {len(todo)} cells in "
                 f"{info['wall_s']:.2f}s ({len(todo) / info['wall_s']:.3f} "
-                f"cells/s); greedy {info['greedy_lanes']} lanes "
-                f"{info['greedy_steps']} steps window "
-                f"{info['greedy_window']} {walls['greedy']:.2f}s; balanced "
-                f"{info['balanced_lanes']} lanes {info['balanced_steps']} "
-                f"steps window {info['balanced_window']} "
-                f"{walls['balanced']:.2f}s; launches {delta}")
+                f"cells/s); {batches}; launches {delta}")
     report["launches"] = {b: runs[b][2] for b in runs}
     greedy = runs["fused"][1]
     report["greedy_s_per_step"] = (
         next(c["wall_s"] for c in greedy["chunks"]
              if c["structure"] == "greedy") / greedy["greedy_steps"])
-    if len(todo) != 41:
-        raise AssertionError(f"expected 41 theta cells, got {len(todo)}")
     fused, wfill, bisect = (runs[b][0] for b in ("fused", "waterfill",
                                                  "bisect"))
-    if not (same_metrics(fused, wfill) and same_metrics(fused, bisect)):
+    if len(fused) != 41 or len(wfill) != 31 or len(bisect) != 31:
+        raise AssertionError(f"expected 41 / 31 / 31 theta cells, got "
+                             f"{len(fused)} / {len(wfill)} / {len(bisect)}")
+    greedy_cells = {k: fused[k] for k in wfill}
+    if not (same_metrics(greedy_cells, wfill)
+            and same_metrics(greedy_cells, bisect)):
         raise AssertionError("per-cell metrics differ across backends")
     if runs["fused"][2]["schedule_tick"] == 0 or \
             runs["fused"][2]["waterfill"] != 0:
@@ -722,7 +754,8 @@ def phase_main(report):
         raise AssertionError(f"waterfill run launches {runs['waterfill'][2]}")
     if any(runs["bisect"][2].values()):
         raise AssertionError(f"bisect run launches {runs['bisect'][2]}")
-    log("[main] per-cell metrics identical under fused / waterfill / bisect")
+    log("[main] per-cell metrics of the 31 greedy cells identical under "
+        "fused / waterfill / bisect")
     by = {}
     for (_w, (s, prop, _sd)), m in fused.items():
         if prop in (0.0, 1.0):
@@ -735,6 +768,7 @@ def phase_main(report):
             f"({100.0 * (base - t) / base:+.1f}% vs easy)")
     report["captured"] = {"schedule_tick": tick_cap.kept,
                           "waterfill": wf_cap.kept}
+    report["theta_fused"] = {cell: m for (_w, cell), m in fused.items()}
 
 
 def time_tick(args, kw):
@@ -1577,6 +1611,201 @@ def phase_registry(report, elapsed_s):
                                      out[row["name"]]["max_abs_err"])
 
 
+# ------------------------------------------------ the experiment layer
+KERNEL_NAMES = ("schedule_tick", "waterfill", "rmsnorm", "flash_attention",
+                "ssd_scan")
+# the configuration the reference's CI gates: haswell at scale 0.02, 2
+# seeds, the paper grid, 2 cells crosschecked against the DES
+GATED_ARGV = ["--workload", "haswell", "--scale", "0.02", "--seeds", "2"]
+
+
+def run_entry(tag, argv):
+    """``python -m repro_torch.experiments`` as a user runs it:
+    ``main(argv)`` with kernel launches counted from 0 just before it and
+    the flight recorder off again after it.  Prints the run's summary,
+    crosscheck and heartbeat lines; returns (rc, wall s, launches, the
+    run's whole output)."""
+    import contextlib
+    import io
+    import torch
+    from repro_torch import obs
+    from repro_torch.experiments.__main__ import main
+    from repro_torch.kernels import build
+    argv = argv + ["--device", "cuda"]
+    torch.cuda.synchronize()
+    build.LAUNCH_COUNTS.clear()  # this run's launches start here
+    buf = io.StringIO()
+    t0 = time.monotonic()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = main(argv)
+        torch.cuda.synchronize()
+    finally:
+        obs.configure(enabled=False)
+        obs.get_tracer().reset()
+    wall = time.monotonic() - t0
+    launches = {k: build.LAUNCH_COUNTS[k] for k in KERNEL_NAMES}
+    text = buf.getvalue()
+    for ln in text.splitlines():
+        if ln.startswith(("[crosscheck", "[progress")) or any(
+                w in ln for w in (" engine=", "FAIL", "WARNING",
+                                  "EXCEEDED")):
+            log(f"[experiment:{tag}]   {ln}")
+    log(f"[experiment:{tag}] rc {rc}, wall {wall:.2f}s, launches "
+        f"{ {k: v for k, v in launches.items() if v} or 'none'}")
+    return rc, wall, launches, text
+
+
+def artifact(path):
+    return json.loads(pathlib.Path(path).read_text())["results"]
+
+
+def worst_rel_err(cell):
+    return max(d["abs_err"] / max(abs(d["des"]), 1e-9)
+               for d in cell["deltas"].values())
+
+
+def log_engine(tag, results):
+    e = results["_engine"]
+    cc = results.get("_crosscheck")
+    log(f"[experiment:{tag}] {results['_meta']['workload']}: cells "
+        f"computed {e['computed_cells']}, store hits {e['cache_hits']}, "
+        f"incomplete {e['incomplete_cells_total']}, engine seconds "
+        f"{e['sim_seconds']:.2f}"
+        + ("" if cc is None else
+           f"; crosscheck {len(cc['cells'])} cells, store hits "
+           f"{cc['store_hits']}, DES seconds {cc['seconds']:.2f}, within "
+           f"tolerance {cc['all_within_tolerance']}"))
+
+
+def phase_experiment(report):
+    """The port's experiment layer through ``python -m
+    repro_torch.experiments``, each run group in a fresh temporary
+    directory outside the repository: (a) the gated run (haswell 0.02,
+    ``--require-crosscheck``, store, artifact, trace); (b) its resume
+    (``--expect-cached``: no kernel launches, the DES cells read from the
+    store); (c) the DES engine with two workers on the same store; (d) knl
+    and eagle in one run, crosschecked; (e) a scenario sweep; (f) the
+    DES crosscheck of the main phase's theta scale-1.0 cells (reported,
+    not gated: a breach is the batched engine's methodology gap)."""
+    import shutil
+    import tempfile
+    from repro_torch.experiments import (ExperimentSpec,
+                                         load_artifact_results)
+    from repro_torch.experiments.crosscheck import crosscheck_cells
+    out = {}
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="repro_torch_experiment_"))
+    try:
+        d = tmp / "gated"
+        a_argv = GATED_ARGV + [
+            "--crosscheck", "2", "--require-crosscheck", "--cache-dir",
+            str(d / "store"), "--out", str(d / "haswell.json")]
+        rc, wall, launches, _ = run_entry("a", a_argv + [
+            "--trace", str(d / "t.json"), "--trace-jsonl",
+            str(d / "t.jsonl"), "--progress"])
+        if rc != 0:
+            raise AssertionError(f"experiment (a): rc {rc}")
+        if not launches["schedule_tick"]:
+            raise AssertionError("experiment (a): the tick never launched")
+        spec = ExperimentSpec(workloads=("haswell",), scale=0.02, seeds=2)
+        res = load_artifact_results(d / "haswell.json", spec, "haswell")
+        if res is None:
+            raise AssertionError("experiment (a): the artifact does not "
+                                 "reload for its spec")
+        log_engine("a", res)
+        names = {e["name"] for e in json.loads((d / "t.json").read_text())}
+        want = {"experiment.fingerprint", "trace.generate", "sweep.execute"}
+        if not want <= names:
+            raise AssertionError(f"experiment (a): trace lacks "
+                                 f"{sorted(want - names)}")
+        jsonl = (d / "t.jsonl").read_text().splitlines()
+        counters = json.loads(jsonl[-1])["counters"]
+        log(f"[experiment:a] trace: {len(jsonl) - 1} spans "
+            f"({', '.join(sorted(names))}); counters {counters}")
+        out["a"] = {"wall_s": wall, "launches": launches,
+                    "computed": res["_engine"]["computed_cells"],
+                    "crosscheck": res["_crosscheck"]}
+
+        rc, wall, launches, _ = run_entry("b", a_argv + ["--expect-cached"])
+        res = artifact(d / "haswell.json")
+        log_engine("b", res)
+        if rc != 0 or any(launches.values()) or \
+                res["_crosscheck"]["store_hits"] != 2:
+            raise AssertionError(f"experiment (b): rc {rc}, launches "
+                                 f"{launches}, crosscheck store hits "
+                                 f"{res['_crosscheck']['store_hits']}")
+        out["b"] = {"wall_s": wall, "launches": launches}
+
+        rc, wall, launches, _ = run_entry("c", GATED_ARGV + [
+            "--engine", "des", "--workers", "2", "--cache-dir",
+            str(d / "store"), "--out", str(d / "haswell-des.json")])
+        res = artifact(d / "haswell-des.json")
+        log_engine("c", res)
+        if rc != 0 or any(launches.values()) or \
+                res["_engine"]["cache_hits"] < 2:
+            raise AssertionError(f"experiment (c): rc {rc}, launches "
+                                 f"{launches}, store hits "
+                                 f"{res['_engine']['cache_hits']}")
+        out["c"] = {"wall_s": wall, "des_s": res["_engine"]["sim_seconds"],
+                    "cache_hits": res["_engine"]["cache_hits"]}
+
+        d = tmp / "clusters"
+        rc, wall, launches, _ = run_entry("d", [
+            "--workload", "knl", "eagle", "--scale", "0.01", "--seeds", "1",
+            "--crosscheck", "2", "--out", str(d / "knl-eagle.json")])
+        res = artifact(d / "knl-eagle.json")
+        if rc != 0 or set(res) != {"knl", "eagle"}:
+            raise AssertionError(f"experiment (d): rc {rc}, workloads "
+                                 f"{sorted(res)}")
+        out["d"] = {"wall_s": wall, "launches": launches}
+        for name, r in res.items():
+            log_engine("d", r)
+            if r["_engine"]["incomplete_cells"]:
+                raise AssertionError(f"experiment (d): {name} incomplete")
+            out["d"][name] = {c["cell"]: worst_rel_err(c)
+                              for c in r["_crosscheck"]["cells"]}
+            for c in r["_crosscheck"]["cells"]:
+                log(f"[experiment:d] {name} {c['cell']}: worst relative "
+                    f"error {worst_rel_err(c):.4f}, within tolerance "
+                    f"{c['within_tolerance']}")
+
+        d = tmp / "scenarios"
+        rc, wall, launches, text = run_entry("e", [
+            "--workload", "knl", "--scale", "0.01", "--seeds", "1",
+            "--strategies", "min", "keeppref", "--compare-scenarios",
+            "backfill_depth", "--scenario-values", "1", "4", "256", "--out",
+            str(d / "cmp.json")])
+        table = json.loads((d / "cmp.json").read_text())["tables"]["knl"]
+        if rc != 0 or table not in text:
+            raise AssertionError(f"experiment (e): rc {rc}, table printed "
+                                 f"{table in text}")
+        for ln in table.splitlines():
+            log(f"[experiment:e]   {ln}")
+        out["e"] = {"wall_s": wall, "launches": launches}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    fused = report.get("theta_fused")
+    if fused is None:
+        log("[experiment:f] theta scale 1.0 crosscheck: not run (main "
+            "phase not run)")
+    else:
+        spec = ExperimentSpec(workloads=("theta",), scale=1.0, seeds=2)
+        cc = crosscheck_cells(spec, "theta", fused, n_cells=4, rng_seed=0,
+                              verbose=False)
+        for c in cc["cells"]:
+            log(f"[experiment:f] theta scale 1.0 {c['cell']}: within "
+                f"tolerance {c['within_tolerance']}; " + "; ".join(
+                    f"{k} des {v['des']:.4f} torch {v['torch']:.4f} rel "
+                    f"{v['abs_err'] / max(abs(v['des']), 1e-9):.4f}"
+                    for k, v in c["deltas"].items()))
+        log(f"[experiment:f] theta scale 1.0: 4 cells, DES seconds "
+            f"{cc['seconds']:.2f}, all within tolerance "
+            f"{cc['all_within_tolerance']} (reported, not gated)")
+        out["f"] = cc
+    report["experiment"] = out
+
+
 def phase_profile(report):
     """Opt-in (``--phases env,profile``): a torch.profiler trace of a small
     theta grid (scale 0.1, 1 seed, fused) -- the device's busy share of the
@@ -1607,10 +1836,11 @@ def phase_profile(report):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="env,parity,main,serve,registry,scale",
+                    default="env,parity,main,serve,registry,experiment,"
+                            "scale",
                     help="comma-separated subset of env,parity,main,serve,"
-                         "registry,scale (the default) and the opt-in "
-                         "waterfill, waterfill-plans and profile")
+                         "registry,experiment,scale (the default) and the "
+                         "opt-in waterfill, waterfill-plans and profile")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -1646,6 +1876,8 @@ def main(argv=None) -> int:
             phase_llm_kernels_at_serve_shape(report)
         if "registry" in phases:
             phase_registry(report, time.monotonic() - t_start)
+        if "experiment" in phases:
+            phase_experiment(report)
         if "scale" in phases:
             phase_scale(report, time.monotonic() - t_start)
         if "waterfill" in phases:

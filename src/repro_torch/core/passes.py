@@ -1,9 +1,18 @@
-"""The masked fixed-shape scheduling pass (paper §2.1 Steps 1-3) in PyTorch.
+"""The scheduling passes (paper §2.1 Steps 1-3): numpy DES and PyTorch.
 
-The port of ``repro.core.passes`` family 3, the pass the batched engine runs
-once per scan step: slot arrays are ``(..., W)`` in queue order, leading
-axes are lanes, and every phase is a masked cumulative sum, reduction or
-integer/float bisection -- no sort on the reference path.
+The port of ``repro.core.passes``, in its three families:
+
+1. the exact argsort redistribution (:func:`greedy_shrink`,
+   :func:`greedy_expand`, :func:`balanced_shrink`, :func:`balanced_expand`)
+   and
+2. the exact sequential EASY backfill (:func:`fcfs_prefix_exact`,
+   :func:`easy_reservation_exact`, :func:`easy_backfill_scan_exact`) are
+   numpy copies of the reference's, consumed by the host DES
+   (:mod:`repro_torch.core.simulator`) with ``xp=np``;
+3. the masked fixed-shape pass in PyTorch, the one the batched engine runs
+   once per scan step: slot arrays are ``(..., W)`` in queue order, leading
+   axes are lanes, and every phase is a masked cumulative sum, reduction or
+   integer/float bisection -- no sort on the reference path.
 
 Every structure of the strategy registry runs here: ``greedy`` (EASY / MIN
 / PREF / KEEPPREF), ``balanced`` (AVG), ``pooled`` (PREF_COMMON_POOL: a
@@ -43,17 +52,20 @@ as in JAX with x64 off.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
 
 from .jobs import QUEUED, RUNNING
+from .speedup import amdahl_speedup
 from .strategies import STRUCTURES
 
 I32 = torch.int32
 F32 = torch.float32
 
+_BISECT_ITERS = 24  # family 1's level bisection: 2^-24 resolution, exact
+                    # after integer rounding for any cluster size
 # Shadow-time bisection rounds: 26 halvings of [0, t_max] separate any two
 # distinct f32 end estimates over the traces' spans (same as the JAX pass).
 SHADOW_ITERS = 26
@@ -62,6 +74,9 @@ _SHADOW_EPS = 1e-3  # absolute slack on "finishes before the reservation"
 EXPAND_BACKENDS = ("fused", "waterfill", "bisect")
 
 
+# ======================================================================
+# Start policies (paper §2.1 Step 1 parameters, per strategy)
+# ======================================================================
 def start_policies(strategy, malleable, mn, pref, req, xp=np):
     """Per-job ``(want, floor, shrink_floor, prio_ref)`` policy arrays.
 
@@ -81,6 +96,177 @@ def start_policies(strategy, malleable, mn, pref, req, xp=np):
     return want, floor, sfloor, prio_ref
 
 
+# ======================================================================
+# 1. Exact argsort-based redistribution (Steps 2-3 reference semantics)
+# ======================================================================
+def _stable_argsort(key):
+    return np.argsort(key, kind="stable")
+
+
+def greedy_shrink(alloc, floor, priority, need, xp=np):
+    """Shrink jobs to ``floor`` in descending priority until >= need freed.
+
+    Returns the new allocation array.  Shrinks the *smallest number of jobs*:
+    jobs are fully lowered to floor in priority order; the marginal job is
+    lowered only as far as needed.  If total surplus < need, frees what it can.
+    """
+    alloc = xp.asarray(alloc)
+    surplus = xp.maximum(alloc - floor, 0)
+    order = _stable_argsort(-xp.asarray(priority))
+    s_sorted = surplus[order]
+    cum = xp.cumsum(s_sorted)
+    target = xp.minimum(xp.asarray(need, dtype=cum.dtype), cum[-1] if cum.shape[0] else 0)
+    prev = cum - s_sorted
+    amt_sorted = xp.clip(target - prev, 0, s_sorted)
+    amt = np.empty_like(np.asarray(s_sorted))
+    amt[np.asarray(order)] = amt_sorted
+    return alloc - amt.astype(alloc.dtype)
+
+
+def greedy_expand(alloc, cap, priority, idle, xp=np):
+    """Expand jobs to ``cap`` in ascending priority until idle exhausted."""
+    alloc = xp.asarray(alloc)
+    room = xp.maximum(cap - alloc, 0)
+    order = _stable_argsort(xp.asarray(priority))
+    r_sorted = room[order]
+    cum = xp.cumsum(r_sorted)
+    target = xp.minimum(xp.asarray(idle, dtype=cum.dtype), cum[-1] if cum.shape[0] else 0)
+    prev = cum - r_sorted
+    amt_sorted = xp.clip(target - prev, 0, r_sorted)
+    amt = np.empty_like(np.asarray(r_sorted))
+    amt[np.asarray(order)] = amt_sorted
+    return alloc + amt.astype(alloc.dtype)
+
+
+def _level_targets_xp(level, mn, mx, xp):
+    """Integer allocation at relative level ``level`` in [0, 1]."""
+    span = (mx - mn) * 1.0  # promote to the backend's default float
+    return mn + xp.floor(level * span + 1e-9).astype(mn.dtype)
+
+
+def balanced_shrink(alloc, mn, mx, need, xp=np):
+    """AVG shrink: lower all jobs toward a common relative level.
+
+    Finds the largest level ``r`` such that shrinking every job to
+    ``min(alloc, mn + r (mx - mn))`` frees at least ``need`` nodes, then
+    returns excess (integer-rounding) capacity back to the jobs shrunk the
+    deepest, so exactly ``min(need, freeable)`` is freed.
+    """
+    alloc = xp.asarray(alloc)
+    freeable = xp.sum(xp.maximum(alloc - mn, 0))
+    need_eff = xp.minimum(xp.asarray(need, dtype=freeable.dtype), freeable)
+
+    lo = xp.zeros(()); hi = xp.ones(())
+    for _ in range(_BISECT_ITERS):
+        mid = 0.5 * (lo + hi)
+        t = xp.minimum(alloc, _level_targets_xp(mid, mn, mx, xp))
+        freed = xp.sum(alloc - t)
+        ok = freed >= need_eff           # level low enough to free need
+        lo = xp.where(ok, mid, lo)
+        hi = xp.where(ok, hi, mid)
+    t = xp.minimum(alloc, _level_targets_xp(lo, mn, mx, xp))
+    freed = xp.sum(alloc - t)
+    # Return integer-rounding excess to the most-shrunk jobs (largest delta).
+    excess = freed - need_eff
+    delta = alloc - t
+    giveback = greedy_expand(t, alloc, -delta, excess, xp=xp)
+    return giveback
+
+
+def balanced_expand(alloc, mn, mx, idle, xp=np):
+    """AVG expand: raise all jobs toward a common relative level."""
+    alloc = xp.asarray(alloc)
+    room = xp.sum(xp.maximum(mx - alloc, 0))
+    idle_eff = xp.minimum(xp.asarray(idle, dtype=room.dtype), room)
+
+    lo = xp.zeros(()); hi = xp.ones(())
+    for _ in range(_BISECT_ITERS):
+        mid = 0.5 * (lo + hi)
+        t = xp.maximum(alloc, xp.minimum(_level_targets_xp(mid, mn, mx, xp), mx))
+        used = xp.sum(t - alloc)
+        ok = used <= idle_eff
+        lo = xp.where(ok, mid, lo)
+        hi = xp.where(ok, hi, mid)
+    t = xp.maximum(alloc, xp.minimum(_level_targets_xp(lo, mn, mx, xp), mx))
+    used = xp.sum(t - alloc)
+    # Hand out the remaining few nodes to the least-utilized jobs first.
+    leftover = idle_eff - used
+    span = xp.maximum(mx - mn, 1)
+    balance = (t - mn) / span
+    return greedy_expand(t, mx, balance, leftover, xp=xp)
+
+
+# ======================================================================
+# 2. Exact sequential EASY backfill (Step 1, consumed by the numpy DES)
+# ======================================================================
+def fcfs_prefix_exact(want, floor, free: int):
+    """Start the FCFS queue prefix; each job takes ``min(want, free)``.
+
+    Stops at the first job whose ``floor`` does not fit.  Returns the
+    per-position allocations of started jobs and the remaining free nodes.
+    """
+    allocs = []
+    for w_, f_ in zip(want, floor):
+        if int(f_) > free:
+            break
+        a = int(min(int(w_), free))
+        allocs.append(a)
+        free -= a
+    return allocs, free
+
+
+def easy_reservation_exact(ests, release, free: int, head_floor: int
+                           ) -> Tuple[float, int]:
+    """EASY head reservation: ``(shadow, extra)`` from exact end estimates.
+
+    ``shadow`` is the earliest time the blocked head's ``head_floor`` nodes
+    accumulate (walltime-padded estimates, ascending-finish order);
+    ``extra`` is how many nodes beyond the head's need are free at that
+    moment — the pool backfill jobs running past ``shadow`` may draw from.
+    """
+    srt = np.argsort(ests, kind="stable")
+    cumfree = free + np.cumsum(np.asarray(release)[srt])
+    k = int(np.searchsorted(cumfree, head_floor))
+    k = min(k, len(ests) - 1)
+    return float(np.asarray(ests)[srt][k]), int(cumfree[k]) - int(head_floor)
+
+
+def easy_backfill_scan_exact(want, floor, wall_work, pfrac, t: float,
+                             shadow: float, extra: int, free: int,
+                             eps: float = 1e-9):
+    """EASY backfill scan over queued candidates (head excluded), in order.
+
+    A candidate is started at ``a = min(want, free)`` (falling back to
+    ``floor``) when it either finishes before ``shadow`` at that allocation
+    or fits inside the ``extra`` spare-node pool — the head's reservation
+    is never delayed.  Returns ``(starts, free, extra)`` where ``starts``
+    is a list of ``(candidate_index, alloc)``.
+    """
+    starts = []
+    for i in range(len(want)):
+        if free == 0:
+            break
+        floor_i = int(floor[i])
+        if floor_i > free:
+            continue
+        want_i = int(want[i])
+        for a_try in dict.fromkeys([min(want_i, free), floor_i]):
+            est = wall_work[i] / amdahl_speedup(float(a_try), pfrac[i])
+            if t + est <= shadow + eps:
+                pass  # finishes before the reservation
+            elif a_try <= extra:
+                extra -= a_try  # runs past shadow inside spare nodes
+            else:
+                continue
+            starts.append((i, a_try))
+            free -= a_try
+            break
+    return starts, free, extra
+
+
+# ======================================================================
+# 3. Masked fixed-shape vectorized passes (the batched engine)
+# ======================================================================
 class PassParams(NamedTuple):
     """Per-slot job/policy tensors for :func:`schedule_tick`, ``(..., W)``.
 

@@ -1,7 +1,7 @@
 """Speedup model and the batched rigid -> malleable transform (paper §2.2).
 
-The part of ``repro.core.speedup`` the batched engine needs, copied so the
-port imports nothing of ``repro``.  Each job follows an Amdahl curve
+The part of ``repro.core.speedup`` the batched engine and the DES need,
+copied so the port imports nothing of ``repro``.  Each job follows an Amdahl curve
 
     S(n) = 1 / ((1 - p) + p / n),        E(n) = S(n) / n,
 
@@ -95,6 +95,46 @@ def _seed_draws(workload: Workload, seed: int, config: TransformConfig):
     perm = rng.permutation(workload.n_jobs)
     e_ref = rng.uniform(*config.e_ref_range, size=workload.n_jobs)
     return perm, e_ref
+
+
+def transform_rigid_to_malleable(
+    workload: Workload,
+    proportion: float,
+    seed: int,
+    cluster_nodes: int,
+    config: TransformConfig = TransformConfig(),
+) -> Workload:
+    """Convert a random ``proportion`` of jobs to malleable variants.
+
+    Matches the paper's methodology (§2.3): the *same* workload is reused
+    across proportions; a pseudo-random seed selects which jobs become
+    malleable, and results are averaged over seeds.  Jobs pinned rigid by
+    a workload-class assignment (``job_class != CLASS_NORMAL``, see
+    :mod:`repro_torch.core.scenario`) are never converted: the selection still
+    consumes the same permutation prefix, so the malleable subset nests
+    across proportions and stays bit-identical to the batched transform.
+    """
+    if not 0.0 <= proportion <= 1.0:
+        raise ValueError(f"proportion must be in [0,1], got {proportion}")
+    w = workload.copy()
+    n = w.n_jobs
+    perm, e_ref = _seed_draws(w, seed, config)
+    k = int(round(proportion * n))
+    chosen = perm[:k]
+    chosen = chosen[workload.transformable[chosen]]
+
+    p, mn, pref, mx = _malleable_ranges(w.nodes_req, e_ref, cluster_nodes,
+                                        config)
+
+    mask = np.zeros(n, dtype=bool)
+    mask[chosen] = True
+    w.malleable = mask
+    w.pfrac = np.where(mask, p, w.pfrac)
+    w.min_nodes = np.where(mask, mn, w.nodes_req)
+    w.max_nodes = np.where(mask, mx, w.nodes_req)
+    w.pref_nodes = np.where(mask, pref, w.nodes_req)
+    w.validate(cluster_nodes)
+    return w
 
 
 def batched_malleable_params(

@@ -12,10 +12,16 @@ back through :mod:`repro_torch.sweep.metrics`.  Only lanes that ran to
 completion are written to the cell store.  Each structure's batch runs as
 one monolithic chunk (lane sharding across cards is a later slice).
 
+Flight recorder (:mod:`repro_torch.obs`, off unless ``--trace`` asks):
+one ``sweep.execute`` span around each batch's ``simulate_lanes`` call,
+which ends in the host copies of its results, so the span adds no
+synchronise of its own; ``sweep.escalations`` counts window escalations.
+``options["progress"]`` prints a heartbeat line per structure batch.
+
 Backend options (results-neutral, not part of the spec): ``device``
 (``cuda`` unless ``"cpu"`` is asked for), ``expand_backend``
 (``fused`` | ``waterfill`` | ``bisect``; ``auto`` = fused on cuda),
-``window``, ``chunk``, ``max_steps_factor``, ``events``.
+``window``, ``chunk``, ``max_steps_factor``, ``events``, ``progress``.
 """
 from __future__ import annotations
 
@@ -24,7 +30,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from repro_torch import resolve_device
+from repro_torch import obs, resolve_device
 from repro_torch.core import DONE, get_strategy
 from repro_torch.sweep.batch import (EngineConfig, build_lanes, concat_lanes,
                                      simulate_lanes)
@@ -44,7 +50,8 @@ def run_cells(spec: ExperimentSpec,
 
     Returns ``(metrics, info)``: per-(workload, cell) metric dicts (with the
     ``sched_*`` scheduling counters) and an info dict of per-structure
-    lanes / steps / peak window, wall seconds and incomplete cells.
+    lanes / steps / peak window, wall seconds, the cells computed and the
+    incomplete ones (cut off by the step budget: returned, never stored).
     """
     opts = options or {}
     device = resolve_device(opts.get("device"))
@@ -60,6 +67,10 @@ def run_cells(spec: ExperimentSpec,
                                "execute_s": 0.0, "escalations": 0,
                                "compressed_events": 0, "sched_steps": 0,
                                "device": str(device)}
+    heartbeat = obs.Heartbeat(len(groups),
+                              label=f"progress:{'+'.join(names)}",
+                              unit="batch",
+                              enabled=bool(opts.get("progress")))
     for structure, group in groups.items():
         # group is workload-major, matching the per-name lane stacking
         group.sort(key=lambda k: names.index(k[0]))
@@ -87,14 +98,18 @@ def run_cells(spec: ExperimentSpec,
                            expand_backend=opts.get("expand_backend", "auto"),
                            events=int(opts.get("events", 4)))
         t_run = time.monotonic()
-        res = simulate_lanes(big, cfg, verbose=verbose)
+        with obs.span("sweep.execute", structure=structure,
+                      lanes=big.n_lanes, jobs=big.n_jobs):
+            res = simulate_lanes(big, cfg, verbose=verbose)
         wall = time.monotonic() - t_run
+        obs.counter("sweep.escalations", int(res["escalations"]))
         per_lane = batched_metrics(res, big.submit, big.malleable,
                                    (np.asarray(t0s), np.asarray(t1s)),
                                    np.asarray(caps))
         shrink_ev = np.sum(res["shrink_ops"], axis=1)
         expand_ev = np.sum(res["expand_ops"], axis=1)
         lane_done = np.all(res["state"] == DONE, axis=1)
+        flushed = 0
         for i, (key, m) in enumerate(zip(group, per_lane)):
             m["sched_backfill_starts"] = float(res["bf_starts"][i])
             m["sched_shrink_events"] = float(shrink_ev[i])
@@ -104,6 +119,7 @@ def run_cells(spec: ExperimentSpec,
             if bool(lane_done[i]):
                 if store is not None:
                     store.put(fingerprints[key], m)
+                    flushed += 1
             else:
                 info["incomplete"].append(key)
         info["chunks"].append({
@@ -121,6 +137,7 @@ def run_cells(spec: ExperimentSpec,
         info[f"{structure}_lanes"] = len(group)
         info[f"{structure}_steps"] = int(res["steps"])
         info[f"{structure}_window"] = int(res["window"])
+        heartbeat.tick(cells_flushed=flushed, extra=structure)
         if not res["finished"] and verbose:
             print(f"[experiment-torch:{'+'.join(names)}] WARNING: "
                   f"{structure} batch hit the step budget with unfinished "

@@ -1,16 +1,20 @@
 """Argparse wiring of the port's grid CLI: flags <-> :class:`ExperimentSpec`.
 
-The port of ``repro.experiments.cli``'s spec and scenario flags, so every
-strategy of the registry and every scenario axis can be asked for from
-``python -m repro_torch.experiments``.  The port's only engine is
-``torch``, so there is no ``--engine``; of the execution knobs it takes
-``--window``, ``--events`` and ``--chunk``, which never change results and
-never enter a fingerprint.
+The port of ``repro.experiments.cli``: the spec and scenario flags, so
+every strategy of the registry and every scenario axis can be asked for
+from ``python -m repro_torch.experiments``, ``--engine {torch,des}``, and
+the backend knobs that never change results and never enter a
+fingerprint: ``--device``, ``--expand-backend``, ``--window``,
+``--events``, ``--chunk`` (torch), ``--workers`` (des), the cell store
+(``--cache-dir``) and the flight recorder (``--trace``, ``--trace-jsonl``,
+``--progress``).  The reference's ``--chunk-lanes`` / ``--devices`` (lane
+sharding) and ``--no-aot-warmup`` (XLA) have no counterpart yet.
 """
 from __future__ import annotations
 
 import argparse
 
+from repro_torch import obs
 from repro_torch.core import CLUSTERS
 from repro_torch.core.scenario import (DEFAULT_BACKFILL_DEPTH,
                                        DEFAULT_WALLTIME_SEED, WALLTIME_DISTS,
@@ -19,7 +23,7 @@ from repro_torch.core.strategies import (MALLEABLE_STRATEGY_NAMES,
                                          SWEEP_PROPORTIONS,
                                          registered_strategy_names)
 
-from .spec import ExperimentSpec
+from .spec import ENGINES, ExperimentSpec
 
 
 def add_spec_arguments(ap: argparse.ArgumentParser) -> None:
@@ -42,6 +46,10 @@ def add_spec_arguments(ap: argparse.ArgumentParser) -> None:
                     default=list(MALLEABLE_STRATEGY_NAMES),
                     choices=list(registered_strategy_names(
                         sweepable_only=True)))
+    ap.add_argument("--engine", choices=list(ENGINES), default="torch",
+                    help="torch: the batched engine on the card "
+                         "(default); des: the reference numpy DES on the "
+                         "host (cell-parallel)")
     add_scenario_arguments(ap)
 
 
@@ -104,12 +112,26 @@ def spec_from_args(args: argparse.Namespace) -> ExperimentSpec:
         seeds=args.seeds,
         proportions=tuple(args.proportions),
         strategies=tuple(args.strategies),
+        engine=args.engine,
         scenario=scenario_from_args(args),
     )
 
 
-def add_execution_arguments(ap: argparse.ArgumentParser) -> None:
-    """Engine knobs that never change results (never fingerprinted)."""
+def add_backend_arguments(ap: argparse.ArgumentParser) -> None:
+    """Knobs that never change results (never fingerprinted)."""
+    ap.add_argument("--cache-dir", default="",
+                    help="shared per-cell result store ('' = none)")
+    ap.add_argument("--workers", type=int, default=0,
+                    help="[des] cell-parallel worker processes (0/1 "
+                         "serial, -1 per CPU)")
+    ap.add_argument("--device", default=None,
+                    help="[torch] cuda (default) or cpu")
+    ap.add_argument("--expand-backend", default="auto",
+                    choices=["auto", "fused", "waterfill", "bisect"],
+                    help="[torch] the greedy pass: the CUDA tick kernel "
+                         "(fused, auto's choice on cuda), the CUDA "
+                         "waterfill give, or the plain pass (bisect, the "
+                         "only one on the CPU)")
     ap.add_argument("--window", type=int, default=0,
                     help="active-set window ladder floor (0 = start at the "
                          "rung the lane statics predict)")
@@ -118,8 +140,47 @@ def add_execution_arguments(ap: argparse.ArgumentParser) -> None:
                          "compression; 1 disables)")
     ap.add_argument("--chunk", type=int, default=160,
                     help="scan steps between window compactions")
+    add_observability_arguments(ap)
 
 
-def execution_options_from_args(args: argparse.Namespace) -> dict:
-    return {"window": args.window, "events": args.events,
-            "chunk": args.chunk}
+def add_observability_arguments(ap: argparse.ArgumentParser) -> None:
+    """Flight-recorder flags (:mod:`repro_torch.obs`): results-neutral and
+    never fingerprinted; a run with tracing on writes the same cells as
+    one with it off."""
+    ap.add_argument("--trace", default="", metavar="PATH",
+                    help="write a Chrome trace-event JSON of the run "
+                         "(chrome://tracing or ui.perfetto.dev); enables "
+                         "span recording")
+    ap.add_argument("--trace-jsonl", default="", metavar="PATH",
+                    help="also write the spans and the final counters as "
+                         "JSON lines")
+    ap.add_argument("--progress", action="store_true",
+                    help="print a heartbeat line per structure batch "
+                         "(torch) / cell (des): done/total, cells "
+                         "flushed, ETA")
+
+
+def configure_observability(args: argparse.Namespace) -> None:
+    """Enable the process tracer when a ``--trace*`` flag asks for it."""
+    if args.trace or args.trace_jsonl:
+        obs.configure(enabled=True)
+
+
+def flush_observability(args: argparse.Namespace,
+                        verbose: bool = True) -> None:
+    """Write the trace files the ``--trace*`` flags ask for."""
+    if not (args.trace or args.trace_jsonl):
+        return
+    obs.flush(trace_path=args.trace or None,
+              jsonl_path=args.trace_jsonl or None)
+    if verbose:
+        for p in (args.trace, args.trace_jsonl):
+            if p:
+                print(f"[obs] wrote {p}")
+
+
+def backend_options_from_args(args: argparse.Namespace) -> dict:
+    return {"workers": args.workers, "device": args.device,
+            "expand_backend": args.expand_backend, "window": args.window,
+            "events": args.events, "chunk": args.chunk,
+            "progress": args.progress}

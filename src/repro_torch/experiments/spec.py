@@ -3,9 +3,12 @@
 The port of ``repro.experiments.spec``: an :class:`ExperimentSpec` names
 everything that determines a sweep's results (workloads, trace seed and
 scale, transform, strategies, proportions, seeds, scenario, engine) and
-nothing that doesn't (device, window and expand backend are backend
-options).  The port's only engine is ``"torch"``; its cell fingerprints
-carry that engine and the port's version (:mod:`repro_torch.sweep.cache`).
+nothing that doesn't (device, window, expand backend and worker count
+are backend options).  Its engines are ``"torch"``, the batched engine on
+the card, and ``"des"``, the reference numpy DES on the host; a cell's
+fingerprint carries the engine and its version
+(:mod:`repro_torch.sweep.cache`), so a ``des`` cell's key equals the JAX
+package's for the same cell.
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ import hashlib
 import json
 from typing import Dict, List, Tuple
 
+from repro_torch import obs
 from repro_torch.core import CLUSTERS, Window, apply_scenario, traces
 from repro_torch.core.cluster import Cluster
 from repro_torch.core.jobs import Workload
@@ -23,7 +27,7 @@ from repro_torch.core.strategies import (MALLEABLE_STRATEGY_NAMES,
                                          STRATEGIES, SWEEP_PROPORTIONS)
 from repro_torch.sweep.cache import cell_fingerprint, engine_version
 
-ENGINES = ("torch",)
+ENGINES = ("torch", "des")
 
 # A cell is (strategy_name, proportion, transform_seed).
 Cell = Tuple[str, float, int]
@@ -50,6 +54,14 @@ class ExperimentSpec:
         object.__setattr__(self, "proportions",
                            tuple(float(p) for p in self.proportions))
         object.__setattr__(self, "strategies", tuple(self.strategies))
+        if isinstance(self.scenario, dict):
+            object.__setattr__(self, "scenario",
+                               ScenarioConfig(**self.scenario))
+        if isinstance(self.transform, dict):
+            t = dict(self.transform)
+            if "e_ref_range" in t:
+                t["e_ref_range"] = tuple(t["e_ref_range"])
+            object.__setattr__(self, "transform", TransformConfig(**t))
         if not self.workloads:
             raise ValueError("spec needs at least one workload")
         for name in self.workloads:
@@ -129,6 +141,9 @@ def prepare_workload(spec: ExperimentSpec, name: str
     """Realize one workload of a spec: generate + scenario + window (the
     window is computed after the scenario transform)."""
     cl = CLUSTERS[name]
-    w = traces.generate(name, seed=spec.trace_seed, scale=spec.scale)
-    w = apply_scenario(w, spec.scenario)
+    with obs.span("trace.generate", workload=name, scale=spec.scale,
+                  seed=spec.trace_seed):
+        w = traces.generate(name, seed=spec.trace_seed, scale=spec.scale)
+    with obs.span("scenario.apply", workload=name, jobs=int(w.n_jobs)):
+        w = apply_scenario(w, spec.scenario)
     return cl, w, Window.for_workload(w)

@@ -3,6 +3,7 @@
 """
 import argparse
 import dataclasses
+import math
 import os
 import pathlib
 import subprocess
@@ -71,32 +72,53 @@ def test_module_runs_the_registry_axes_on_the_cpu():
         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")), timeout=600)
     assert out.returncode == 0, out.stderr
     lines = out.stdout.splitlines()
-    # easy and rigid_sjf once each, the two malleable strategies at five
-    # proportions, then the summary line
-    assert len(lines) == 13
-    assert sum("pref_common_pool" in ln for ln in lines) == 5
-    assert sum("steal_agreement" in ln for ln in lines) == 5
-    assert sum("rigid_sjf" in ln for ln in lines) == 1
-    assert "cells=12 incomplete=0" in lines[-1]
+    # the two malleable strategies at five proportions, rigid_sjf once
+    # (the EASY baseline is the "rigid" entry), then the summary line
+    assert sum("] pref_common_pool@" in ln for ln in lines) == 5
+    assert sum("] steal_agreement@" in ln for ln in lines) == 5
+    assert sum("] rigid_sjf (rigid" in ln for ln in lines) == 1
+    summary = [ln for ln in lines if " engine=torch wall " in ln]
+    assert len(summary) == 1
+    assert "computed=12 incomplete=0 device=cpu" in summary[0]
+
+
+def _steady(lines):
+    """Output without the run's wall clock and the window escalations
+    (which the ``--window`` floor changes by design)."""
+    return [ln for ln in lines
+            if " wall " not in ln and not ln.startswith("[sweep.batch]")]
 
 
 def test_execution_flags_reach_the_engine_and_change_no_result(
         capsys, monkeypatch):
     from repro_torch.experiments import __main__ as entry
-    seen = []
+    from repro_torch.experiments import backend_torch
+    seen, results = [], []
 
     def run_cells(*args, options, **kw):
         seen.append(options)
-        return real(*args, options=options, **kw)
-    real = entry.run_cells
-    monkeypatch.setattr(entry, "run_cells", run_cells)
+        out = real(*args, options=options, **kw)
+        results.append(out[0])
+        return out
+    real = backend_torch.run_cells
+    monkeypatch.setattr(backend_torch, "run_cells", run_cells)
     argv = REGISTRY_ARGS + ["--device", "cpu"]
     assert entry.main(argv) == 0
     default = capsys.readouterr().out.splitlines()
     assert entry.main(argv + ["--window", "32", "--chunk", "48",
                               "--events", "1"]) == 0
     knobs = capsys.readouterr().out.splitlines()
-    assert knobs[:-1] == default[:-1]
+    assert _steady(knobs) == _steady(default)
+    assert len(_steady(default)) == len(default) - 1
+    # every metric of every cell, at full precision, NaN equal to NaN
+    base, moved = results
+    assert base.keys() == moved.keys() and len(base) == 12
+    for key in base:
+        assert base[key].keys() == moved[key].keys(), key
+        for name, value in base[key].items():
+            other = moved[key][name]
+            assert value == other or (math.isnan(value)
+                                      and math.isnan(other)), (key, name)
     assert [(o["window"], o["chunk"], o["events"]) for o in seen] == [
         (0, 160, 4), (32, 48, 1)]
 
