@@ -7,8 +7,9 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, holds
 each against its plain PyTorch version on the card, drives the port's two
 main paths (the paper grid on the batched engine through
 ``repro_torch.experiments.backend_torch.run_cells`` and the experiment
-layer around it, ``python -m repro_torch.experiments``; and LLM serving
-through ``repro_torch.serve.engine.ServeEngine``) and prints what it saw.
+layer around it, ``python -m repro_torch.experiments``; the what-if query
+service, ``python -m repro_torch.serve``; and LLM serving through
+``repro_torch.serve.engine.ServeEngine``) and prints what it saw.
 Phases:
 
 1. environment: versions, the card's name and power limit, the build;
@@ -96,7 +97,26 @@ Phases:
    engine's methodology gap, which the port shares with the JAX engine.
    Each run prints its wall, cells computed, store hits, launches and
    DES seconds;
-7. scale: the greedy batch on haswell at scale 1.0 (the whole trace,
+7. whatif: the what-if query service (``repro_torch.serve``) in a fresh
+   temporary cell store outside the repository: (a) 16 seeded queries at
+   theta scale 1.0 (MIN, PREF, KEEPPREF, EASY; proportions 0.2 / 0.4 /
+   0.6 / 1.0; 2 seeds; 10 distinct cells) submitted from 4 client threads
+   into a paused engine (``fused``, ``max_batch`` 16): one coalesced
+   greedy batch, every query answered, the tick launched (counted from 0
+   just before), at least 2 queries deduplicated, and every answer equal
+   to ``run_cells``' cell (the main phase's, else one direct call); (b)
+   the same queries through ``python -m repro_torch.serve``'s
+   ``main(argv)`` with ``--expect-hits``: rc 0, every query a store hit,
+   no kernel launched; (c) ``serve_http`` on a free local port: a stored
+   cell's ``POST /whatif`` returns the storm's metrics, ``GET /stats`` and
+   ``/healthz`` answer 200, a bad strategy 400; (d) theta at scale 0.1, 1
+   seed, a greedy batch of FCFS and SJF lanes (the tick) and one of
+   on-demand class lanes (the waterfill give), each run monolithic, in
+   chunks of 2 lanes and split in 2 pieces on ``cuda:0`` (two threads):
+   per-cell metrics identical; and a storm at theta 0.02 (greedy and
+   balanced lanes) on the card equal to the same storm on the CPU bit for
+   bit.  Prints wall, batches, coalesce widths, steps and launches;
+8. scale: the greedy batch on haswell at scale 1.0 (the whole trace,
    28,259 jobs on 2,388 nodes) with ``fused``, tick launches counted from
    0 just before it; the tick kernel is then timed on the run's call at
    its peak window (B = 16, W = 16,384): single-call and device (CUDA
@@ -104,6 +124,16 @@ Phases:
    left in the smoke's 1,200 s limit not hold it at the rate this card
    ran the theta greedy batch, the scale is cut to
    the largest of 0.5 and 0.25 that fits, and the cut is printed.
+
+Opt-in, ``--phases env,paper-scale`` (give the call ``--timeout`` a few
+minutes above ``--paper-scale-budget``, 2,700 s by default): knl at scale
+1.0 (41,524 jobs on 9,688 nodes), 1 seed, EASY, MIN, PREF and KEEPPREF
+(16 cells) under fused and bisect, metrics identical; then eagle at scale
+1.0 (143,829 jobs on 2,568 nodes) through ``python -m
+repro_torch.experiments`` with ``--chunk-lanes 4`` and a cell store, and
+its ``--expect-cached`` rerun (every cell a hit, no launch).  The strategies
+are cut, and the cut printed, where the run predicted from knl's fused
+wall would not end inside the budget.
 
 Prints the kernels' JSON line, the ``nvidia-smi`` name / power-limit line
 and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
@@ -132,9 +162,10 @@ SPLIT_TF32_PASSES = 3
 PAPER_STRATEGIES = ("easy", "min", "pref", "avg", "keeppref")
 TIME_LIMIT_S = 1200.0
 # haswell at scale 1.0: scan steps of the greedy batch, and its wall per
-# step over the theta fused greedy batch's (PERF.md section 5)
+# step over the theta fused greedy batch's (1.25-1.36 on H100 runs;
+# PERF.md section 5)
 HASWELL_STEPS = 52_160
-HASWELL_STEP_RATIO = 1.25
+HASWELL_STEP_RATIO = 1.32
 # the registry phase at theta scale 0.1: scan steps of its batches that run
 # the plain pass, and the plain pass's wall per step over the theta fused
 # greedy batch's (PERF.md section 5)
@@ -645,6 +676,19 @@ def same_metrics(a, b) -> bool:
             if not (x == y or (math.isnan(x) and math.isnan(y))):
                 return False
     return True
+
+
+def metric_diffs(a, b, limit=4):
+    """The first ``limit`` (cell, metric, a, b) where ``a`` and ``b`` differ
+    (for failure messages)."""
+    out = []
+    for k in a:
+        for key in sorted(set(a[k]) | set(b.get(k, {}))):
+            x, y = a[k].get(key), b.get(k, {}).get(key)
+            if x is None or y is None or not (
+                    x == y or (math.isnan(x) and math.isnan(y))):
+                out.append((k, key, x, y))
+    return out[:limit]
 
 
 def check_cells(todo, metrics, info, label):
@@ -1806,6 +1850,436 @@ def phase_experiment(report):
     report["experiment"] = out
 
 
+# ---------------------------------------------- the what-if query service
+# (a)'s storm: 16 queries drawn by ``sample_queries`` (seed 0) over the
+# greedy-structured strategies; seed 0 draws 10 distinct cells, so 6
+# queries attach to a pending duplicate
+WHATIF_SAMPLE = dict(workloads=("theta",),
+                     strategies=("min", "pref", "keeppref", "easy"),
+                     proportions=(0.2, 0.4, 0.6, 1.0), seeds=2)
+WHATIF_QUERY_SEED = 0
+
+
+def whatif_argv(store, queries):
+    """``python -m repro_torch.serve`` argv asking ``queries`` of theta at
+    scale 1.0 against ``store`` on the card."""
+    argv = ["--workload", "theta", "--scale", "1.0", "--seeds", "2",
+            "--device", "cuda", "--cache-dir", str(store)]
+    for q in queries:
+        argv += ["--query", ",".join(f"{k}={v}"
+                                     for k, v in q.to_dict().items())]
+    return argv
+
+
+def whatif_storm(engine, queries, clients=4):
+    """Submit ``queries`` from ``clients`` threads into the paused
+    ``engine``, then start it: every miss lands in one admitted batch."""
+    import threading
+    futs = [None] * len(queries)
+
+    def client(idxs):
+        for i in idxs:
+            futs[i] = engine.submit(queries[i])
+
+    threads = [threading.Thread(target=client,
+                                args=(range(c, len(queries), clients),))
+               for c in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    engine.start()
+    return [f.result(timeout=900) for f in futs]
+
+
+def whatif_http(store, query, want):
+    """(c): ``serve_http`` on a free local port in a thread; a stored
+    cell's POST returns its metrics, /stats and /healthz answer, a bad
+    strategy is a 400."""
+    import threading
+    import urllib.error
+    import urllib.request
+    from repro_torch.serve import __main__ as smain
+    args = smain.build_parser().parse_args(whatif_argv(store, [])
+                                           + ["--max-wait-ms", "0"])
+    engine = smain.engine_from_args(args)
+    bound, ready = [], threading.Event()
+
+    def started(httpd):
+        bound.append(httpd)
+        ready.set()
+
+    thread = threading.Thread(target=smain.serve_http,
+                              args=(engine, "127.0.0.1", 0, started),
+                              daemon=True)
+    thread.start()
+    if not ready.wait(60):
+        raise AssertionError("whatif (c): the HTTP service did not start")
+    httpd = bound[0]
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    local = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+
+    def call(path, payload=None):
+        data = None if payload is None else json.dumps(payload).encode()
+        try:
+            with local.open(url + path, data=data, timeout=120) as r:
+                return r.status, json.loads(r.read())
+        except urllib.error.HTTPError as err:
+            return err.code, json.loads(err.read())
+
+    try:
+        code, body = call("/whatif", query.to_dict())
+        if code != 200 or body["metrics"] != want:
+            raise AssertionError(f"whatif (c): POST /whatif gave {code}, "
+                                 "metrics differ from the storm's")
+        stats = call("/stats")
+        health = call("/healthz")
+        bad = call("/whatif", {"strategy": "nope"})
+        if stats[0] != 200 or health != (200, {"ok": True}) or \
+                bad[0] != 400:
+            raise AssertionError(f"whatif (c): /stats {stats[0]}, /healthz "
+                                 f"{health}, bad strategy {bad[0]}")
+    finally:
+        httpd.shutdown()
+        thread.join(60)
+    return stats[1]
+
+
+# (d): theta at scale 0.1, 1 seed: a greedy batch of FCFS and SJF lanes
+# (the tick) and one of on-demand class lanes (the waterfill give), each
+# run monolithic, in chunks of 2 lanes and split in 2 pieces on one card
+WHATIF_PLANS = (("monolithic", {}), ("chunk_lanes=2", {"chunk_lanes": 2}),
+                ("devices=2 on cuda:0", {"devices": 2,
+                                         "device": "cuda:0"}))
+
+
+def whatif_plan_specs():
+    from repro_torch.core.scenario import JobClasses, ScenarioConfig
+    return (
+        ("fcfs+sjf", dict(proportions=(1.0,),
+                          strategies=("min", "keeppref", "rigid_sjf"))),
+        ("classes", dict(proportions=(1.0,),
+                         strategies=("pref", "rigid_sjf"),
+                         scenario=ScenarioConfig(job_classes=JobClasses(
+                             rigid=0.1, on_demand=0.1, malleable=0.8)))),
+    )
+
+
+def whatif_plans():
+    """(d): per-cell metrics identical under the three plans."""
+    import torch
+    from repro_torch.experiments.backend_torch import run_cells
+    from repro_torch.experiments.spec import ExperimentSpec
+    from repro_torch.kernels import build
+    out = {}
+    for name, spec_kw in whatif_plan_specs():
+        spec = ExperimentSpec(workloads=("theta",), scale=0.1, seeds=1,
+                              **spec_kw)
+        todo = [("theta", c) for c in spec.cells()]
+        runs = {}
+        for label, plan in WHATIF_PLANS:
+            torch.cuda.synchronize()
+            build.LAUNCH_COUNTS.clear()  # this run's launches start here
+            t0 = time.monotonic()
+            metrics, info = run_cells(
+                spec, todo, None, {}, verbose=False,
+                options={"device": "cuda", "expand_backend": "fused",
+                         **plan})
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            launches = {k: build.LAUNCH_COUNTS[k]
+                        for k in ("schedule_tick", "waterfill")}
+            check_cells(todo, metrics, info, f"whatif (d) {name} {label}")
+            chunks = [(c["lo"], c["hi"], c["lane_width"], c["devices"])
+                      for c in info["chunks"]]
+            log(f"[whatif:d] {name} {label}: {len(todo)} cells in "
+                f"{wall:.2f}s, chunks (lo, hi, width, devices) {chunks}, "
+                f"steps {sum(c['steps'] for c in info['chunks'])}, "
+                f"launches {launches}")
+            runs[label] = metrics
+            out[f"{name} {label}"] = {"wall_s": wall, "launches": launches,
+                                      "chunks": len(chunks)}
+            if not any(launches.values()):
+                raise AssertionError(f"whatif (d) {name} {label}: no "
+                                     "kernel launched")
+        base = runs["monolithic"]
+        for label, _plan in WHATIF_PLANS[1:]:
+            if not same_metrics(base, runs[label]):
+                raise AssertionError(
+                    f"whatif (d) {name}: {label} differs from the "
+                    f"monolithic run: {metric_diffs(base, runs[label])}")
+        log(f"[whatif:d] {name}: per-cell metrics identical under "
+            f"{' / '.join(label for label, _ in WHATIF_PLANS)}")
+    return out
+
+
+def whatif_card_vs_cpu():
+    """(d): a storm at theta 0.02 (greedy and balanced lanes) answered on
+    the card (fused) equals the same storm on the CPU bit for bit."""
+    from repro_torch.experiments.spec import ExperimentSpec
+    from repro_torch.serve.whatif import WhatIfEngine, sample_queries
+    spec = ExperimentSpec(workloads=("theta",), scale=0.02, seeds=2)
+    queries = sample_queries(1, 12, workloads=("theta",), seeds=2)
+    answers = {}
+    for device in ("cpu", "cuda"):
+        engine = WhatIfEngine(spec, max_batch=16, max_wait_s=0.0,
+                              start=False,
+                              backend_options={"device": device})
+        answers[device] = whatif_storm(engine, queries)
+        engine.close()
+    cpu, card = (dict(enumerate(answers[d])) for d in ("cpu", "cuda"))
+    if not same_metrics(cpu, card):
+        raise AssertionError("whatif (d): the theta 0.02 storm on the card "
+                             f"differs from the CPU's: "
+                             f"{metric_diffs(cpu, card)}")
+    log(f"[whatif:d] theta scale 0.02 storm, {len(queries)} queries "
+        f"({len({q.cell() for q in queries})} cells, greedy and balanced): "
+        "the card (fused) == the CPU (bisect), bit for bit")
+
+
+def phase_whatif(report):
+    """The what-if query service through its entry points: (a) a storm of
+    16 queries at theta scale 1.0 from 4 client threads, one coalesced
+    batch on the card, every answer equal to ``run_cells``' cell; (b) its
+    ``--expect-hits`` rerun through ``python -m repro_torch.serve``'s
+    ``main(argv)`` (100% store hits, no launch); (c) the HTTP service; (d)
+    chunked and split runs bit-identical to the monolithic one on the
+    card, and a small storm on the card equal to the CPU's."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch import obs
+    from repro_torch.experiments.backend_torch import run_cells
+    from repro_torch.experiments.spec import ExperimentSpec
+    from repro_torch.kernels import build
+    from repro_torch.serve import __main__ as smain
+    from repro_torch.serve.whatif import WhatIfEngine, sample_queries
+    out = {}
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="repro_torch_whatif_"))
+    try:
+        store = tmp / "store"
+        spec = ExperimentSpec(workloads=("theta",), scale=1.0, seeds=2)
+        queries = sample_queries(WHATIF_QUERY_SEED, 16, **WHATIF_SAMPLE)
+        engine = WhatIfEngine(spec, cache_dir=str(store), max_batch=16,
+                              max_wait_s=0.0, start=False,
+                              backend_options={"device": "cuda",
+                                               "expand_backend": "fused"})
+        obs.configure(enabled=True)
+        try:
+            torch.cuda.synchronize()
+            build.LAUNCH_COUNTS.clear()  # this path's launches start here
+            t0 = time.monotonic()
+            answers = whatif_storm(engine, queries)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            launches = {k: build.LAUNCH_COUNTS[k] for k in KERNEL_NAMES}
+            stats = engine.stats()
+            steps = int(obs.get_tracer().counters.get("serve.steps"))
+        finally:
+            engine.close()
+            obs.configure(enabled=False)
+            obs.get_tracer().reset()
+        log(f"[whatif:a] theta scale 1.0, {len(queries)} queries from 4 "
+            f"clients: wall {wall:.2f}s, {stats['batches']} batch(es) "
+            f"(width max {stats['max_batch_width']}, mean "
+            f"{stats['mean_batch_width']:.1f}), {stats['computed']} cells "
+            f"computed, {stats['dedup']} deduplicated, {steps} steps "
+            f"({1e3 * wall / max(steps, 1):.2f} ms/step), launches "
+            f"{ {k: v for k, v in launches.items() if v} or 'none'}")
+        if len(answers) != len(queries) or stats["failed"] or \
+                stats["batches"] != 1:
+            raise AssertionError(f"whatif (a): stats {stats}")
+        if not launches["schedule_tick"] or stats["dedup"] < 2:
+            raise AssertionError(f"whatif (a): launches {launches}, dedup "
+                                 f"{stats['dedup']}")
+        cells = {q.cell(): m for q, m in zip(queries, answers)}
+        want = dict(report.get("theta_fused") or {})
+        missing = [c for c in cells if c not in want]
+        if missing:
+            metrics, _ = run_cells(spec, [("theta", c) for c in missing],
+                                   None, {}, verbose=False,
+                                   options={"device": "cuda",
+                                            "expand_backend": "fused"})
+            want.update({c: metrics[("theta", c)] for c in missing})
+        if not same_metrics(cells, {c: want[c] for c in cells}):
+            raise AssertionError(
+                "whatif (a): answers differ from run_cells' cells: "
+                f"{metric_diffs(cells, {c: want[c] for c in cells})}")
+        log(f"[whatif:a] every answer equals run_cells' cell "
+            f"({len(cells) - len(missing)} from the main phase's grid, "
+            f"{len(missing)} from a direct run_cells call)")
+        out["a"] = {"wall_s": wall, "stats": stats, "steps": steps,
+                    "launches": launches}
+
+        torch.cuda.synchronize()
+        build.LAUNCH_COUNTS.clear()  # (b)'s launches start here
+        buf = io.StringIO()
+        t0 = time.monotonic()
+        with contextlib.redirect_stdout(buf):
+            rc = smain.main(whatif_argv(store, queries)
+                            + ["--clients", "4", "--expect-hits"])
+        wall_b = time.monotonic() - t0
+        launches_b = {k: build.LAUNCH_COUNTS[k] for k in KERNEL_NAMES}
+        summary = buf.getvalue().strip().splitlines()[-1]
+        log(f"[whatif:b] --expect-hits rerun: rc {rc}, wall {wall_b:.2f}s, "
+            f"{summary}; launches "
+            f"{ {k: v for k, v in launches_b.items() if v} or 'none'}")
+        if rc != 0 or any(launches_b.values()) or \
+                f"{len(queries)} queries: {len(queries)} hits" not in summary:
+            raise AssertionError(f"whatif (b): rc {rc}, launches "
+                                 f"{launches_b}")
+        out["b"] = {"wall_s": wall_b, "launches": launches_b}
+
+        build.LAUNCH_COUNTS.clear()
+        stats_c = whatif_http(store, queries[0], answers[0])
+        if any(build.LAUNCH_COUNTS.values()):
+            raise AssertionError("whatif (c): a stored cell launched "
+                                 f"{dict(build.LAUNCH_COUNTS)}")
+        log(f"[whatif:c] HTTP on a free local port: POST /whatif == the "
+            f"storm's answer (store hits {stats_c['store_hits']}), /stats "
+            "and /healthz 200, a bad strategy 400")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    out["d"] = whatif_plans()
+    whatif_card_vs_cpu()
+    report["whatif"] = out
+    for row in report.get("kernels", []):
+        if row["name"] == "schedule_tick":
+            row["whatif"] = {"launches": out["a"]["launches"][
+                "schedule_tick"], "steps": out["a"]["steps"]}
+
+
+# ------------------------------------ the paper's clusters at full scale
+PAPER_SCALE_BUDGET_S = 2700.0
+# knl at scale 1.0 on one H100 (700 W): the plain pass's wall per step
+# over the tick's (12.83 / 4.62 ms), and one 4-lane eagle chunk's wall over
+# knl's fused run (411-463 s / 185.7 s), with some margin; the predictions
+# that decide the cuts (PERF.md section 5)
+BISECT_STEP_RATIO = 3.0
+EAGLE_CHUNK_RATIO = 2.7
+PAPER_GREEDY = ("min", "pref", "keeppref")
+
+
+def paper_strategies(predict, left, label):
+    """The most greedy-structured strategies (all three, two, one) whose
+    predicted wall ``predict(strategies)`` fits in ``left`` seconds; the
+    cut is printed."""
+    for k in (3, 2, 1):
+        cut = PAPER_GREEDY[:k]
+        if predict(cut) <= left:
+            break
+    if cut != PAPER_GREEDY:
+        log(f"[paper-scale] {label}: CUT to strategies {cut} (predicted "
+            f"{predict(cut):.0f}s, {left:.0f}s left of the budget)")
+    return cut
+
+
+def phase_paper_scale(report, elapsed_s, budget_s):
+    """Opt-in (``--phases env,paper-scale``): knl at scale 1.0 (41,524
+    jobs on 9,688 nodes) under fused and bisect, metrics identical; eagle
+    at scale 1.0 (143,829 jobs on 2,568 nodes) through ``python -m
+    repro_torch.experiments`` with ``--chunk-lanes 4`` and a cell store,
+    then its ``--expect-cached`` rerun (all hits, no launch).  1 seed,
+    EASY and the greedy strategies; cut to fewer strategies, printed, when
+    the predicted wall would not end inside ``budget_s``."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.kernels import build
+    t_phase = time.monotonic()
+
+    def left():
+        return budget_s - elapsed_s - (time.monotonic() - t_phase)
+
+    out = {}
+    runs = {}
+    for backend in ("fused", "bisect"):
+        strategies = PAPER_GREEDY if backend == "fused" else \
+            paper_strategies(lambda s: runs["fused"]["wall_s"]
+                             * BISECT_STEP_RATIO, left(), "knl bisect")
+        torch.cuda.synchronize()
+        build.LAUNCH_COUNTS.clear()  # this run's launches start here
+        todo, metrics, info = run_grid(("knl",), 1.0, 1, backend, "cuda",
+                                       strategies=strategies)
+        torch.cuda.synchronize()
+        launches = {k: build.LAUNCH_COUNTS[k]
+                    for k in ("schedule_tick", "waterfill")}
+        check_cells(todo, metrics, info, f"knl/{backend}")
+        runs[backend] = {"wall_s": info["wall_s"], "cells": len(todo),
+                         "steps": info["greedy_steps"],
+                         "window": info["greedy_window"],
+                         "launches": launches, "metrics": metrics}
+        log(f"[paper-scale] knl scale 1.0 {backend}: {len(todo)} cells in "
+            f"{info['wall_s']:.2f}s; {info['greedy_steps']} steps "
+            f"({1e3 * info['wall_s'] / info['greedy_steps']:.2f} ms/step), "
+            f"peak window {info['greedy_window']}; launches {launches}")
+    fused, bisect = runs["fused"], runs["bisect"]
+    if not same_metrics({k: fused["metrics"][k] for k in bisect["metrics"]},
+                        bisect["metrics"]):
+        raise AssertionError("paper-scale: knl metrics differ between fused "
+                             "and bisect")
+    if not fused["launches"]["schedule_tick"] or \
+            any(bisect["launches"].values()):
+        raise AssertionError(f"paper-scale: knl launches fused "
+                             f"{fused['launches']} bisect "
+                             f"{bisect['launches']}")
+    log(f"[paper-scale] knl: the {bisect['cells']} cells of the bisect run "
+        "identical under fused and bisect")
+    out["knl"] = {b: {k: v for k, v in r.items() if k != "metrics"}
+                  for b, r in runs.items()}
+
+    def predict(strategies):
+        lanes = 1 + len(strategies) * 5  # EASY + 5 proportions a strategy
+        return fused["wall_s"] * EAGLE_CHUNK_RATIO * -(-lanes // 4)
+
+    strategies = paper_strategies(predict, left(), "eagle")
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="repro_torch_paper_"))
+    try:
+        argv = ["--workload", "eagle", "--scale", "1.0", "--seeds", "1",
+                "--strategies", *strategies, "--expand-backend", "fused",
+                "--chunk-lanes", "4", "--cache-dir", str(tmp / "store"),
+                "--out", str(tmp / "eagle.json")]
+        rc, wall, launches, _ = run_entry("eagle", argv)
+        res = artifact(tmp / "eagle.json")
+        eng = res["_engine"]
+        if rc != 0 or not launches["schedule_tick"] or \
+                eng["incomplete_cells"] or len(eng["chunks"]) < 2:
+            raise AssertionError(f"paper-scale: eagle rc {rc}, launches "
+                                 f"{launches}, incomplete "
+                                 f"{eng['incomplete_cells']}, chunks "
+                                 f"{len(eng['chunks'])}")
+        for c in eng["chunks"]:
+            log(f"[paper-scale] eagle chunk [{c['lo']}, {c['hi']}) width "
+                f"{c['lane_width']}: {c['wall_s']:.2f}s, {c['steps']} "
+                f"steps, window {c['window']}")
+        log(f"[paper-scale] eagle scale 1.0: {eng['computed_cells']} cells "
+            f"in {wall:.2f}s as {len(eng['chunks'])} chunks of 4 lanes; "
+            f"{eng['greedy_steps']} steps, peak window "
+            f"{eng['greedy_window']}; launches "
+            f"{ {k: v for k, v in launches.items() if v} }")
+        out["eagle"] = {"wall_s": wall, "launches": launches,
+                        "cells": eng["computed_cells"],
+                        "steps": eng["greedy_steps"],
+                        "window": eng["greedy_window"],
+                        "chunks": [{k: c[k] for k in (
+                            "lo", "hi", "lane_width", "wall_s", "steps",
+                            "window")} for c in eng["chunks"]]}
+        rc, wall, launches, _ = run_entry("eagle-cached",
+                                          argv + ["--expect-cached"])
+        if rc != 0 or any(launches.values()):
+            raise AssertionError(f"paper-scale: eagle --expect-cached rc "
+                                 f"{rc}, launches {launches}")
+        log(f"[paper-scale] eagle --expect-cached: rc 0, {wall:.2f}s, no "
+            "launch")
+        out["eagle"]["cached_wall_s"] = wall
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    report["paper_scale"] = out
+
+
 def phase_profile(report):
     """Opt-in (``--phases env,profile``): a torch.profiler trace of a small
     theta grid (scale 0.1, 1 seed, fused) -- the device's busy share of the
@@ -1837,10 +2311,16 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="env,parity,main,serve,registry,experiment,"
-                            "scale",
+                            "whatif,scale",
                     help="comma-separated subset of env,parity,main,serve,"
-                         "registry,experiment,scale (the default) and the "
-                         "opt-in waterfill, waterfill-plans and profile")
+                         "registry,experiment,whatif,scale (the default) "
+                         "and the opt-in waterfill, waterfill-plans, "
+                         "profile and paper-scale")
+    ap.add_argument("--paper-scale-budget", type=float,
+                    default=PAPER_SCALE_BUDGET_S, metavar="SECONDS",
+                    help="the paper-scale phase cuts its strategies so "
+                         "that the whole run is predicted to end inside "
+                         "this many seconds")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -1878,6 +2358,8 @@ def main(argv=None) -> int:
             phase_registry(report, time.monotonic() - t_start)
         if "experiment" in phases:
             phase_experiment(report)
+        if "whatif" in phases:
+            phase_whatif(report)
         if "scale" in phases:
             phase_scale(report, time.monotonic() - t_start)
         if "waterfill" in phases:
@@ -1886,6 +2368,9 @@ def main(argv=None) -> int:
             time_waterfill_plans(report)
         if "profile" in phases:
             phase_profile(report)
+        if "paper-scale" in phases:
+            phase_paper_scale(report, time.monotonic() - t_start,
+                              args.paper_scale_budget)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

@@ -5,10 +5,11 @@ every strategy of the registry and every scenario axis can be asked for
 from ``python -m repro_torch.experiments``, ``--engine {torch,des}``, and
 the backend knobs that never change results and never enter a
 fingerprint: ``--device``, ``--expand-backend``, ``--window``,
-``--events``, ``--chunk`` (torch), ``--workers`` (des), the cell store
-(``--cache-dir``) and the flight recorder (``--trace``, ``--trace-jsonl``,
-``--progress``).  The reference's ``--chunk-lanes`` / ``--devices`` (lane
-sharding) and ``--no-aot-warmup`` (XLA) have no counterpart yet.
+``--events``, ``--chunk``, ``--chunk-lanes`` (alias ``--max-lane-width``)
+and ``--devices`` (torch; shared with ``python -m repro_torch.serve``),
+``--workers`` (des), the cell store (``--cache-dir``) and the flight
+recorder (``--trace``, ``--trace-jsonl``, ``--progress``).  The
+reference's ``--no-aot-warmup`` is an XLA knob and has no counterpart.
 """
 from __future__ import annotations
 
@@ -124,6 +125,14 @@ def add_backend_arguments(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--workers", type=int, default=0,
                     help="[des] cell-parallel worker processes (0/1 "
                          "serial, -1 per CPU)")
+    add_execution_arguments(ap)
+    add_observability_arguments(ap)
+
+
+def add_execution_arguments(ap: argparse.ArgumentParser) -> None:
+    """The torch engine's results-neutral knobs: where and how the lanes
+    run (chunked and split runs give the same cells bit for bit), so none
+    of them ever enters a fingerprint."""
     ap.add_argument("--device", default=None,
                     help="[torch] cuda (default) or cpu")
     ap.add_argument("--expand-backend", default="auto",
@@ -140,7 +149,23 @@ def add_backend_arguments(ap: argparse.ArgumentParser) -> None:
                          "compression; 1 disables)")
     ap.add_argument("--chunk", type=int, default=160,
                     help="scan steps between window compactions")
-    add_observability_arguments(ap)
+    ap.add_argument("--chunk-lanes", "--max-lane-width", dest="chunk_lanes",
+                    type=int, default=0, metavar="N",
+                    help="[torch] max device-resident lanes per chunk; the "
+                         "batch streams as sequential chunks, each written "
+                         "to the cell store on completion so an interrupted "
+                         "run resumes chunk by chunk (0 = whole batch)")
+    ap.add_argument("--devices", type=int, default=0,
+                    help="[torch] split each chunk across N cards, one "
+                         "thread a card (0 = every visible card, 1 = no "
+                         "split)")
+
+
+def execution_options_from_args(args: argparse.Namespace) -> dict:
+    return {"device": args.device, "expand_backend": args.expand_backend,
+            "window": args.window, "events": args.events,
+            "chunk": args.chunk, "chunk_lanes": args.chunk_lanes,
+            "devices": args.devices}
 
 
 def add_observability_arguments(ap: argparse.ArgumentParser) -> None:
@@ -180,7 +205,5 @@ def flush_observability(args: argparse.Namespace,
 
 
 def backend_options_from_args(args: argparse.Namespace) -> dict:
-    return {"workers": args.workers, "device": args.device,
-            "expand_backend": args.expand_backend, "window": args.window,
-            "events": args.events, "chunk": args.chunk,
-            "progress": args.progress}
+    return {"workers": args.workers, "progress": args.progress,
+            **execution_options_from_args(args)}

@@ -25,7 +25,10 @@ library is read without the lock once it is loaded, the current stream's
 raw handle comes without building a ``torch.cuda.Stream`` object, and a
 device guard is entered only when the tensor is not on the current device.
 ``LAUNCH_COUNTS`` counts kernel launches by name; :func:`launch` adds one
-for each wrapper call that launches, and nothing else does.
+for each wrapper call that launches, and nothing else does.  Launches may
+come from several threads (the what-if service's dispatcher, one thread a
+card of a split chunk), so the count is taken under a lock; the first
+load is locked too, so any thread may be the one that builds.
 """
 from __future__ import annotations
 
@@ -56,6 +59,7 @@ BUILD_INFO: dict = {}
 
 _LIB = None
 _LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -202,4 +206,5 @@ def launch(name: str, t, entry: str, *args) -> None:
     if err != 0:
         msg = lib.repro_error_string(err).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg} ({err})")
-    LAUNCH_COUNTS[name] += 1
+    with _COUNT_LOCK:
+        LAUNCH_COUNTS[name] += 1

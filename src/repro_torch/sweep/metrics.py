@@ -9,6 +9,16 @@ covers a multi-workload batch; padding jobs (``submit = +inf``) fall
 outside every window.  Float sums reduce in another order than XLA's, so
 means and utilization agree with the JAX package to float32 rounding, not
 bit for bit; medians and counts are exact.
+
+The float sums are a fixed pairwise tree of elementwise adds over each
+row's nonzero terms in order (:func:`_tree_sum`), not a reduction
+kernel: a CUDA reduction's order follows the row's memory alignment, so a
+lane's mean moved with its position in the batch, a CPU reduction's
+order differs from a CUDA one's, and the busy timeline of the same
+schedule holds its zero-width entries at other columns under another
+chunk plan, step count or event compression.  With the tree, a cell's
+metrics are the same bits at any lane position, under any plan, in any
+coalesced what-if batch, on the card and on the CPU.
 """
 from __future__ import annotations
 
@@ -20,6 +30,24 @@ import torch
 from repro_torch import resolve_device
 
 F32 = torch.float32
+
+
+def _tree_sum(x):
+    """Row sums of ``x`` (B, n) that depend on each row's nonzero terms in
+    order and on nothing else: those move to the front (a stable sort),
+    the rows are padded with zeros to a power of two, then halved by
+    elementwise adds until one column is left (a zero added to a term
+    leaves it as it was)."""
+    keep = torch.argsort((x == 0).to(torch.int32), dim=-1, stable=True)
+    x = torch.gather(x, -1, keep)
+    n = x.shape[-1]
+    width = 1 << max(0, (n - 1).bit_length())
+    if width != n:
+        x = torch.nn.functional.pad(x, (0, width - n))
+    while x.shape[-1] > 1:
+        half = x.shape[-1] // 2
+        x = x[..., :half] + x[..., half:]
+    return x[..., 0]
 
 
 def _metrics_device(start, end, expand_ops, shrink_ops, submit, malleable,
@@ -37,7 +65,7 @@ def _metrics_device(start, end, expand_ops, shrink_ops, submit, malleable,
     turnaround = end - submit
 
     def mean(x):
-        m = torch.sum(torch.where(sel, x, 0.0), dim=-1) / some
+        m = _tree_sum(torch.where(sel, x, 0.0)) / some
         return torch.where(n_sel > 0, m, nan)
 
     def p50(x):
@@ -56,7 +84,7 @@ def _metrics_device(start, end, expand_ops, shrink_ops, submit, malleable,
                                    device=trace_t.device)], dim=-1)
     seg = torch.clamp(torch.minimum(t_next, t1[:, None])
                       - torch.maximum(trace_t, t0[:, None]), min=0.0)
-    integral = torch.sum(trace_busy.to(F32) * seg, dim=-1)
+    integral = _tree_sum(trace_busy.to(F32) * seg)
     util = integral / (capacity * torch.clamp(t1 - t0, min=1e-9))
 
     msel = sel & malleable

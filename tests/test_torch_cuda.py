@@ -299,3 +299,32 @@ def test_reduced_zamba2_engine_on_card_matches_cpu(cuda_device):
     assert out["cpu"] == out[cuda_device]
     assert all(build.LAUNCH_COUNTS[k] > 0
                for k in ("rmsnorm", "flash_attention", "ssd_scan"))
+
+
+@pytest.mark.cuda
+def test_lane_metrics_do_not_move_with_the_lane_position(cuda_device):
+    """A cell's metrics are the same bits at any lane position of a batch
+    on the card, and equal the CPU's (a CUDA reduction's order follows the
+    row's alignment; the metric sums are a fixed tree instead)."""
+    from repro_torch.sweep.metrics import batched_metrics
+    rng = np.random.default_rng(3)
+    n = 2550  # 10,200-byte rows: every other row starts 8 bytes off
+    w = Workload.rigid(submit=np.sort(rng.uniform(0, 5e4, n)),
+                       runtime=rng.uniform(60, 4e3, n),
+                       nodes_req=rng.choice([1, 2, 4, 8, 16], n))
+    lanes = [(STRATEGIES["easy"], 0.0, 0)] + [
+        (STRATEGIES[s], p, 0) for s in ("min", "pref", "keeppref")
+        for p in (0.2, 0.6, 1.0)]
+    perm = [9, 3, 0, 7, 5, 1, 8, 2, 6, 4]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        for order in (list(range(len(lanes))), perm):
+            batch, _ = build_lanes(w, 64, [lanes[i] for i in order],
+                                   device=dev)
+            res = simulate_lanes(batch, EngineConfig(expand_backend="bisect"))
+            m = batched_metrics(res, batch.submit, batch.malleable,
+                                (0.0, 5e4), 64)
+            out[(dev, tuple(order))] = {i: m[k] for k, i in enumerate(order)}
+    first = out[("cpu", tuple(range(len(lanes))))]
+    for key, got in out.items():
+        assert got == first, key
