@@ -22,7 +22,10 @@ Phases:
    bit-equal in every tier of its plan (31 x 128, 64 x 1,000, 64 x 4,097,
    132 x 2,048, 16 x 16,384, 1 x 16,384, a 143,829-slot 1-D row) for
    targets of 0, mid-row and above the row total, with and without
-   ``order``, and after the replays of a CUDA graph; then
+   ``order``, and after the replays of a CUDA graph; the 1-D
+   ``greedy_shrink_waterfill`` / ``greedy_expand_waterfill`` wrappers
+   bit-equal to the numpy redistribution (777 slots, 4 needs and 3
+   idles; a 143,829-slot row), one waterfill launch a call; then
    ``rmsnorm``, ``flash_attention`` and ``ssd_scan`` in f32 and bf16 at
    the serving path's zamba2-2.7b shapes, a ragged and a GQA shape
    (Hkv = 4, 8 groups), gemma3-4b's and glm4-9b's attention shapes (head
@@ -116,7 +119,23 @@ Phases:
    per-cell metrics identical; and a storm at theta 0.02 (greedy and
    balanced lanes) on the card equal to the same storm on the CPU bit for
    bit.  Prints wall, batches, coalesce widths, steps and launches;
-8. scale: the greedy batch on haswell at scale 1.0 (the whole trace,
+8. dense: the dense per-tick engine (``repro_torch.core.sim_dense``,
+   one scheduling pass a tick over whole job tensors), launches counted
+   from 0 before each run: (a) the 20-job workload of
+   ``tests/test_sim_jax.py`` on 10 nodes for 800 ticks under the 8
+   registry strategies, a class workload (10% rigid, 10% on-demand) and
+   an SJF run, under ``fused`` (and MIN under ``waterfill``), each equal
+   bit for bit in every field of ``SimState`` / ``SimTrace`` to
+   ``bisect`` on the CPU (run in worker processes meanwhile), one launch
+   a tick of the kernel the backend routes the pass to; (b) knl at scale
+   0.01 (415 jobs on 9,688 nodes, tick 10 s, 5,000 ticks): MIN at
+   proportions 0.2 / 0.6 / 1.0 as one ``simulate_scan_batch`` and EASY as
+   one ``simulate_dense`` lane under ``fused``: every job DONE, busy <=
+   9,688 nodes at every tick, 5,000 tick launches a run, the first 1,000
+   ticks equal to ``bisect``; wall, ms a tick and each lane's mean
+   turnaround beside the port's DES (not gated); the tick kernel timed on
+   the batch's 450th call (3 x 415 slots, priority bounds +-4 x 9,688);
+9. scale: the greedy batch on haswell at scale 1.0 (the whole trace,
    28,259 jobs on 2,388 nodes) with ``fused``, tick launches counted from
    0 just before it; the tick kernel is then timed on the run's call at
    its peak window (B = 16, W = 16,384): single-call and device (CUDA
@@ -501,6 +520,7 @@ def phase_parity(report):
                 f"{graph_ms(kern):.4f} ms, plain {cuda_median_ms(plain):.3f} "
                 "ms")
     waterfill_parity(gen, dev)
+    wrapper_parity(report)
 
 
 # every tier of the waterfill kernel's plan: warp (theta's 31 x 128), CTA
@@ -539,6 +559,56 @@ def waterfill_parity(gen, dev):
             f"{pl.k} slots, {pl.grid} CTAs): bit-equal for 3 targets with "
             f"and without order and after a CUDA-graph replay; device "
             f"{dev_ms[0]:.4f} ms, with order {dev_ms[1]:.4f} ms")
+
+
+def wrapper_parity(report):
+    """``greedy_shrink_waterfill`` / ``greedy_expand_waterfill`` (the
+    reference's ``greedy_*_pallas``) on the card equal the numpy
+    redistribution bit for bit, one waterfill launch a call:
+    ``tests/test_kernels.py``'s 777-slot case (4 needs, 3 idles) and one
+    143,829-slot row (the look-back tier; mid-row need and idle).  Keeps
+    the long row's shrink call for the kernels line."""
+    import numpy as np
+    import torch
+    from repro_torch.core.passes import greedy_expand, greedy_shrink
+    from repro_torch.kernels import build, waterfill
+    calls = 0
+    for n, seed in ((777, 17), (143_829, 18)):
+        rng = np.random.default_rng(seed)
+        alloc = rng.integers(1, 64, size=n).astype(np.int64)
+        floor = np.maximum(alloc - rng.integers(0, 32, size=n), 1)
+        cap = alloc + rng.integers(0, 32, size=n)
+        prio = rng.normal(size=n)
+        surplus, room = int((alloc - floor).sum()), int((cap - alloc).sum())
+        a, f, c, pr = (torch.from_numpy(x).cuda()
+                       for x in (alloc, floor, cap, prio))
+        cases = (("shrink", waterfill.greedy_shrink_waterfill, greedy_shrink,
+                  f, floor, (0, 100, 10_000, surplus) if n == 777
+                  else (surplus // 2,)),
+                 ("expand", waterfill.greedy_expand_waterfill, greedy_expand,
+                  c, cap, (0, 100, 10_000) if n == 777 else (room // 2,)))
+        for kind, fn, plain, bound_d, bound, amounts in cases:
+            for amount in amounts:
+                with Capture(waterfill, "waterfill") as kept:
+                    before = build.LAUNCH_COUNTS["waterfill"]
+                    got = fn(a, bound_d, pr, amount)
+                    torch.cuda.synchronize()
+                calls += 1
+                if build.LAUNCH_COUNTS["waterfill"] != before + 1:
+                    raise AssertionError(f"greedy {kind} over {n} slots "
+                                         "made other than one launch")
+                exp = plain(alloc, bound, prio, amount, xp=np)
+                if got.cpu().numpy().tobytes() != \
+                        exp.astype(np.int32).tobytes():
+                    raise AssertionError(f"greedy {kind} over {n} slots "
+                                         f"({amount}) differs from numpy")
+                if n > 777 and kind == "shrink":
+                    report["wrapper_call"] = kept.kept
+        log(f"[parity] greedy shrink / expand wrappers over {n} slots: "
+            f"bit-equal to the numpy redistribution for "
+            f"{len(cases[0][-1])} needs and {len(cases[1][-1])} idles, one "
+            f"waterfill launch a call")
+    report["wrapper_launches"] = calls
 
 
 def time_waterfill_shapes(report):
@@ -630,7 +700,8 @@ class Patch:
 
 
 class Capture(Patch):
-    """Wraps a kernel wrapper to keep one real main-path call's inputs.
+    """Wraps a kernel wrapper to keep one real main-path call's inputs
+    (the first and every ``every``-th, or only call number ``at``).
 
     It keeps references, not copies: the engine builds every tensor out of
     place and never writes into one it has passed on, so a kept call's
@@ -638,14 +709,15 @@ class Capture(Patch):
     the capture.
     """
 
-    def __init__(self, module, name, every=97):
+    def __init__(self, module, name, every=97, at=None):
         super().__init__(module, name)
-        self.every = every
+        self.every, self.at = every, at
         self.calls, self.kept = 0, None
 
     def __call__(self, *args, **kwargs):
         self.calls += 1
-        if self.kept is None or self.calls % self.every == 0:
+        if (self.calls == self.at if self.at else
+                self.kept is None or self.calls % self.every == 0):
             self.kept = (args, kwargs)
         return self.inner(*args, **kwargs)
 
@@ -888,6 +960,17 @@ def phase_kernels_at_main_shape(report):
         f"{t['device_ms']:.4f} ms (plain {t['plain_ms']:.4f} ms, bound "
         f"{t['bound_ms']:.6f} ms by {t['bound_by']}); bit-equal after a "
         f"CUDA-graph replay; {report['gpu']}")
+    if "wrapper_call" in report:
+        (cap, tgt), kw = report["wrapper_call"]
+        t = time_waterfill(cap, tgt, kw.get("order"))
+        t.update(replaces="src/repro/kernels/waterfill.py:74",
+                 launches=report["wrapper_launches"])
+        out[-1]["wrapper"] = t
+        log(f"[kernel] waterfill under greedy_shrink_waterfill, "
+            f"{cap.shape[0]} slots: {t['ms']:.4f} ms, device "
+            f"{t['device_ms']:.4f} ms (plain {t['plain_ms']:.4f} ms, bound "
+            f"{t['bound_ms']:.6f} ms by {t['bound_by']}); "
+            f"{report['gpu']}")
     report["kernels"] = out
 
 
@@ -1449,6 +1532,245 @@ def phase_llm_kernels_at_serve_shape(report):
                                     "library_ms", "device_ms",
                                     "library_device_ms", "shape")},
             "shapes": rows})
+
+
+# ------------------------------------------------- the dense per-tick engine
+# (a): tests/test_sim_jax.py's 20-job workload on 10 nodes and its horizon
+DENSE_TICKS = 800
+# (b): knl at scale 0.01 (415 jobs on 9,688 nodes, tick 10 s).  The first
+# multiple of 500 ticks at which every job is DONE under the JAX package's
+# repro.core.sim_jax.simulate_jax on the CPU, for MIN at proportions 0.2 /
+# 0.6 / 1.0 (simulate_scan_batch) and EASY (the last job ends at tick
+# 4,804 in both), measured once on the CPU; the smoke imports no JAX
+KNL_DENSE_TICKS = 5_000
+KNL_DENSE_PROPS = (0.2, 0.6, 1.0)
+KNL_BISECT_TICKS = 1_000
+DENSE_KEPT_CALL = 450
+# the registry's strategies, a class workload (10% rigid, 10% on-demand)
+# and an SJF run: (label, strategy, job classes, queue order)
+DENSE_RUNS = tuple((s, s, False, "fcfs") for s in (
+    "easy", "min", "pref", "avg", "keeppref", "steal_agreement",
+    "pref_common_pool", "rigid_sjf")) + (("classes", "pref", True, "fcfs"),
+                                         ("sjf", "min", False, "sjf"))
+# the runs whose pass takes the tick kernel under fused (greedy, no
+# classes); under waterfill they run the plain pass with the waterfill give
+# instead -- the route fused already gives the pooled, stealing and class
+# runs -- so waterfill reruns one of them, which holds the phase near 60 s
+# (a plain-pass tick costs ~10 ms of host dispatch on the card)
+DENSE_TICK_RUNS = ("easy", "min", "pref", "keeppref", "rigid_sjf", "sjf")
+DENSE_WATERFILL_RUNS = ("min",)
+
+
+def dense_small_workload(classes: bool):
+    """tests/test_sim_jax.py's workload (seed 0, 20 jobs, 60% malleable),
+    with 10% rigid and 10% on-demand jobs when ``classes``."""
+    import numpy as np
+    from repro_torch.core import (JobClasses, ScenarioConfig, Workload,
+                                  apply_scenario,
+                                  transform_rigid_to_malleable)
+    rng = np.random.default_rng(0)
+    w = Workload.rigid(submit=np.sort(rng.uniform(0, 150, 20)),
+                       runtime=rng.uniform(20, 120, 20),
+                       nodes_req=rng.choice([1, 2, 4, 8], 20))
+    if classes:
+        w = apply_scenario(w, ScenarioConfig(job_classes=JobClasses(
+            rigid=0.1, on_demand=0.1, malleable=0.8)))
+    return transform_rigid_to_malleable(w, 0.6, seed=0, cluster_nodes=10)
+
+
+def knl_dense_workloads():
+    """knl at scale 0.01 as the experiment layer realizes it, and its MIN
+    variants at :data:`KNL_DENSE_PROPS` (seed 0)."""
+    from repro_torch.core import transform_rigid_to_malleable
+    from repro_torch.experiments.spec import ExperimentSpec, prepare_workload
+    cl, w, _ = prepare_workload(ExperimentSpec(
+        workloads=("knl",), scale=0.01, seeds=1), "knl")
+    return cl, w, [transform_rigid_to_malleable(w, p, 0, cl.nodes)
+                   for p in KNL_DENSE_PROPS]
+
+
+def dense_run(job, device, backend, n_ticks=None):
+    """One run of the dense phase: ``("small", label)`` of
+    :data:`DENSE_RUNS`, or ``("knl", "min" | "easy")``; returns (state,
+    trace) on ``device``."""
+    from repro_torch.core import STRATEGIES
+    from repro_torch.core.sim_dense import (JobArrays, simulate_dense,
+                                            simulate_scan_batch)
+    kind, label = job
+    if kind == "small":
+        _, name, classes, order = next(r for r in DENSE_RUNS
+                                       if r[0] == label)
+        return simulate_dense(dense_small_workload(classes), 10, 1.0,
+                              n_ticks or DENSE_TICKS, STRATEGIES[name],
+                              queue_order=order, device=device,
+                              expand_backend=backend)
+    cl, w, variants = knl_dense_workloads()
+    n_ticks = n_ticks or KNL_DENSE_TICKS
+    if label == "easy":
+        return simulate_dense(w, cl.nodes, cl.tick, n_ticks,
+                              STRATEGIES["easy"], device=device,
+                              expand_backend=backend)
+    jobs = JobArrays.stack([JobArrays.from_workload(v, device)
+                            for v in variants])
+    return simulate_scan_batch(jobs, STRATEGIES["min"], cl.nodes, cl.tick,
+                               n_ticks, expand_backend=backend)
+
+
+def dense_reference(job, n_ticks=None):
+    """``bisect`` on the CPU of one dense run, as numpy arrays (run in a
+    worker process while the card runs)."""
+    import torch
+    torch.set_num_threads(1)
+    st, tr = dense_run(job, "cpu", "bisect", n_ticks)
+    return [t.numpy() for t in (*st, *tr)]
+
+
+def dense_equal(ref, st, tr, label):
+    """Every field of the card's ``(SimState, SimTrace)`` equal to the CPU
+    reference's, byte for byte (NaN times of unstarted jobs included)."""
+    fields = st._fields + tr._fields
+    for name, r, g in zip(fields, ref, (*st, *tr)):
+        g = g.cpu().numpy()
+        if r.dtype != g.dtype or r.tobytes() != g.tobytes():
+            raise AssertionError(f"dense {label}: {name} on the card differs "
+                                 f"from bisect on the CPU")
+
+
+def dense_launches(build):
+    return {k: build.LAUNCH_COUNTS[k] for k in ("schedule_tick",
+                                                "waterfill")}
+
+
+def phase_dense(report):
+    """The dense per-tick engine (``repro_torch.core.sim_dense``): (a)
+    card == CPU on the registry's runs, (b) knl at scale 0.01 under
+    ``fused``, its first 1,000 ticks equal to ``bisect``; launches counted
+    from 0 before each run."""
+    import concurrent.futures
+    import contextlib
+    import multiprocessing
+    import numpy as np
+    import torch
+    from repro_torch.core import DONE, STRATEGIES, simulate
+    from repro_torch.kernels import build, schedule_tick
+    t_phase = time.monotonic()
+    small = [("small", r[0]) for r in DENSE_RUNS]
+    knl = [("knl", "min"), ("knl", "easy")]
+    with concurrent.futures.ProcessPoolExecutor(
+            max_workers=4,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        refs = {job: pool.submit(dense_reference, job) for job in small}
+        refs.update({job: pool.submit(dense_reference, job, KNL_BISECT_TICKS)
+                     for job in knl})
+
+        # (a) every run under fused, the tick runs' route under waterfill;
+        # each is held to its CPU reference after the card runs, so no
+        # card run waits for a worker
+        held = []
+        for backend, labels in (("fused", [r[0] for r in DENSE_RUNS]),
+                                ("waterfill", DENSE_WATERFILL_RUNS)):
+            for label in labels:
+                torch.cuda.synchronize()
+                build.LAUNCH_COUNTS.clear()  # this run's launches start here
+                t0 = time.monotonic()
+                st, tr = dense_run(("small", label), "cuda", backend)
+                torch.cuda.synchronize()
+                wall = time.monotonic() - t0
+                got = dense_launches(build)
+                # one launch a tick: the tick kernel, or the plain pass's
+                # waterfill give; AVG's balanced pass launches nothing
+                kernel = (None if label == "avg" else "schedule_tick"
+                          if backend == "fused" and label in DENSE_TICK_RUNS
+                          else "waterfill")
+                want = {k: DENSE_TICKS if k == kernel else 0
+                        for k in ("schedule_tick", "waterfill")}
+                if got != want:
+                    raise AssertionError(f"dense {label} {backend}: "
+                                         f"launches {got}, expected {want}")
+                if not bool((st.state == DONE).all()):
+                    raise AssertionError(f"dense {label} {backend}: jobs "
+                                         "left undone")
+                held.append((("small", label), st, tr, f"{label} {backend}"))
+                log(f"[dense] (a) {label} {backend}: {DENSE_TICKS} ticks in "
+                    f"{wall:.2f}s ({1e3 * wall / DENSE_TICKS:.2f} ms a tick);"
+                    f" launches {got}")
+        skipped = [r[0] for r in DENSE_RUNS if r[0] in DENSE_TICK_RUNS
+                   and r[0] not in DENSE_WATERFILL_RUNS]
+        log(f"[dense] (a) CUT: waterfill reruns {list(DENSE_WATERFILL_RUNS)}"
+            f" and not {skipped} (the same plain pass with the waterfill "
+            "give); the other runs take fused's route under waterfill")
+
+        # (b) knl 0.01: MIN at three proportions as one batch, EASY alone
+        cl, w, variants = knl_dense_workloads()
+        # a call just after the last arrival (tick 431), the queue full
+        kept = Capture(schedule_tick, "fused_schedule_tick",
+                       at=DENSE_KEPT_CALL)
+        dense = {}
+        for label in ("min", "easy"):
+            torch.cuda.synchronize()
+            build.LAUNCH_COUNTS.clear()  # this run's launches start here
+            t0 = time.monotonic()
+            with kept if label == "min" else contextlib.nullcontext():
+                st, tr = dense_run(("knl", label), "cuda", "fused")
+                torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            got = dense_launches(build)
+            busy = tr.busy.cpu().numpy()
+            if got != {"schedule_tick": KNL_DENSE_TICKS, "waterfill": 0}:
+                raise AssertionError(f"dense knl {label}: launches {got}")
+            if not bool((st.state == DONE).all()):
+                raise AssertionError(f"dense knl {label}: jobs left undone "
+                                     f"after {KNL_DENSE_TICKS} ticks")
+            if int(busy.max()) > cl.nodes:
+                raise AssertionError(f"dense knl {label}: {busy.max()} busy "
+                                     f"nodes of {cl.nodes}")
+            # the first 1,000 ticks under fused equal bisect's
+            st1, tr1 = dense_run(("knl", label), "cuda", "fused",
+                                 KNL_BISECT_TICKS)
+            held.append((("knl", label), st1, tr1,
+                         f"knl {label} first {KNL_BISECT_TICKS} ticks"))
+            for a, b in zip(tr, tr1):
+                if not torch.equal(a[..., :KNL_BISECT_TICKS], b):
+                    raise AssertionError(f"dense knl {label}: the trace's "
+                                         "first ticks differ between runs")
+            ends = st.end_t.cpu().numpy().reshape(-1, w.n_jobs)
+            lanes = [(label, p) for p in (KNL_DENSE_PROPS if label == "min"
+                                          else (0.0,))]
+            turn = []
+            for (s, p), end, v in zip(lanes, ends,
+                                      variants if label == "min" else [w]):
+                des = simulate(v, cl, STRATEGIES[s])
+                turn.append(f"{s}@{p}: {np.mean(end - w.submit):.1f} s "
+                            f"(DES {np.mean(des.end - w.submit):.1f} s)")
+            dense[label] = {"lanes": len(lanes), "wall_s": wall,
+                            "ms_per_tick": 1e3 * wall / KNL_DENSE_TICKS,
+                            "launches": got["schedule_tick"]}
+            log(f"[dense] (b) knl 0.01 {label} ({len(lanes)} x {w.n_jobs} "
+                f"jobs, {cl.nodes} nodes) fused: {KNL_DENSE_TICKS} ticks in "
+                f"{wall:.2f}s ({dense[label]['ms_per_tick']:.3f} ms a tick), "
+                f"every job DONE, busy <= {int(busy.max())}; launches {got}; "
+                "mean turnaround " + "; ".join(turn))
+        for job, st, tr, label in held:
+            dense_equal(refs[job].result(), st, tr, label)
+        log(f"[dense] (a) every run == bisect on the CPU bit for bit in "
+            f"every field; (b) knl's first {KNL_BISECT_TICKS} ticks under "
+            "fused == bisect on the CPU")
+    args, kw = kept.kept
+    t = time_tick(args, kw)
+    B, W = args[1].shape
+    t.update(shape=[B, W], launches=dense["min"]["launches"],
+             prio_bounds=[kw["prio_lo"], kw["prio_hi"]])
+    log(f"[kernel] schedule_tick at the dense knl call B={B} W={W} (priority"
+        f" bounds {kw['prio_lo']}..{kw['prio_hi']}): {t['ms']:.4f} ms, "
+        f"device {t['device_ms']:.4f} ms (plain {t['plain_ms']:.4f} ms, "
+        f"bound {t['bound_ms']:.6f} ms by {t['bound_by']}); bit-equal; "
+        f"{report['gpu']}")
+    for row in report.get("kernels", []):
+        if row["name"] == "schedule_tick":
+            row["dense"] = t
+            row["max_abs_err"] = max(row["max_abs_err"], t["max_abs_err"])
+    report["dense"] = dense
+    log(f"[dense] phase {time.monotonic() - t_phase:.1f}s; {report['gpu']}")
 
 
 def haswell_scale(report, elapsed_s):
@@ -2311,9 +2633,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="env,parity,main,serve,registry,experiment,"
-                            "whatif,scale",
+                            "whatif,dense,scale",
                     help="comma-separated subset of env,parity,main,serve,"
-                         "registry,experiment,whatif,scale (the default) "
+                         "registry,experiment,whatif,dense,scale (the "
+                         "default) "
                          "and the opt-in waterfill, waterfill-plans, "
                          "profile and paper-scale")
     ap.add_argument("--paper-scale-budget", type=float,
@@ -2360,6 +2683,8 @@ def main(argv=None) -> int:
             phase_experiment(report)
         if "whatif" in phases:
             phase_whatif(report)
+        if "dense" in phases:
+            phase_dense(report)
         if "scale" in phases:
             phase_scale(report, time.monotonic() - t_start)
         if "waterfill" in phases:

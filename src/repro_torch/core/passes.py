@@ -436,6 +436,14 @@ def check_backend(expand_backend: str, device: torch.device) -> None:
             "only 'bisect' runs on the CPU")
 
 
+def resolve_backend(expand_backend: str, device) -> str:
+    """``auto`` -> ``fused`` on cuda, ``bisect`` on the CPU; others checked."""
+    if expand_backend == "auto":
+        return "fused" if torch.device(device).type == "cuda" else "bisect"
+    check_backend(expand_backend, device)
+    return expand_backend
+
+
 def schedule_tick(p: PassParams, state, alloc, remaining, start_t, act,
                   capacity, t_now, *, structure: str = "greedy",
                   fill_rounds: int, prio_lo: int, prio_hi: int,

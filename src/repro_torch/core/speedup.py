@@ -1,7 +1,8 @@
-"""Speedup model and the batched rigid -> malleable transform (paper §2.2).
+"""Speedup model and the rigid -> malleable transform (paper §2.2).
 
-The part of ``repro.core.speedup`` the batched engine and the DES need,
-copied so the port imports nothing of ``repro``.  Each job follows an Amdahl curve
+A copy of ``repro.core.speedup`` (plus :func:`batched_malleable_params`, the
+batched engine's form of the transform), kept so the port imports nothing
+of ``repro``.  Each job follows an Amdahl curve
 
     S(n) = 1 / ((1 - p) + p / n),        E(n) = S(n) / n,
 
@@ -15,12 +16,14 @@ range follows from efficiency thresholds:
 
 capped by multiples of the rigid request and the cluster size.  The draws
 come from numpy's seeded generator, so cells are bit-identical to the JAX
-package's for the same (proportion, seed).
+package's for the same (proportion, seed).  :func:`progress_rate` is the
+simulators' rate of work, and :class:`TabulatedSpeedup` a roofline-derived
+S(n) table for ML jobs (beyond the paper).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -31,6 +34,10 @@ def amdahl_speedup(n, p):
     """S(n) for parallel fraction p (float64 numpy)."""
     n = np.maximum(np.asarray(n, dtype=np.float64), 1.0)
     return 1.0 / ((1.0 - p) + p / n)
+
+
+def amdahl_efficiency(n, p):
+    return amdahl_speedup(n, p) / np.maximum(np.asarray(n, dtype=np.float64), 1.0)
 
 
 def pfrac_for_reference_efficiency(n_ref, e_ref):
@@ -177,3 +184,53 @@ def batched_malleable_params(
         out["max_nodes"][b, chosen] = mx[chosen]
         out["pref_nodes"][b, chosen] = pref[chosen]
     return out
+
+
+# ----------------------------------------------------------------------
+# Rate helpers used by the simulators.  A job's total work is normalized to
+# 1.0; at allocation ``a`` it progresses at ``rate(a)`` fractions/second so
+# that running at the reference allocation reproduces the trace runtime:
+#     rate(a) = S(a) / (S(n_req) * runtime_ref).
+def progress_rate(alloc, pfrac, nodes_req, runtime):
+    s_ref = amdahl_speedup(nodes_req, pfrac)
+    s_cur = amdahl_speedup(alloc, pfrac)
+    return s_cur / (s_ref * np.asarray(runtime, dtype=np.float64))
+
+
+# ----------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class TabulatedSpeedup:
+    """Roofline-derived speedup table for ML jobs (beyond-paper).
+
+    ``nodes`` must be ascending; ``speedup`` is S(nodes[i]) relative to
+    nodes[0].  Lookup interpolates geometrically between entries.
+    """
+
+    nodes: Sequence[int]
+    speedup: Sequence[float]
+
+    def __call__(self, n) -> np.ndarray:
+        xs = np.log(np.asarray(self.nodes, dtype=np.float64))
+        ys = np.log(np.asarray(self.speedup, dtype=np.float64))
+        q = np.log(np.maximum(np.asarray(n, dtype=np.float64), 1.0))
+        return np.exp(np.interp(q, xs, ys))
+
+    @staticmethod
+    def from_roofline(
+        nodes: Sequence[int],
+        compute_s: float,
+        memory_s: float,
+        collective_s_per_node: Optional[Sequence[float]] = None,
+    ) -> "TabulatedSpeedup":
+        """Build S(n) from per-job roofline terms measured at n=1.
+
+        T(n) = max(compute_s / n, memory_s / n, coll(n)); collective term
+        defaults to a ring all-reduce model ~ 2*(n-1)/n * grad_bytes/link,
+        here abstracted as a provided per-n sequence.
+        """
+        ts = []
+        for i, n in enumerate(nodes):
+            coll = collective_s_per_node[i] if collective_s_per_node else 0.0
+            ts.append(max(compute_s / n, memory_s / n, coll))
+        s = [ts[0] / t for t in ts]
+        return TabulatedSpeedup(nodes=list(nodes), speedup=s)

@@ -42,11 +42,14 @@ from .report import (SCENARIO_AXES, axis_key, best_improvements,
 from .run import run_experiment, sweep_scenario_axis, write_artifact
 
 
-def main(argv=None) -> int:
-    """Run the experiment CLI; returns the exit code."""
+def main(argv=None, prog=None, epilog=None) -> int:
+    """Run the experiment CLI; returns the exit code.  ``prog`` / ``epilog``
+    let a delegating entry point (``python -m repro_torch.sweep``) keep its
+    own ``--help`` identity and document its own flags."""
     ap = argparse.ArgumentParser(
-        prog="python -m repro_torch.experiments",
+        prog=prog or "python -m repro_torch.experiments",
         description=__doc__.splitlines()[0],
+        epilog=epilog,
         formatter_class=argparse.RawDescriptionHelpFormatter)
     add_spec_arguments(ap)
     add_backend_arguments(ap)

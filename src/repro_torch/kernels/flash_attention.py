@@ -12,11 +12,13 @@ from __future__ import annotations
 
 import functools
 import math
+import sys
 from dataclasses import dataclass
 from typing import Optional
 
 import torch
 
+from . import KernelModule
 from .build import dtype_code, launch
 from .ref import attention_ref
 
@@ -126,3 +128,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                hkv, dh, int(q_offset), valid, int(window), int(bool(causal)),
                scale, p.n_split, code)
     return out
+
+
+# one name for the module and its wrapper: calling the module calls it
+sys.modules[__name__].__class__ = KernelModule

@@ -8,10 +8,12 @@ the CPU.  :func:`plan` picks the kernel's load width and CTA shape.
 from __future__ import annotations
 
 import functools
+import sys
 from typing import NamedTuple
 
 import torch
 
+from . import KernelModule
 from .build import dtype_code, launch
 from .ref import rmsnorm_ref
 
@@ -102,3 +104,7 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
         code = plan(d, x.dtype, scale.dtype, (xp | wp | op) % 16 == 0).code
         launch("rmsnorm", x, "repro_rmsnorm", xp, wp, op, rows, d, eps, code)
     return out
+
+
+# one name for the module and its wrapper: calling the module calls it
+sys.modules[__name__].__class__ = KernelModule

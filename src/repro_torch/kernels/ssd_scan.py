@@ -9,10 +9,12 @@ serves.
 from __future__ import annotations
 
 import functools
+import sys
 from dataclasses import dataclass
 
 import torch
 
+from . import KernelModule
 from .build import dtype_code, launch
 from .ref import ssd_ref
 
@@ -131,3 +133,7 @@ def ssd_scan(x, dt, a, b, c, *, chunk: int = 128, initial_state=None):
                None if scratch is None else scratch.data_ptr(), bsz, s, h, p,
                n, pl.chunk, pl.scan_ctas, code)
     return y, state
+
+
+# one name for the module and its wrapper: calling the module calls it
+sys.modules[__name__].__class__ = KernelModule

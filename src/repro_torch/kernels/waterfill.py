@@ -7,16 +7,22 @@ Replaces the JAX package's Pallas ``repro/kernels/waterfill.py::waterfill``.
 CPU; on either device it takes only what the kernel takes, and raises on
 anything else.  :func:`greedy_give_waterfill` is the greedy Step-3 give of
 the scheduling pass through it (``expand_backend="waterfill"``): one
-argsort and one launch.
+argsort and one launch.  :func:`greedy_shrink_waterfill` /
+:func:`greedy_expand_waterfill` are the numpy DES's ``greedy_shrink`` /
+``greedy_expand`` over it, one launch each.  The JAX package names these
+wrappers ``greedy_shrink_pallas`` / ``greedy_expand_pallas`` and the
+backend ``"pallas"``; the port says ``waterfill`` for both.
 """
 from __future__ import annotations
 
 import functools
 import operator
+import sys
 from typing import NamedTuple
 
 import torch
 
+from . import KernelModule
 from .build import launch, sm_count
 from .ref import waterfill_ref
 
@@ -196,3 +202,44 @@ def greedy_give_waterfill(prio, room, idle):
     """
     order = torch.argsort(prio, dim=-1, stable=True)
     return waterfill(room, idle, order=order)
+
+
+def greedy_shrink_waterfill(alloc, floor, priority, need):
+    """:func:`repro_torch.core.passes.greedy_shrink` over the waterfill
+    kernel (the reference's ``greedy_shrink_pallas``): each job gives up
+    its surplus over ``floor``, highest ``priority`` first (ties in slot
+    order), until ``need`` nodes are freed.  A row ``(N,)`` (or rows
+    ``(B, N)`` with one ``need`` each) on any device; one launch on
+    ``cuda``, the plain version on the CPU.  Returns the int32 allocation.
+    """
+    alloc = torch.as_tensor(alloc).to(I32)
+    surplus = torch.clamp(
+        alloc - torch.as_tensor(floor, device=alloc.device).to(I32), min=0)
+    prio = torch.as_tensor(priority, device=alloc.device)
+    order = torch.argsort(-prio, dim=-1, stable=True)
+    return alloc - waterfill(surplus, _target(need, alloc), order=order)
+
+
+def greedy_expand_waterfill(alloc, cap, priority, idle):
+    """:func:`repro_torch.core.passes.greedy_expand` over the waterfill
+    kernel (the reference's ``greedy_expand_pallas``): each job grows
+    toward ``cap``, lowest ``priority`` first (ties in slot order), until
+    ``idle`` nodes are spent.  Shapes and devices as
+    :func:`greedy_shrink_waterfill`."""
+    alloc = torch.as_tensor(alloc).to(I32)
+    room = torch.clamp(
+        torch.as_tensor(cap, device=alloc.device).to(I32) - alloc, min=0)
+    prio = torch.as_tensor(priority, device=alloc.device)
+    order = torch.argsort(prio, dim=-1, stable=True)
+    return alloc + waterfill(room, _target(idle, alloc), order=order)
+
+
+def _target(amount, alloc):
+    """A Python int as it is, a tensor as int32 on ``alloc``'s device."""
+    if torch.is_tensor(amount):
+        return amount.to(device=alloc.device, dtype=I32)
+    return amount
+
+
+# one name for the module and its wrapper: calling the module calls it
+sys.modules[__name__].__class__ = KernelModule

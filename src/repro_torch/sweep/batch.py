@@ -45,8 +45,9 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.jobs import DONE, PENDING, QUEUED, RUNNING, Workload
-from repro_torch.core.passes import (PassParams, speedup_f32, check_backend,
-                                     schedule_tick, start_policies)
+from repro_torch.core.passes import (PassParams, resolve_backend,
+                                     schedule_tick, speedup_f32,
+                                     start_policies)
 from repro_torch.core.scenario import DEFAULT_BACKFILL_DEPTH
 from repro_torch.core.speedup import (TransformConfig, amdahl_speedup,
                                       batched_malleable_params)
@@ -335,14 +336,6 @@ def _ladder_cover(ladder: Tuple[int, ...], need: int) -> int:
         if w >= need:
             return w
     return ladder[-1]
-
-
-def resolve_backend(expand_backend: str, device) -> str:
-    """``auto`` -> ``fused`` on cuda, ``bisect`` on the CPU; others checked."""
-    if expand_backend == "auto":
-        return "fused" if torch.device(device).type == "cuda" else "bisect"
-    check_backend(expand_backend, device)
-    return expand_backend
 
 
 @torch.inference_mode()

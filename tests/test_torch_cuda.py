@@ -171,6 +171,78 @@ def test_engine_on_card_matches_cpu(cuda_device, structure, lanes, backend):
                                       err_msg=key)
 
 
+def _dense_workload(classes=None):
+    """``tests/test_sim_jax.py``'s 20-job workload on 10 nodes."""
+    from repro_torch.core import (JobClasses, ScenarioConfig, apply_scenario,
+                                  transform_rigid_to_malleable)
+    rng = np.random.default_rng(0)
+    w = Workload.rigid(submit=np.sort(rng.uniform(0, 150, 20)),
+                       runtime=rng.uniform(20, 120, 20),
+                       nodes_req=rng.choice([1, 2, 4, 8], 20))
+    if classes:
+        w = apply_scenario(w, ScenarioConfig(job_classes=JobClasses(
+            rigid=0.1, on_demand=0.1, malleable=0.8)))
+    return transform_rigid_to_malleable(w, 0.6, seed=0, cluster_nodes=10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,classes,backend,kernel", [
+    ("min", False, "fused", "schedule_tick"),
+    ("rigid_sjf", False, "fused", "schedule_tick"),
+    ("pref_common_pool", False, "fused", "waterfill"),
+    ("pref", True, "fused", "waterfill"),
+    ("keeppref", False, "waterfill", "waterfill"),
+    ("avg", False, "waterfill", None)])
+def test_dense_engine_on_card_matches_cpu(cuda_device, name, classes,
+                                          backend, kernel):
+    """The dense per-tick engine on the card, through the kernel its
+    backend routes the pass to, equals ``bisect`` on the CPU bit for bit
+    in every field of ``SimState`` and ``SimTrace``."""
+    from repro_torch.core.sim_dense import simulate_dense
+    w = _dense_workload(classes)
+    cpu = simulate_dense(w, 10, 1.0, 800, STRATEGIES[name], device="cpu")
+    torch.cuda.synchronize()
+    build.LAUNCH_COUNTS.clear()
+    card = simulate_dense(w, 10, 1.0, 800, STRATEGIES[name],
+                          device=cuda_device, expand_backend=backend)
+    torch.cuda.synchronize()
+    for r, g in zip(cpu, card):
+        for f in r._fields:
+            assert torch.equal(_bits(getattr(r, f)),
+                               _bits(getattr(g, f).cpu())), f
+    launched = {k for k, v in build.LAUNCH_COUNTS.items() if v}
+    assert launched == ({kernel} if kernel else set())
+    if kernel == "schedule_tick":
+        assert build.LAUNCH_COUNTS[kernel] == 800
+
+
+@pytest.mark.cuda
+def test_greedy_wrappers_on_card_are_one_launch(cuda_device):
+    """``greedy_shrink_waterfill`` / ``greedy_expand_waterfill`` on the
+    card equal the numpy redistribution, one waterfill launch a call."""
+    from repro_torch.core.passes import greedy_expand, greedy_shrink
+    rng = np.random.default_rng(17)
+    n = 777
+    alloc = rng.integers(1, 64, size=n).astype(np.int64)
+    floor = np.maximum(alloc - rng.integers(0, 32, size=n), 1)
+    cap = alloc + rng.integers(0, 32, size=n)
+    prio = rng.normal(size=n)
+    a, f, c, pr = (torch.from_numpy(x).to(cuda_device)
+                   for x in (alloc, floor, cap, prio))
+    for need in (0, 100, 10_000, int((alloc - floor).sum())):
+        before = build.LAUNCH_COUNTS["waterfill"]
+        got = wf.greedy_shrink_waterfill(a, f, pr, need)
+        assert build.LAUNCH_COUNTS["waterfill"] == before + 1
+        exp = greedy_shrink(alloc, floor, prio, need, xp=np)
+        np.testing.assert_array_equal(got.cpu().numpy(),
+                                      exp.astype(np.int32))
+    for idle in (0, 100, 10_000):
+        got = wf.greedy_expand_waterfill(a, c, pr, idle)
+        exp = greedy_expand(alloc, cap, prio, idle, xp=np)
+        np.testing.assert_array_equal(got.cpu().numpy(),
+                                      exp.astype(np.int32))
+
+
 # ------------------------------------------------------------ LLM kernels
 LLM_TOL = {torch.float32: (2e-5, 2e-4), torch.bfloat16: (2e-2, 5e-2)}
 

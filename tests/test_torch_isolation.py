@@ -108,6 +108,23 @@ def test_entry_points_without_device_raise_on_a_cpu_box(no_card):
         main(["--workload", "theta", "--scale", "0.005", "--seeds", "1"])
 
 
+def test_dense_engine_and_sweep_alias_without_device_raise(no_card):
+    from repro_torch.core import STRATEGIES
+    from repro_torch.core.sim_dense import JobArrays, simulate_dense
+    from repro_torch.sweep.runner import main, sweep_workload_torch
+    w, _ = _small()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        simulate_dense(w, 4, 1.0, 10, STRATEGIES["min"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        JobArrays.from_workload(w)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        sweep_workload_torch("theta", scale=0.005, seeds=1, verbose=False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["--workload", "theta", "--scale", "0.005", "--seeds", "1"])
+    st, tr = simulate_dense(w, 4, 1.0, 10, STRATEGIES["min"], device="cpu")
+    assert st.state.device.type == "cpu" and tr.busy.shape == (10,)
+
+
 def test_llm_entry_points_without_device_raise_on_a_cpu_box(no_card):
     from repro_torch.configs import get_config
     from repro_torch.convert import cache_from_numpy, lm_params_from_numpy
