@@ -67,7 +67,22 @@ Phases:
    rate, 67 TFLOP/s) and one PyTorch call of the same function where there
    is one, single calls with CUDA events and device times alone (a CUDA
    graph of 20 calls) of the kernel and of that PyTorch call;
-5. registry: the rest of the strategy registry through ``run_cells``, on
+5. moe: the MoE family through the port's LLM layer, f32, random weights
+   from seed 0, launches counted from 0 just before each run: (a) reduced
+   olmoe-1b-7b and reduced deepseek-v2-236b, the same seeded weights on
+   the card and on the CPU, identical tokens and last logits within 1e-3;
+   (b) olmoe-1b-7b at full width and depth (16 MoE layers of 64 experts,
+   top-8): 6 requests of 64..512 prompt tokens, 16 new tokens each, 4
+   slots; (c) deepseek-v2-236b at full width cut to 2 layers (its dense
+   MLA layer and one MoE layer of 160 routed experts, top-6, and 2 shared
+   ones): one 512-token prompt and 5 decode steps.  Each run: every logit
+   finite, rmsnorm and flash_attention launched; prints parameters,
+   prefill s, decode ms per step, tokens and launches.  (d)
+   flash_attention at DeepSeek's prefill call (1 x 512 x 128 heads, keys
+   192, values 128) held to its plain version in f32 (the run's own call)
+   and bf16, and timed beside SDPA; rmsnorm at MLA's q_norm / kv_norm
+   calls (widths 1,536 and 512);
+6. registry: the rest of the strategy registry through ``run_cells``, on
    theta at scale 0.1 (255 jobs on 4,392 nodes, 1 seed, proportions 0.2 /
    0.6 / 1.0): SJF with MIN, KEEPPREF, PREF_COMMON_POOL and
    STEAL_AGREEMENT (greedy, pooled and stealing batches; 13 cells) under
@@ -82,7 +97,7 @@ Phases:
    as in phase 3; each batch's wall, steps, window and ms per step, and the
    SJF greedy step beside the main phase's FCFS one.  Cut to scale 0.05,
    printed, if the time left would not hold it;
-6. experiment: ``python -m repro_torch.experiments``'s ``main(argv)`` as
+7. experiment: ``python -m repro_torch.experiments``'s ``main(argv)`` as
    a user runs it, each group of runs in a fresh temporary directory
    outside the repository, kernel launches counted from 0 before each
    run: (a) haswell at scale 0.02, 2 seeds, ``--crosscheck 2
@@ -100,7 +115,7 @@ Phases:
    engine's methodology gap, which the port shares with the JAX engine.
    Each run prints its wall, cells computed, store hits, launches and
    DES seconds;
-7. whatif: the what-if query service (``repro_torch.serve``) in a fresh
+8. whatif: the what-if query service (``repro_torch.serve``) in a fresh
    temporary cell store outside the repository: (a) 16 seeded queries at
    theta scale 1.0 (MIN, PREF, KEEPPREF, EASY; proportions 0.2 / 0.4 /
    0.6 / 1.0; 2 seeds; 10 distinct cells) submitted from 4 client threads
@@ -113,13 +128,15 @@ Phases:
    no kernel launched; (c) ``serve_http`` on a free local port: a stored
    cell's ``POST /whatif`` returns the storm's metrics, ``GET /stats`` and
    ``/healthz`` answer 200, a bad strategy 400; (d) theta at scale 0.1, 1
-   seed, a greedy batch of FCFS and SJF lanes (the tick) and one of
+   seed (cut to 0.05, printed, if the time left would not hold it and the
+   dense and scale phases), a greedy batch of FCFS and SJF lanes (the tick)
+   and one of
    on-demand class lanes (the waterfill give), each run monolithic, in
    chunks of 2 lanes and split in 2 pieces on ``cuda:0`` (two threads):
    per-cell metrics identical; and a storm at theta 0.02 (greedy and
    balanced lanes) on the card equal to the same storm on the CPU bit for
    bit.  Prints wall, batches, coalesce widths, steps and launches;
-8. dense: the dense per-tick engine (``repro_torch.core.sim_dense``,
+9. dense: the dense per-tick engine (``repro_torch.core.sim_dense``,
    one scheduling pass a tick over whole job tensors), launches counted
    from 0 before each run: (a) the 20-job workload of
    ``tests/test_sim_jax.py`` on 10 nodes for 800 ticks under the 8
@@ -135,7 +152,7 @@ Phases:
    ticks equal to ``bisect``; wall, ms a tick and each lane's mean
    turnaround beside the port's DES (not gated); the tick kernel timed on
    the batch's 450th call (3 x 415 slots, priority bounds +-4 x 9,688);
-9. scale: the greedy batch on haswell at scale 1.0 (the whole trace,
+10. scale: the greedy batch on haswell at scale 1.0 (the whole trace,
    28,259 jobs on 2,388 nodes) with ``fused``, tick launches counted from
    0 just before it; the tick kernel is then timed on the run's call at
    its peak window (B = 16, W = 16,384): single-call and device (CUDA
@@ -190,6 +207,13 @@ HASWELL_STEP_RATIO = 1.32
 # greedy batch's (PERF.md section 5)
 REGISTRY_STEPS = 8_000
 REGISTRY_STEP_RATIO = 3.3
+# what-if (d) at theta scale 0.1: scan steps of its six runs, and their
+# wall per step over the theta fused greedy batch's (4.2 on H100 runs at
+# 3.84 and 5.34 ms a greedy step); the dense phase's wall in theta fused
+# greedy steps (13,570-15,000 on the same runs; PERF.md section 5)
+WHATIF_D_STEPS = 4_320
+WHATIF_D_STEP_RATIO = 4.2
+DENSE_GREEDY_STEPS = 15_000
 
 
 def log(msg: str) -> None:
@@ -1109,7 +1133,7 @@ def phase_llm_parity(report):
                 f" ms, plain {cuda_median_ms(plain):.4f} ms")
 
 
-def attention_rate(q, k, kw):
+def attention_rate(q, k, v, kw):
     """(operations per second, its name) of the route the kernel takes for
     this call: the decode variant computes on CUDA cores; the prefill
     variant on the tensor cores, in f32 as split TF32 (3 TF32 products per
@@ -1118,8 +1142,8 @@ def attention_rate(q, k, kw):
     from repro_torch.kernels.flash_attention import plan
     b, sq, h, d = q.shape
     p = plan(b, sq, k.shape[1], h, k.shape[2], d, q.element_size(),
-             causal=kw.get("causal", True), window=kw.get("window", 0),
-             q_offset=kw.get("q_offset", 0),
+             dv=v.shape[-1], causal=kw.get("causal", True),
+             window=kw.get("window", 0), q_offset=kw.get("q_offset", 0),
              kv_valid=kw.get("kv_valid_len") or k.shape[1])
     if p.variant == "decode":
         return FP32_OPS_PER_S, "f32 CUDA cores, 67 TFLOP/s"
@@ -1129,13 +1153,13 @@ def attention_rate(q, k, kw):
             "split TF32, 495 / 3 TFLOP/s")
 
 
-def attention_work(q, k, kw):
-    """(flops, bytes) an attention call needs: 4 * D flops per visible
-    (query, key) pair; q and the output once, and each K / V row up to
-    the last visible key once."""
+def attention_work(q, k, v, kw):
+    """(flops, bytes) an attention call needs: 2 * (D + Dv) flops per
+    visible (query, key) pair; q and the output once, and each K / V row
+    up to the last visible key once."""
     import numpy as np
     b, sq, h, d = q.shape
-    sk, hkv = k.shape[1], k.shape[2]
+    sk, hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
     lim = min(sk, kw.get("kv_valid_len") or sk)
     pos = kw.get("q_offset", 0) + np.arange(sq)
     hi = np.minimum(lim, pos + 1) if kw.get("causal", True) else \
@@ -1145,8 +1169,8 @@ def attention_work(q, k, kw):
     seen = np.maximum(hi - lo, 0)
     es = q.element_size()
     rows = int(hi.max() - lo.min()) if seen.any() else 0
-    return (4.0 * d * b * h * float(seen.sum()),
-            es * (2 * q.numel() + 2 * b * hkv * d * rows))
+    return (2.0 * (d + dv) * b * h * float(seen.sum()),
+            es * (b * sq * h * (d + dv) + b * hkv * (d + dv) * rows))
 
 
 def ssd_work(x, b, kw):
@@ -1262,8 +1286,8 @@ def serve(model, cfg, prompts, *, slots, max_len, new, device):
     return reqs, eng
 
 
-def serve_reduced_card_vs_cpu():
-    """Reduced zamba2 with the same seeded weights on the card (kernels)
+def serve_reduced_card_vs_cpu(arch: str = "zamba2-2.7b", tag="serve"):
+    """``arch`` reduced, with the same seeded weights on the card (kernels)
     and on the CPU (plain versions): identical greedy tokens, and the last
     position's logits of every finished sequence within 1e-3."""
     import copy
@@ -1271,7 +1295,8 @@ def serve_reduced_card_vs_cpu():
     from repro_torch.configs import get_config
     from repro_torch.models import decode as D
     from repro_torch.models.transformer import init_params
-    cfg = get_config("zamba2-2.7b").reduced()
+    cfg = get_config(arch).reduced()
+    name = arch.split("-")[0]
     cpu = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     card = copy.deepcopy(cpu).to(DEVICE)
     prompts = serve_prompts(cfg.vocab, 4, 5, 40, 1)
@@ -1279,7 +1304,7 @@ def serve_reduced_card_vs_cpu():
     r_cpu, _ = serve(cpu, cfg, prompts, device="cpu", **kw)
     r_card, eng = serve(card, cfg, prompts, device=DEVICE, **kw)
     if [r.out_tokens for r in r_cpu] != [r.out_tokens for r in r_card]:
-        raise AssertionError("reduced zamba2: tokens on the card differ "
+        raise AssertionError(f"reduced {name}: tokens on the card differ "
                              "from the CPU")
     err = 0.0
     for r in r_card:
@@ -1289,30 +1314,33 @@ def serve_reduced_card_vs_cpu():
                           dtype=torch.float32)
         err = max(err, float((lg.cpu() - lc).abs().max()))
     if not err <= 1e-3:
-        raise AssertionError(f"reduced zamba2: last logits differ by {err}")
-    log(f"[serve] reduced zamba2 (2 slots, 4 requests, {eng.steps} steps):"
+        raise AssertionError(f"reduced {name}: last logits differ by {err}")
+    log(f"[{tag}] reduced {name} (2 slots, 4 requests, {eng.steps} steps):"
         f" tokens on the card == the CPU; last logits within {err:.3g} "
         "(limit 1e-3)")
+    return err
 
 
-def serve_device_busy(model, cfg):
-    """The card's busy share in one full-width prefill (996 tokens) and one
-    decode step (8 slots at cache length 1,000): device time from a
-    torch.profiler trace over the wall time of the same calls unprofiled."""
+def serve_device_busy(model, cfg, *, prompt=996, slots=SERVE["slots"],
+                      max_len=SERVE["max_len"], cache_len=1000, tag="serve"):
+    """The card's busy share in one full-width prefill (``prompt`` tokens)
+    and one decode step (``slots`` slots at ``cache_len``): device time
+    from a torch.profiler trace over the wall time of the same calls
+    unprofiled."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import decode as D
     gen = torch.Generator().manual_seed(3)
-    toks = torch.randint(2, cfg.vocab, (1, 996), generator=gen).to(DEVICE)
-    last = torch.randint(2, cfg.vocab, (SERVE["slots"], 1),
+    toks = torch.randint(2, cfg.vocab, (1, prompt), generator=gen).to(DEVICE)
+    last = torch.randint(2, cfg.vocab, (slots, 1),
                          generator=gen).to(DEVICE)
-    cache = D.init_decode_cache(cfg, SERVE["slots"], SERVE["max_len"],
-                                torch.float32, DEVICE)
+    cache = D.init_decode_cache(cfg, slots, max_len, torch.float32, DEVICE)
     calls = {
         "prefill": (lambda: D.prefill(model, cfg, {"tokens": toks},
-                                      cache_size=SERVE["max_len"],
+                                      cache_size=max_len,
                                       dtype=torch.float32), 2),
-        "decode step": (lambda: D.decode_step(model, cfg, last, cache, 1000,
+        "decode step": (lambda: D.decode_step(model, cfg, last, cache,
+                                              cache_len,
                                               dtype=torch.float32), 5)}
     out = {}
     for name, (fn, reps) in calls.items():
@@ -1334,8 +1362,8 @@ def serve_device_busy(model, cfg):
         top = events[:6]
         out[name] = dict(wall_ms=1e3 * wall, device_ms=1e3 * dev,
                          busy=dev / wall, device_ops=n_dev)
-        log(f"[serve] {name}: {1e3 * wall:.2f} ms wall, device busy "
-            f"{1e3 * dev:.2f} ms ({100.0 * dev / wall:.1f}%), "
+        log(f"[{tag}] {cfg.name} {name}: {1e3 * wall:.2f} ms wall, device "
+            f"busy {1e3 * dev:.2f} ms ({100.0 * dev / wall:.1f}%), "
             f"{n_dev:.0f} device ops; top: " +
             "; ".join(f"{e.key[:40]} "
                       f"{e.self_device_time_total / 1e3 / reps:.2f} ms"
@@ -1462,76 +1490,247 @@ def serve_gemma3(report):
         f"launches {launches}")
 
 
-def phase_llm_kernels_at_serve_shape(report):
-    """Time each LLM kernel on the serve run's largest calls and hold it
-    against its plain version there (f32)."""
+def llm_kernel_row(kernel: str, label: str, args, kw, report, where: str,
+                   dtype: str = "float32"):
+    """One LLM kernel on one call's inputs: held to its plain version, then
+    single-call (CUDA events) and device (CUDA graph) times beside the
+    plain version, its bound and the library call."""
     import torch
-    out = report.setdefault("kernels", [])
-    for kernel, (source, replaces) in LLM_KERNELS.items():
-        rows = []
-        for label, (_size, args, kw) in sorted(
-                report["serve_kept"][kernel].items()):
-            kern, plain = llm_calls(kernel, args, kw)
-            got, ref = kern(), plain()
-            pairs = zip(got, ref) if kernel == "ssd_scan" else [(got, ref)]
-            err = max(close_err(g, r, LLM_TOL["float32"][kernel],
-                                f"{kernel} at the serve shape {label}")
-                      for g, r in pairs)
-            lib = library_call(kernel, args, kw)
-            if kernel == "rmsnorm":
-                x = args[0]
-                flops, nbytes = 4.0 * x.numel(), \
-                    2 * x.numel() * x.element_size() + 4 * x.shape[-1]
-            rate, rate_name = FP32_OPS_PER_S, "f32 CUDA cores, 67 TFLOP/s"
-            if kernel == "flash_attention":
-                flops, nbytes = attention_work(args[0], args[1], kw)
-                rate, rate_name = attention_rate(args[0], args[1], kw)
-            elif kernel == "ssd_scan":
-                flops, nbytes = ssd_work(args[0], args[3], kw)
-                rate, rate_name = ssd_rate(args[0])
-            b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            b_ops = flops / rate * 1e3
-            rows.append({
-                "label": label, "shape": list(args[0].shape),
-                "kwargs": {k: v for k, v in kw.items()
-                           if not torch.is_tensor(v)},
-                "max_abs_err": err, "ms": cuda_median_ms(kern),
-                "plain_ms": cuda_median_ms(plain),
-                "bound_ms": max(b_bytes, b_ops),
-                "bound_by": "bytes" if b_bytes >= b_ops else "operations",
-                "bound_rate": rate_name,
-                "bound_ms_f32_cuda_cores": max(
-                    b_bytes, flops / FP32_OPS_PER_S * 1e3),
-                "library_ms": None if lib is None else cuda_median_ms(lib)})
-            r = rows[-1]
-            # device time alone: the single-call times above include the
-            # wrapper's host work (PERF.md section 7)
-            r["device_ms"] = graph_ms(kern)
-            r["library_device_ms"] = None if lib is None else graph_ms(lib)
-            lib_dev = ("none" if lib is None
-                       else f"{r['library_device_ms']:.4f} ms")
-            log(f"[kernel] {kernel} {label} device time "
-                f"{r['device_ms']:.4f} ms, library {lib_dev} (CUDA graph "
-                f"of 20 calls; {report['gpu']})")
-            lib_txt = ("none" if r["library_ms"] is None
-                       else f"{r['library_ms']:.4f} ms")
-            log(f"[kernel] {kernel} at the serve shape {label} "
-                f"{r['shape']} {r['kwargs']}: {r['ms']:.4f} ms (plain "
-                f"{r['plain_ms']:.4f} ms, library {lib_txt}, bound "
-                f"{r['bound_ms']:.6f} ms by {r['bound_by']}, "
-                f"{r['bound_rate']}); max |err| {err:.3g}")
-        main = max(rows, key=lambda r: r["bound_ms"])
-        out.append({
-            "name": kernel, "route": "cuda", "source": source,
-            "replaces": replaces,
-            "launches": report["serve"]["launches"][kernel],
-            "max_abs_err": max([r["max_abs_err"] for r in rows]
-                               + [report.get("max_abs_err", {}).get(kernel,
-                                                                    0.0)]),
+    kern, plain = llm_calls(kernel, args, kw)
+    got, ref = kern(), plain()
+    pairs = zip(got, ref) if kernel == "ssd_scan" else [(got, ref)]
+    err = max(close_err(g, r, LLM_TOL[dtype][kernel],
+                        f"{kernel} at the {where} shape {label} {dtype}")
+              for g, r in pairs)
+    lib = library_call(kernel, args, kw)
+    if kernel == "rmsnorm":
+        x = args[0]
+        flops, nbytes = 4.0 * x.numel(), \
+            2 * x.numel() * x.element_size() + 4 * x.shape[-1]
+    rate, rate_name = FP32_OPS_PER_S, "f32 CUDA cores, 67 TFLOP/s"
+    if kernel == "flash_attention":
+        flops, nbytes = attention_work(*args, kw)
+        rate, rate_name = attention_rate(*args, kw)
+    elif kernel == "ssd_scan":
+        flops, nbytes = ssd_work(args[0], args[3], kw)
+        rate, rate_name = ssd_rate(args[0])
+    b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    b_ops = flops / rate * 1e3
+    r = {
+        "label": label, "shape": list(args[0].shape),
+        "kwargs": {k: v for k, v in kw.items() if not torch.is_tensor(v)},
+        "max_abs_err": err, "ms": cuda_median_ms(kern),
+        "plain_ms": cuda_median_ms(plain),
+        "bound_ms": max(b_bytes, b_ops),
+        "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+        "bound_rate": rate_name,
+        "bound_ms_f32_cuda_cores": max(
+            b_bytes, flops / FP32_OPS_PER_S * 1e3),
+        "library_ms": None if lib is None else cuda_median_ms(lib)}
+    if kernel == "flash_attention" and args[2].shape[-1] != args[0].shape[-1]:
+        r["value_dim"] = args[2].shape[-1]
+    if dtype != "float32":
+        r["dtype"] = dtype
+    # device time alone: the single-call times above include the
+    # wrapper's host work (PERF.md section 7)
+    r["device_ms"] = graph_ms(kern)
+    r["library_device_ms"] = None if lib is None else graph_ms(lib)
+    lib_dev = ("none" if lib is None
+               else f"{r['library_device_ms']:.4f} ms")
+    log(f"[kernel] {kernel} {label} {dtype} device time "
+        f"{r['device_ms']:.4f} ms, library {lib_dev} (CUDA graph "
+        f"of 20 calls; {report['gpu']})")
+    lib_txt = ("none" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f} ms")
+    log(f"[kernel] {kernel} at the {where} shape {label} {dtype} "
+        f"{r['shape']} {r['kwargs']}: {r['ms']:.4f} ms (plain "
+        f"{r['plain_ms']:.4f} ms, library {lib_txt}, bound "
+        f"{r['bound_ms']:.6f} ms by {r['bound_by']}, "
+        f"{r['bound_rate']}); max |err| {err:.3g}")
+    return r
+
+
+def llm_kernel_entry(kernel, rows, launches, err=0.0):
+    """The kernels line's entry of an LLM kernel from its timed ``rows``:
+    the numbers of its f32 row of the largest bound, ``launches`` from the
+    main path's run, and the largest f32 error of ``rows`` and ``err``."""
+    source, replaces = LLM_KERNELS[kernel]
+    f32 = [r for r in rows if "dtype" not in r]
+    main = max(f32, key=lambda r: r["bound_ms"])
+    return {"name": kernel, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max([err] + [r["max_abs_err"] for r in f32]),
             **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                     "library_ms", "device_ms",
                                     "library_device_ms", "shape")},
-            "shapes": rows})
+            "shapes": list(rows)}
+
+
+def phase_llm_kernels_at_serve_shape(report):
+    """Time each LLM kernel on the serve run's largest calls and hold it
+    against its plain version there (f32)."""
+    out = report.setdefault("kernels", [])
+    for kernel in LLM_KERNELS:
+        rows = [llm_kernel_row(kernel, label, args, kw, report, "serve")
+                for label, (_size, args, kw) in sorted(
+                    report["serve_kept"][kernel].items())]
+        out.append(llm_kernel_entry(
+            kernel, rows, report["serve"]["launches"][kernel],
+            report.get("max_abs_err", {}).get(kernel, 0.0)))
+
+
+# ------------------------------------------------------------ the MoE family
+# olmoe-1b-7b at full width and depth, f32: 6 requests of 64..512 prompt
+# tokens from seed 6, 16 new tokens each, 4 slots
+OLMOE = dict(slots=4, requests=6, new=16, max_len=640, prompt=(64, 512))
+# deepseek-v2-236b at full width, cut to its dense MLA layer and one MoE
+# layer (160 routed experts, 2 shared), f32: one 512-token prompt and 5
+# decode steps
+DEEPSEEK = dict(layers=2, prompt=512, new=6, max_len=576)
+
+
+def moe_serve(cfg, prompts, *, slots, max_len, new, label):
+    """Serve ``prompts`` on the card with random weights from seed 0 (the
+    model freed after), kernel launches counted from 0 just before the
+    run; logits finite and rmsnorm and flash_attention launched.  Returns
+    the run's numbers and the largest call's inputs of each of the two
+    kernels by label: flash_attention's "prefill", rmsnorm's by width
+    ("d=512", ...)."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.models import decode as D
+    from repro_torch.models import layers
+    from repro_torch.models.transformer import init_params, param_count
+    t0 = time.monotonic()
+    model = init_params(cfg, torch.Generator(DEVICE).manual_seed(0), DEVICE)
+    torch.cuda.synchronize()
+    n_params, built = param_count(model), time.monotonic() - t0
+    keep = Keep(layers, "flash_attention", lambda a, k: (
+        "prefill", a[0].shape[0] * a[0].shape[1] * a[1].shape[1]))
+    keep_norm = Keep(layers, "rmsnorm_kernel", lambda a, k: (
+        f"d={a[0].shape[-1]}", a[0].numel()))
+    pre, dec = Timed(D, "prefill"), Timed(D, "decode_step")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.LAUNCH_COUNTS.clear()  # this path's launches start here
+    t0 = time.monotonic()
+    with keep, keep_norm, pre, dec:
+        reqs, eng = serve(model, cfg, prompts, slots=slots, max_len=max_len,
+                          new=new, device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = {k: build.LAUNCH_COUNTS[k] for k in LLM_KERNELS}
+    if pre.nonfinite or dec.nonfinite:
+        raise AssertionError(f"{label}: non-finite logits in "
+                             f"{pre.nonfinite} prefills and "
+                             f"{dec.nonfinite} decode steps")
+    if not (launches["rmsnorm"] and launches["flash_attention"]):
+        raise AssertionError(f"{label}: a kernel of the path never "
+                             f"launched: {launches}")
+    if dec.calls < new - 1:
+        raise AssertionError(f"{label}: {dec.calls} decode steps")
+    out = dict(params=n_params, weight_gb=4 * n_params / 1e9,
+               init_s=built, wall_s=wall, requests=len(reqs),
+               prompt_tokens=sum(len(p) for p in prompts),
+               tokens=sum(len(r.out_tokens) for r in reqs),
+               prefill_s=pre.seconds,
+               prefill_tok_per_s=sum(len(p) for p in prompts) / pre.seconds,
+               decode_steps=dec.calls,
+               decode_ms_per_step=1e3 * dec.seconds / dec.calls,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               launches=launches)
+    out["busy"] = serve_device_busy(
+        model, cfg, prompt=max(map(len, prompts)), slots=slots,
+        max_len=max_len, cache_len=max(map(len, prompts)), tag="moe")
+    log(f"[moe] {label} f32 on the card: {n_params:,} parameters "
+        f"({out['weight_gb']:.2f} GB, built in {built:.1f}s); "
+        f"{len(reqs)}/{len(reqs)} requests done, {slots} slots, prompts "
+        f"{min(map(len, prompts))}..{max(map(len, prompts))} tokens "
+        f"({out['prompt_tokens']} in all), {out['tokens']} tokens out; "
+        f"wall {wall:.2f}s; prefill {pre.seconds:.3f}s = "
+        f"{out['prefill_tok_per_s']:.0f} tokens/s; decode {dec.calls} "
+        f"steps {out['decode_ms_per_step']:.2f} ms/step; peak memory "
+        f"{out['peak_gb']:.2f} GB; logits finite; launches {launches}")
+    del model, reqs, eng
+    torch.cuda.empty_cache()
+    return out, {"flash_attention": keep.kept, "rmsnorm": keep_norm.kept}
+
+
+def phase_moe(report):
+    """The MoE family through the port's LLM layer: (a) reduced olmoe and
+    reduced DeepSeek-V2 card == CPU; (b) olmoe-1b-7b at full width and
+    depth; (c) deepseek-v2-236b at full width, 2 layers; (d)
+    flash_attention at DeepSeek's prefill shape (keys 192, values 128)
+    held to its plain version in f32 (the main path's call) and bf16 and
+    timed beside SDPA, and rmsnorm at MLA's q_norm / kv_norm widths (1,536
+    and 512) on the run's own calls."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    out = report.setdefault("moe", {})
+    t_phase = time.monotonic()
+    out["reduced_err"] = {arch: serve_reduced_card_vs_cpu(arch, "moe")
+                          for arch in ("olmoe-1b-7b", "deepseek-v2-236b")}
+
+    cfg = get_config("olmoe-1b-7b")
+    prompts = serve_prompts(cfg.vocab, OLMOE["requests"], *OLMOE["prompt"],
+                            6)
+    out["olmoe"], _ = moe_serve(cfg, prompts, slots=OLMOE["slots"],
+                                max_len=OLMOE["max_len"], new=OLMOE["new"],
+                                label=cfg.name)
+
+    cfg = dataclasses.replace(get_config("deepseek-v2-236b"),
+                              n_layers=DEEPSEEK["layers"])
+    prompt = np.random.default_rng(7).integers(
+        2, cfg.vocab, size=DEEPSEEK["prompt"]).astype(np.int32)
+    out["deepseek"], kept = moe_serve(
+        cfg, [prompt], slots=1, max_len=DEEPSEEK["max_len"],
+        new=DEEPSEEK["new"], label=f"{cfg.name} ({cfg.n_layers} layers)")
+    _size, args, kw = kept["flash_attention"]["prefill"]
+
+    q, k, v = args
+    if (tuple(q.shape), k.shape[-1], v.shape[-1]) != (
+            (1, DEEPSEEK["prompt"], cfg.n_heads, cfg.qk_nope + cfg.qk_rope),
+            cfg.qk_nope + cfg.qk_rope, cfg.v_head):
+        raise AssertionError(f"DeepSeek's prefill attention took q "
+                             f"{tuple(q.shape)}, k {tuple(k.shape)}, v "
+                             f"{tuple(v.shape)}")
+    rows = [llm_kernel_row("flash_attention", "deepseek prefill", args, kw,
+                           report, "moe")]
+    half = tuple(t.to(torch.bfloat16) for t in args)
+    rows.append(llm_kernel_row("flash_attention", "deepseek prefill", half,
+                               kw, report, "moe", "bfloat16"))
+    norms = [llm_kernel_row("rmsnorm", f"deepseek {name} d={d}",
+                            *kept["rmsnorm"][f"d={d}"][1:], report, "moe")
+             for name, d in (("q_norm", cfg.q_lora),
+                             ("kv_norm", cfg.kv_lora))]
+    out["kernel_rows"] = {"flash_attention": rows, "rmsnorm": norms}
+    out["phase_s"] = time.monotonic() - t_phase
+    log(f"[moe] phase {out['phase_s']:.1f}s")
+    add_moe_kernel_rows(report)
+
+
+def add_moe_kernel_rows(report):
+    """The moe phase's launches (``moe_launches``) and timed shapes on the
+    rmsnorm and flash_attention entries of the kernels line: merged into
+    the serve phase's entries, or those entries themselves when the serve
+    phase did not run."""
+    moe = report["moe"]
+    runs = ("olmoe", "deepseek")
+    rows = report.setdefault("kernels", [])
+    for kernel, timed in moe["kernel_rows"].items():
+        entry = llm_kernel_entry(
+            kernel, timed, sum(moe[r]["launches"][kernel] for r in runs))
+        row = next((r for r in rows if r["name"] == kernel), None)
+        if row is None:
+            row = entry
+            rows.append(row)
+        else:
+            row["shapes"].extend(timed)
+            row["max_abs_err"] = max(row["max_abs_err"],
+                                     entry["max_abs_err"])
+        row["moe_launches"] = {r: moe[r]["launches"][kernel] for r in runs}
 
 
 # ------------------------------------------------- the dense per-tick engine
@@ -2287,15 +2486,30 @@ def whatif_plan_specs():
     )
 
 
-def whatif_plans():
+def whatif_scale(report, elapsed_s):
+    """0.1, or 0.05 when (d)'s predicted wall at 0.1 and that of the phases
+    after it (dense, and scale at haswell's least scale), at this card's
+    theta greedy rate, would not end inside the time limit."""
+    rate = report.get("greedy_s_per_step")
+    if rate is None:
+        return 0.1
+    steps = (WHATIF_D_STEPS * WHATIF_D_STEP_RATIO + DENSE_GREEDY_STEPS
+             + 0.25 * HASWELL_STEPS * HASWELL_STEP_RATIO)
+    if steps * rate <= 0.95 * TIME_LIMIT_S - elapsed_s:
+        return 0.1
+    return 0.05
+
+
+def whatif_plans(scale):
     """(d): per-cell metrics identical under the three plans."""
     import torch
     from repro_torch.experiments.backend_torch import run_cells
     from repro_torch.experiments.spec import ExperimentSpec
     from repro_torch.kernels import build
+    log(f"[whatif:d] theta at scale {scale}, 1 seed")
     out = {}
     for name, spec_kw in whatif_plan_specs():
-        spec = ExperimentSpec(workloads=("theta",), scale=0.1, seeds=1,
+        spec = ExperimentSpec(workloads=("theta",), scale=scale, seeds=1,
                               **spec_kw)
         todo = [("theta", c) for c in spec.cells()]
         runs = {}
@@ -2359,7 +2573,7 @@ def whatif_card_vs_cpu():
         "the card (fused) == the CPU (bisect), bit for bit")
 
 
-def phase_whatif(report):
+def phase_whatif(report, elapsed_s):
     """The what-if query service through its entry points: (a) a storm of
     16 queries at theta scale 1.0 from 4 client threads, one coalesced
     batch on the card, every answer equal to ``run_cells``' cell; (b) its
@@ -2378,6 +2592,7 @@ def phase_whatif(report):
     from repro_torch.kernels import build
     from repro_torch.serve import __main__ as smain
     from repro_torch.serve.whatif import WhatIfEngine, sample_queries
+    t_phase = time.monotonic()
     out = {}
     tmp = pathlib.Path(tempfile.mkdtemp(prefix="repro_torch_whatif_"))
     try:
@@ -2465,7 +2680,15 @@ def phase_whatif(report):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    out["d"] = whatif_plans()
+    spent = elapsed_s + time.monotonic() - t_phase
+    scale = whatif_scale(report, spent)
+    if scale != 0.1:
+        log(f"[whatif:d] {spent:.0f}s spent; at this card's theta greedy "
+            "rate (d) at scale 0.1 and "
+            "the dense and scale phases would not end inside "
+            f"{TIME_LIMIT_S:.0f}s (CUT from scale 0.1 to 0.05)")
+    out["d_scale"] = scale
+    out["d"] = whatif_plans(scale)
     whatif_card_vs_cpu()
     report["whatif"] = out
     for row in report.get("kernels", []):
@@ -2632,10 +2855,10 @@ def phase_profile(report):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="env,parity,main,serve,registry,experiment,"
-                            "whatif,dense,scale",
+                    default="env,parity,main,serve,moe,registry,"
+                            "experiment,whatif,dense,scale",
                     help="comma-separated subset of env,parity,main,serve,"
-                         "registry,experiment,whatif,dense,scale (the "
+                         "moe,registry,experiment,whatif,dense,scale (the "
                          "default) "
                          "and the opt-in waterfill, waterfill-plans, "
                          "profile and paper-scale")
@@ -2677,12 +2900,14 @@ def main(argv=None) -> int:
         if "serve" in phases:
             phase_serve(report)
             phase_llm_kernels_at_serve_shape(report)
+        if "moe" in phases:
+            phase_moe(report)
         if "registry" in phases:
             phase_registry(report, time.monotonic() - t_start)
         if "experiment" in phases:
             phase_experiment(report)
         if "whatif" in phases:
-            phase_whatif(report)
+            phase_whatif(report, time.monotonic() - t_start)
         if "dense" in phases:
             phase_dense(report)
         if "scale" in phases:

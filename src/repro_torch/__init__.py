@@ -5,10 +5,10 @@ A second package beside the JAX reference ``repro``: it runs the paper grid
 lane execution in ``sweep.shard``, and the experiment layer,
 ``python -m repro_torch.experiments``), the what-if scheduling query
 service (``serve.whatif``, ``python -m repro_torch.serve``) and LLM
-serving (``serve.engine`` over ``models``: the ``mamba``, ``shared`` and
-``attn`` block kinds) in PyTorch, with the greedy
-scheduling pass, the prefix waterfill, RMSNorm, flash attention and the
-Mamba-2 SSD scan as hand-written CUDA kernels for Hopper
+serving (``serve.engine`` over ``models``: the ``mamba``, ``shared``,
+``attn`` and ``moe`` block kinds, GQA or MLA attention) in PyTorch, with
+the greedy scheduling pass, the prefix waterfill, RMSNorm, flash attention
+and the Mamba-2 SSD scan as hand-written CUDA kernels for Hopper
 (``repro_torch/kernels/csrc``).  It imports ``torch`` and numpy only; the
 JAX package is never imported here.
 

@@ -57,29 +57,14 @@ def result_to_numpy(result) -> Dict[str, object]:
 
 
 # ---------------------------------------------------------------- LLM layer
-def lm_params_from_numpy(flat: Mapping[str, object], cfg, device=None):
-    """The port's :class:`~repro_torch.models.transformer.LM` holding the
-    JAX ``init_params`` pytree's values.
-
-    ``flat`` maps each JAX leaf's path, joined by ``/``
-    (``"segments/3/mixer/in_z"``, ``"shared_block/attn/wq"``,
-    ``"embed/table"``), to its numpy array; a segment's stacked leaves
-    (layers on axis 0) are split into the port's per-layer modules.  Every
-    parameter must be filled and every leaf used.
-    """
-    from repro_torch.models.transformer import LM
-    dev = resolve_device(device)
-    model = LM(cfg, dev)
+def _fill(module: torch.nn.Module, flat: Mapping[str, object], leaf):
+    """Copy into each parameter of ``module`` the array ``leaf(name)``
+    picks from ``flat`` (``(key, array)``); every parameter must be filled
+    and every key of ``flat`` used."""
     used = set()
     with torch.no_grad():
-        for name, prm in model.named_parameters():
-            parts = name.split(".")
-            if parts[0] == "segments":
-                key = "/".join(["segments", parts[1]] + parts[3:])
-                arr = np.asarray(flat[key])[int(parts[2])]
-            else:
-                key = "/".join(parts)
-                arr = np.asarray(flat[key])
+        for name, prm in module.named_parameters():
+            key, arr = leaf(name)
             if arr.shape != tuple(prm.shape):
                 raise ValueError(f"{key}: {arr.shape} for a parameter of "
                                  f"{tuple(prm.shape)}")
@@ -87,7 +72,41 @@ def lm_params_from_numpy(flat: Mapping[str, object], cfg, device=None):
             used.add(key)
     if used != set(flat):
         raise ValueError(f"leaves not used: {sorted(set(flat) - used)}")
-    return model
+    return module
+
+
+def module_from_numpy(module: torch.nn.Module, flat: Mapping[str, object]):
+    """Fill ``module`` (a layer's parameter holder: ``MoE``, ``MLA``,
+    ``GQA``, ...) from the JAX parameter dict of the same layer, keyed by
+    leaf paths joined by ``/`` (``"shared/w1"``, ``"q_norm/scale"``)."""
+    def leaf(name):
+        key = name.replace(".", "/")
+        return key, np.asarray(flat[key])
+    return _fill(module, flat, leaf)
+
+
+def lm_params_from_numpy(flat: Mapping[str, object], cfg, device=None):
+    """The port's :class:`~repro_torch.models.transformer.LM` holding the
+    JAX ``init_params`` pytree's values.
+
+    ``flat`` maps each JAX leaf's path, joined by ``/``
+    (``"segments/3/mixer/in_z"``, ``"segments/1/moe/shared/w1"``,
+    ``"shared_block/attn/wq"``, ``"embed/table"``), to its numpy array; a
+    segment's stacked leaves (layers on axis 0, then a MoE leaf's experts)
+    are split into the port's per-layer modules.  Every parameter must be
+    filled and every leaf used.
+    """
+    from repro_torch.models.transformer import LM
+
+    def leaf(name):
+        parts = name.split(".")
+        if parts[0] == "segments":
+            key = "/".join(["segments", parts[1]] + parts[3:])
+            return key, np.asarray(flat[key])[int(parts[2])]
+        key = "/".join(parts)
+        return key, np.asarray(flat[key])
+
+    return _fill(LM(cfg, resolve_device(device)), flat, leaf)
 
 
 def cache_to_numpy(cache) -> Dict[str, np.ndarray]:
@@ -105,7 +124,7 @@ def cache_to_numpy(cache) -> Dict[str, np.ndarray]:
 def cache_from_numpy(flat: Mapping[str, object], cfg, device=None):
     """The inverse of :func:`cache_to_numpy` for ``cfg``'s segment plan."""
     from repro_torch.models.ssm import MambaCache
-    from repro_torch.models.transformer import build_plan
+    from repro_torch.models.transformer import build_plan, uses_mla
     dev = resolve_device(device)
 
     def t(key):
@@ -117,5 +136,7 @@ def cache_from_numpy(flat: Mapping[str, object], cfg, device=None):
             segs.append(MambaCache(*(t(f"segments/{i}/{f}")
                                      for f in MambaCache._fields)))
         else:
-            segs.append({n: t(f"segments/{i}/{n}") for n in ("k", "v")})
+            names = (("ckv", "krope") if uses_mla(cfg, seg.kind)
+                     else ("k", "v"))
+            segs.append({n: t(f"segments/{i}/{n}") for n in names})
     return {"segments": segs}

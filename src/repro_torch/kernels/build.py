@@ -66,7 +66,7 @@ _SIGNATURES = {
     "repro_schedule_tick": [_P] * 20 + [_I] * 14 + [_P],
     "repro_waterfill": [_P] * 5 + [_I] * 4 + [_P],
     "repro_rmsnorm": [_P, _P, _P, _I, _I, _F, _I, _P],
-    "repro_flash_attention": [_P] * 5 + [_I] * 10 + [_F, _I, _I, _P],
+    "repro_flash_attention": [_P] * 5 + [_I] * 11 + [_F, _I, _I, _P],
     "repro_ssd_scan": [_P] * 9 + [_I] * 8 + [_P],
 }
 _CODES = {_P: "P", _I: "I", _F: "F"}

@@ -111,9 +111,9 @@ int repro_rmsnorm(const void* x, const void* w, void* out, int rows, int d,
 
 int repro_flash_attention(const void* q, const void* k, const void* v,
                           void* o, void* scratch, int B, int Sq, int Sk,
-                          int H, int Hkv, int D, int q_offset, int kv_valid,
-                          int window, int causal, float scale, int n_split,
-                          int dtype, void* stream) {
+                          int H, int Hkv, int D, int Dv, int q_offset,
+                          int kv_valid, int window, int causal, float scale,
+                          int n_split, int dtype, void* stream) {
   repro::AttnArgs a;
   a.q = q;
   a.k = k;
@@ -126,6 +126,7 @@ int repro_flash_attention(const void* q, const void* k, const void* v,
   a.H = H;
   a.Hkv = Hkv;
   a.D = D;
+  a.Dv = Dv;
   a.q_offset = q_offset;
   a.kv_valid = kv_valid;
   a.window = window;

@@ -10,7 +10,8 @@
 // (acc, m, l) in VMEM scratch between grid steps.  CUDA blocks run in no
 // order, so here a CTA loops over its KV tiles itself.
 //
-// Prefill (bound by operations: 4 * D flops per visible (query, key) pair).
+// Prefill (bound by operations: 2 * (D + Dv) flops per visible (query, key)
+// pair).
 //   * A CTA of 4 warps takes 64 query rows of one (batch, head), 16 rows a
 //     warp; the query blocks that see the most keys are started first.  KV
 //     tiles of BK keys (bf16 64, f32 32: 3 CTAs an SM at D = 80, and Q with
@@ -38,6 +39,11 @@
 //     works.  At D = 256 the O accumulator is 128 registers a thread: f32
 //     takes 239 and bf16 255 registers, with no spill (`-Xptxas -v`, which
 //     chip_smoke.py prints).
+//   * V may be narrower than K (Dv <= D: MLA's values are 128 wide against
+//     192-wide keys).  P V, the O accumulator and the output tile run over
+//     Dv only, with V's rows in shared memory at V's own stride; the
+//     accumulator takes a second bucket, 128 when D is in the 256 bucket
+//     and Dv <= 128, else D's (columns past Dv are skipped at run time).
 //   * Shared-memory rows are padded so that every fragment load of a warp
 //     hits 32 banks (qk_stride / v_stride).
 //   * Only the tiles between the window's left edge and min(kv_valid, last
@@ -101,10 +107,10 @@ __host__ __device__ constexpr int dec_k_stride(int dp) {
 __host__ __device__ constexpr int dec_v_stride(int dp) { return dp + 8; }
 
 template <typename T>
-size_t prefill_smem_bytes(int dp, int bk) {
+size_t prefill_smem_bytes(int dp, int dvp, int bk) {
   return sizeof(T) * (static_cast<size_t>(kBQ) * qk_stride<T>(dp) +
                       2 * static_cast<size_t>(bk) *
-                          (qk_stride<T>(dp) + v_stride<T>(dp)));
+                          (qk_stride<T>(dp) + v_stride<T>(dvp)));
 }
 
 template <typename T>
@@ -333,7 +339,7 @@ mma_bf16(o[n], a, b0, b1);
   }
 }
 
-template <typename T, int DP, int BK>
+template <typename T, int DP, int DV, int BK>
 __global__ void __launch_bounds__(kThreads)
     prefill_kernel(AttnArgs a, int vec) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -342,9 +348,11 @@ __global__ void __launch_bounds__(kThreads)
   const T* __restrict__ v = static_cast<const T*>(a.v);
   T* __restrict__ o = static_cast<T*>(a.o);
   const int D = a.D;
+  const int Dv = a.Dv;
   const int dp = pad16(D);
+  const int dvp = pad16(Dv);
   const int QS = qk_stride<T>(dp);
-  const int VS = v_stride<T>(dp);
+  const int VS = v_stride<T>(dvp);
   T* qs = reinterpret_cast<T*>(smem_raw);   // kBQ rows
   T* ks = qs + kBQ * QS;                    // 2 buffers of BK rows
   T* vs = ks + 2 * BK * QS;                 // 2 buffers of BK rows
@@ -366,22 +374,25 @@ __global__ void __launch_bounds__(kThreads)
 
   const long long q_row = static_cast<long long>(a.H) * D;
   const long long kv_row = static_cast<long long>(a.Hkv) * D;
+  const long long v_row = static_cast<long long>(a.Hkv) * Dv;
+  const long long o_row = static_cast<long long>(a.H) * Dv;
   const T* qg = q + (static_cast<long long>(b) * a.Sq + q0) * q_row +
                 static_cast<long long>(h) * D;
   const T* kg = k + static_cast<long long>(b) * a.Sk * kv_row +
                 static_cast<long long>(hk) * D;
-  const T* vg = v + (kg - k);
+  const T* vg = v + static_cast<long long>(b) * a.Sk * v_row +
+                static_cast<long long>(hk) * Dv;
 
   if (dp > D) {
     zero_pad(qs, QS, kBQ, D, dp);
     zero_pad(ks, QS, 2 * BK, D, dp);
-    zero_pad(vs, VS, 2 * BK, D, dp);
   }
+  if (dvp > Dv) zero_pad(vs, VS, 2 * BK, Dv, dvp);
   load_rows(qs, QS, qg, q_row, rows, kBQ, D, vec);
   if (n_tiles > 0) {
     const int n = min(BK, k_end - k_begin);
     load_rows(ks, QS, kg + k_begin * kv_row, kv_row, n, BK, D, vec);
-    load_rows(vs, VS, vg + k_begin * kv_row, kv_row, n, BK, D, vec);
+    load_rows(vs, VS, vg + k_begin * v_row, v_row, n, BK, Dv, vec);
   }
   cp_async_commit();
 
@@ -395,10 +406,10 @@ __global__ void __launch_bounds__(kThreads)
   // scores in log2 units (m too), so each probability is one exp2
   const float scale_log2 = a.scale * 1.4426950408889634f;
 
-  float acc[DP / 8][4];
+  float acc[DV / 8][4];
   float m[2], l[2];
 #pragma unroll
-  for (int n = 0; n < DP / 8; ++n) {
+  for (int n = 0; n < DV / 8; ++n) {
     acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
   }
   m[0] = m[1] = -INFINITY;
@@ -412,7 +423,7 @@ __global__ void __launch_bounds__(kThreads)
       const int nb = (it + 1) & 1;
       load_rows(ks + nb * BK * QS, QS, kg + k1 * kv_row, kv_row, n, BK, D,
                 vec);
-      load_rows(vs + nb * BK * VS, VS, vg + k1 * kv_row, kv_row, n, BK, D,
+      load_rows(vs + nb * BK * VS, VS, vg + k1 * v_row, v_row, n, BK, Dv,
                 vec);
       cp_async_commit();
       cp_async_wait<1>();
@@ -485,28 +496,28 @@ __global__ void __launch_bounds__(kThreads)
       m[0] = mn0;
       m[1] = mn1;
 #pragma unroll
-      for (int n = 0; n < DP / 8; ++n) {
+      for (int n = 0; n < DV / 8; ++n) {
         acc[n][0] *= c0;
         acc[n][1] *= c0;
         acc[n][2] *= c1;
         acc[n][3] *= c1;
       }
-      pv_tile<DP, BK>(acc, s, vt, VS, dp, lane);
+      pv_tile<DV, BK>(acc, s, vt, VS, dvp, lane);
     }
     __syncthreads();   // the buffer is refilled two tiles on
   }
 
   const float l0 = quad_sum(l[0]);
   const float l1 = quad_sum(l[1]);
-  T* o0 = o + (static_cast<long long>(b) * a.Sq + q0 + w_lo + g) * q_row +
-          static_cast<long long>(h) * D;
-  T* o1 = o0 + 8 * q_row;
+  T* o0 = o + (static_cast<long long>(b) * a.Sq + q0 + w_lo + g) * o_row +
+          static_cast<long long>(h) * Dv;
+  T* o1 = o0 + 8 * o_row;
 #pragma unroll
-  for (int n = 0; n < DP / 8; ++n) {
+  for (int n = 0; n < DV / 8; ++n) {
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int c = n * 8 + 2 * t + e;
-      if (c < D) {
+      if (c < Dv) {
         if (g < w_rows) {
           o0[c] = from_f32<T>(l0 > 0.f ? acc[n][e] / l0 : 0.f);
         }
@@ -753,13 +764,13 @@ __global__ void __launch_bounds__(kThreads) combine_kernel(AttnArgs a) {
 }
 
 // --------------------------------------------------------------- launch
-template <typename T, int DP, int BK>
+template <typename T, int DP, int DV, int BK>
 cudaError_t launch_prefill(const AttnArgs& a, int vec, cudaStream_t stream) {
-  const size_t smem = prefill_smem_bytes<T>(pad16(a.D), BK);
-  cudaError_t err = allow_smem<prefill_kernel<T, DP, BK>>(smem);
+  const size_t smem = prefill_smem_bytes<T>(pad16(a.D), pad16(a.Dv), BK);
+  cudaError_t err = allow_smem<prefill_kernel<T, DP, DV, BK>>(smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.Sq + kBQ - 1) / kBQ, a.H, a.B);
-  prefill_kernel<T, DP, BK><<<grid, kThreads, smem, stream>>>(a, vec);
+  prefill_kernel<T, DP, DV, BK><<<grid, kThreads, smem, stream>>>(a, vec);
   return cudaGetLastError();
 }
 
@@ -769,8 +780,8 @@ cudaError_t launch_typed(const AttnArgs& a, cudaStream_t stream) {
   const auto aligned = [](const void* p) {
     return reinterpret_cast<uintptr_t>(p) % 16 == 0;
   };
-  const int vec = (a.D * es) % 16 == 0 && aligned(a.q) && aligned(a.k) &&
-                  aligned(a.v);
+  const int vec = (a.D * es) % 16 == 0 && (a.Dv * es) % 16 == 0 &&
+                  aligned(a.q) && aligned(a.k) && aligned(a.v);
   if (a.n_split > 0) {
     const size_t smem = decode_smem_bytes<T>(pad16(a.D));
     cudaError_t err = allow_smem<decode_kernel<T>>(smem);
@@ -785,23 +796,28 @@ cudaError_t launch_typed(const AttnArgs& a, cudaStream_t stream) {
   // f32 takes 32-key tiles: Q and two K / V buffers fit at D = 256
   constexpr int BK = sizeof(T) == 4 ? 32 : 64;
   const int dp = pad16(a.D);
-  if (dp <= 64) return launch_prefill<T, 64, BK>(a, vec, stream);
-  if (dp <= 96) return launch_prefill<T, 96, BK>(a, vec, stream);
-  if (dp <= 128) return launch_prefill<T, 128, BK>(a, vec, stream);
-  return launch_prefill<T, 256, BK>(a, vec, stream);
+  if (dp <= 64) return launch_prefill<T, 64, 64, BK>(a, vec, stream);
+  if (dp <= 96) return launch_prefill<T, 96, 96, BK>(a, vec, stream);
+  if (dp <= 128) return launch_prefill<T, 128, 128, BK>(a, vec, stream);
+  if (pad16(a.Dv) <= 128) {
+    return launch_prefill<T, 256, 128, BK>(a, vec, stream);
+  }
+  return launch_prefill<T, 256, 256, BK>(a, vec, stream);
 }
 
 }  // namespace
 
 cudaError_t launch_flash_attention(const AttnArgs& a, int dtype,
                                    cudaStream_t stream) {
-  if (a.D <= 0 || a.D > kMaxD || a.Hkv <= 0 || a.H % a.Hkv != 0 ||
-      a.n_split < 0) {
+  if (a.D <= 0 || a.D > kMaxD || a.Dv <= 0 || a.Dv > a.D || a.Hkv <= 0 ||
+      a.H % a.Hkv != 0 || a.n_split < 0) {
     return cudaErrorInvalidValue;
   }
+  // the decode variant reads V at K's width
   if (a.n_split > kMaxSplits ||
       (a.n_split > 0 &&
-       (a.scratch == nullptr || (a.H / a.Hkv) * a.Sq > kDecodeRows))) {
+       (a.scratch == nullptr || (a.H / a.Hkv) * a.Sq > kDecodeRows ||
+        a.Dv != a.D))) {
     return cudaErrorInvalidValue;
   }
   if (a.B <= 0 || a.Sq <= 0 || a.H <= 0) return cudaSuccess;

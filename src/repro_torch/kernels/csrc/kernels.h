@@ -102,16 +102,17 @@ struct NormArgs {
 };
 cudaError_t launch_rmsnorm(const NormArgs& args, cudaStream_t stream);
 
-// Online-softmax attention.  q, o: (B, Sq, H, D); k, v: (B, Sk, Hkv, D), all
-// contiguous and of one type; query head h reads KV head h / (H / Hkv).
+// Online-softmax attention.  q: (B, Sq, H, D); k: (B, Sk, Hkv, D); v:
+// (B, Sk, Hkv, Dv) with Dv <= D; o: (B, Sq, H, Dv); all contiguous and of
+// one type; query head h reads KV head h / (H / Hkv).
 // Query i sits at absolute position q_offset + i, key j at j; key j is seen
 // when j < kv_valid, (causal) j <= query position and (window > 0)
 // j > query position - window.  Rows that see no key are 0.  D <= 256.
 //
 // n_split == 0 selects the prefill variant (tensor cores, 64 queries of one
 // head per CTA).  n_split >= 1 selects the split-KV decode variant (needs
-// (H / Hkv) * Sq <= 16): the visible keys are cut into n_split ranges, each
-// CTA writes its rows' (acc, m, l) to `scratch`, f32 of shape
+// (H / Hkv) * Sq <= 16 and Dv == D): the visible keys are cut into n_split
+// ranges, each CTA writes its rows' (acc, m, l) to `scratch`, f32 of shape
 // (B, H, Sq, n_split, D + 2), and a second kernel combines the splits.
 struct AttnArgs {
   const void* q;
@@ -119,7 +120,7 @@ struct AttnArgs {
   const void* v;
   void* o;
   float* scratch;
-  int B, Sq, Sk, H, Hkv, D;
+  int B, Sq, Sk, H, Hkv, D, Dv;
   int q_offset, kv_valid, window, causal;
   float scale;
   int n_split;

@@ -83,13 +83,14 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     the JAX package's ``models/layers._grouped_attention``, which its
     ``chunked_attention`` takes on one device.
 
-    q: (B, Sq, H, Dh); k, v: (B, Sk, Hkv, Dh).  Query i sits at position
+    q: (B, Sq, H, Dh); k: (B, Sk, Hkv, Dh); v: (B, Sk, Hkv, Dv), V's width
+    free (MLA's values are narrower than its keys).  Query i sits at position
     ``q_offset + i`` and key j at j; key j is seen when ``j <
     kv_valid_len``, (causal) ``j <= query``, and (``window > 0``) ``j >
     query - window``.  q is scaled before the product; sums are f32; a row
     that sees no key is 0.  KV blocks past the last visible key are not
     visited (the JAX scan visits them, but a fully masked block leaves
-    (acc, m, l) as they were).  Returns (B, Sq, H, Dh) in q's dtype.
+    (acc, m, l) as they were).  Returns (B, Sq, H, Dv) in q's dtype.
     """
     b, sq, h, dh = q.shape
     sk, hkv = k.shape[1], k.shape[2]

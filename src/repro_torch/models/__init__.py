@@ -1,2 +1,3 @@
-"""The port's LLM layer: layers, the Mamba-2 SSD block, the decoder LM of
-kinds ``mamba`` / ``shared`` / ``attn``, and prefill / decode."""
+"""The port's LLM layer: layers (GQA and MLA attention), the Mamba-2 SSD
+block, the MoE layer, the decoder LM of kinds ``mamba`` / ``shared`` /
+``attn`` / ``moe``, and prefill / decode."""

@@ -1,17 +1,21 @@
 """Prefill / decode for the port's LM, with per-segment caches.
 
 Counterpart of the JAX package's ``models/decode.py`` for the ``mamba``,
-``shared`` and ``attn`` block kinds.  Cache anatomy, one entry per plan
-segment (the JAX layout, layers stacked on the leading axis):
+``shared``, ``attn`` and ``moe`` block kinds.  Cache anatomy, one entry
+per plan segment (the JAX layout, layers stacked on the leading axis):
 
-  * ``attn`` segments   -- {"k", "v"}: (L, B, S_cache, H_kv, D_h)
+  * GQA ``attn`` / ``moe`` segments -- {"k", "v"}: (L, B, S_cache, H_kv,
+    D_h)
+  * MLA ``attn`` / ``moe`` segments -- the compressed latent {"ckv":
+    (L, B, S_cache, kv_lora), "krope": (L, B, S_cache, qk_rope)}
   * ``mamba`` segments  -- :class:`MambaCache` of (L, B, ...) tensors
   * ``shared`` markers  -- one {"k", "v"}: (B, S_cache, H_kv, D_h) each
 
 :func:`prefill` runs a whole prompt and emits the cache, KV padded with
 zeros to ``cache_size``; :func:`decode_step` advances one token.  Unlike
 the JAX functions, :func:`decode_step` updates the cache it is given in
-place (it writes one KV row per layer and the SSM states) and returns it.
+place (it writes one KV or latent row per layer and the SSM states) and
+returns it.
 """
 from __future__ import annotations
 
@@ -26,9 +30,9 @@ from repro_torch.configs.base import ModelConfig
 
 from . import layers as L
 from . import ssm as S
-from .transformer import (LM, _ssm_dims, build_plan, check_supported,
-                          embed_inputs, layer_thetas, layer_windows,
-                          logits_fn, run_stack)
+from .transformer import (LM, _ssm_dims, apply_ffn, build_plan,
+                          check_supported, embed_inputs, layer_thetas,
+                          layer_windows, logits_fn, run_stack, uses_mla)
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, cache_size: int,
@@ -53,6 +57,10 @@ def init_decode_cache(cfg: ModelConfig, batch: int, cache_size: int,
                             dims.dstate, dt=torch.float32)))
         elif seg.kind == "shared":
             segs.append({"k": zeros(batch, *kv), "v": zeros(batch, *kv)})
+        elif uses_mla(cfg, seg.kind):
+            segs.append({
+                "ckv": zeros(seg.count, batch, cache_size, cfg.kv_lora),
+                "krope": zeros(seg.count, batch, cache_size, cfg.qk_rope)})
         else:
             segs.append({"k": zeros(seg.count, batch, *kv),
                          "v": zeros(seg.count, batch, *kv)})
@@ -60,17 +68,26 @@ def init_decode_cache(cfg: ModelConfig, batch: int, cache_size: int,
 
 
 # ------------------------------------------------------------------ decode
-def _attn_block_decode(p, x, cfg: ModelConfig, k_cache, v_cache,
-                       cache_len: int, window: int, theta: float, dtype):
+def _attn_block_decode(p, x, cfg: ModelConfig, leaf, cache_len: int,
+                       window: int, theta: float, dtype):
+    """One token through an ``attn`` / ``shared`` / ``moe`` block; writes
+    its KV (or latent) row into ``leaf``'s tensors in place."""
     h = L.apply_norm(cfg.norm, p.ln1, x)
-    att, _, _ = L.gqa_decode(
-        p.attn, h, k_cache, v_cache, cache_len, n_heads=cfg.n_heads,
-        n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim,
-        rope_theta=None if cfg.rope_theta == 0 else theta, window=window,
-        dtype=dtype)
+    if uses_mla(cfg, p.kind):
+        att, _, _ = L.mla_decode(
+            p.attn, h, leaf["ckv"], leaf["krope"], cache_len,
+            n_heads=cfg.n_heads, kv_lora=cfg.kv_lora, qk_nope=cfg.qk_nope,
+            qk_rope=cfg.qk_rope, v_head=cfg.v_head, rope_theta=theta,
+            dtype=dtype)
+    else:
+        att, _, _ = L.gqa_decode(
+            p.attn, h, leaf["k"], leaf["v"], cache_len, n_heads=cfg.n_heads,
+            n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim,
+            rope_theta=None if cfg.rope_theta == 0 else theta, window=window,
+            dtype=dtype)
     x = x + att
     h2 = L.apply_norm(cfg.norm, p.ln2, x)
-    return x + L.apply_mlp(p.mlp, h2, cfg.act, dtype)
+    return x + apply_ffn(p, h2, cfg, dtype)
 
 
 @torch.no_grad()
@@ -88,9 +105,9 @@ def decode_step(model: LM, cfg: ModelConfig, token: torch.Tensor, cache,
     dims = _ssm_dims(cfg) if cfg.ssm_state else None
     for seg, blocks, c in zip(model.plan, model.segments, cache["segments"]):
         if seg.kind == "shared":
-            x = _attn_block_decode(model.shared_block, x, cfg, c["k"],
-                                   c["v"], cache_len, 0,
-                                   float(np.float32(cfg.rope_theta)), dtype)
+            x = _attn_block_decode(model.shared_block, x, cfg, c, cache_len,
+                                   0, float(np.float32(cfg.rope_theta)),
+                                   dtype)
             continue
         for i, blk in enumerate(blocks):
             layer = seg.start + i
@@ -103,7 +120,8 @@ def decode_step(model: LM, cfg: ModelConfig, token: torch.Tensor, cache,
                     dst[i].copy_(src)
                 x = x + out
             else:
-                x = _attn_block_decode(blk, x, cfg, c["k"][i], c["v"][i],
+                x = _attn_block_decode(blk, x, cfg,
+                                       {n: t[i] for n, t in c.items()},
                                        cache_len, int(windows[layer]),
                                        float(thetas[layer]), dtype)
     logits = logits_fn(model, cfg, x, dtype)
@@ -138,6 +156,6 @@ def prefill(model: LM, cfg: ModelConfig, batch, *,
             segments.append({n: torch.stack([_pad_cache_seq(lf[n],
                                                             cache_size)
                                              for lf in leaf])
-                             for n in ("k", "v")})
+                             for n in leaf[0]})
     logits = logits_fn(model, cfg, x[:, -1:], dtype)
     return logits[:, 0], {"segments": segments}

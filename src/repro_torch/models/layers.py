@@ -1,5 +1,5 @@
 """Neural layers of the port's LLM path: norms, RoPE, sinusoidal positions,
-GQA attention, MLPs and embeddings.
+GQA and MLA attention, MLPs and embeddings.
 
 Counterpart of the JAX package's ``models/layers.py``, for what the serving
 path needs.  Parameters live in small ``nn.Module`` holders whose attribute
@@ -13,8 +13,8 @@ Weights keep JAX's (d_in, d_out) layout and are applied as ``x @ w``.
 * Attention positions are contiguous on the whole path (prefill: 0..S-1;
   decode: one query at the cache length), so the attention functions take a
   query offset and a valid length as Python ints instead of position arrays.
-* ``mesh_constrain`` has no counterpart: it is a no-op on one device.  MLA
-  and cross-attention are not ported yet (ROADMAP §A10).
+* ``mesh_constrain`` has no counterpart: it is a no-op on one device.
+  Cross-attention is not ported yet (ROADMAP §A10c).
 """
 from __future__ import annotations
 
@@ -105,9 +105,9 @@ def chunked_attention(q, k, v, *, q_offset: int = 0, causal: bool = True,
                       block_k: int = 512) -> torch.Tensor:
     """Online-softmax attention through the flash-attention kernel.
 
-    q: (B, Sq, H, Dh) at positions ``q_offset ..``; k, v: (B, Sk, Hkv, Dh)
-    at positions 0..Sk-1.  ``window <= 0`` is global.  Returns
-    (B, Sq, H, Dh) in q's dtype.
+    q: (B, Sq, H, Dh) at positions ``q_offset ..``; k: (B, Sk, Hkv, Dh)
+    and v: (B, Sk, Hkv, Dv), Dv <= Dh, at positions 0..Sk-1.  ``window <=
+    0`` is global.  Returns (B, Sq, H, Dv) in q's dtype.
     """
     return flash_attention(q, k, v, causal=causal, window=window,
                            q_offset=q_offset, kv_valid_len=kv_valid_len,
@@ -193,6 +193,125 @@ def gqa_decode(p: GQA, x, cache_k, cache_v, cache_len: int, *, n_heads: int,
         block_k=block_k)
     out = out.reshape(b, 1, n_heads * head_dim)
     return out.to(dtype) @ p.wo.to(dtype), cache_k, cache_v
+
+
+# ----------------------------------------------------------------- MLA
+class MLA(nn.Module):
+    """DeepSeek-V2 Multi-head Latent Attention (arXiv:2405.04434):
+    ``wq_a wq_b wkv_a wk_b wv_b wo`` and the RMSNorms ``q_norm`` /
+    ``kv_norm``."""
+
+    def __init__(self, d_model: int, n_heads: int, *, q_lora: int,
+                 kv_lora: int, qk_nope: int, qk_rope: int, v_head: int,
+                 device=None, dtype=torch.float32):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.wq_a = _empty(d_model, q_lora, **kw)
+        self.wq_b = _empty(q_lora, n_heads * (qk_nope + qk_rope), **kw)
+        self.wkv_a = _empty(d_model, kv_lora + qk_rope, **kw)
+        self.wk_b = _empty(kv_lora, n_heads * qk_nope, **kw)
+        self.wv_b = _empty(kv_lora, n_heads * v_head, **kw)
+        self.wo = _empty(n_heads * v_head, d_model, **kw)
+        self.q_norm = Norm("rmsnorm", q_lora, device, dtype)
+        self.kv_norm = Norm("rmsnorm", kv_lora, device, dtype)
+
+
+def mla_latent(p: MLA, x, positions, rope_theta: float, dtype, *,
+               kv_lora: int, qk_rope: int):
+    """Project x to the compressed latent: ``(c_kv (B, S, kv_lora),
+    k_rope (B, S, 1, qk_rope))``."""
+    b, s, _ = x.shape
+    kv = x.to(dtype) @ p.wkv_a.to(dtype)
+    c_kv, k_rope = kv[..., :kv_lora], kv[..., kv_lora:]
+    c_kv = rmsnorm(p.kv_norm, c_kv)
+    k_rope = apply_rope(k_rope.reshape(b, s, 1, qk_rope), positions,
+                        rope_theta)
+    return c_kv, k_rope
+
+
+def _mla_queries(p: MLA, x, positions, rope_theta: float, dtype, *,
+                 n_heads: int, qk_nope: int, qk_rope: int):
+    """(q_nope (B, S, H, qk_nope), q_rope (B, S, H, qk_rope)), the latter
+    rotated."""
+    b, s, _ = x.shape
+    q = rmsnorm(p.q_norm, x.to(dtype) @ p.wq_a.to(dtype))
+    q = (q @ p.wq_b.to(dtype)).reshape(b, s, n_heads, qk_nope + qk_rope)
+    q_nope, q_rope = q[..., :qk_nope], q[..., qk_nope:]
+    return q_nope, apply_rope(q_rope, positions, rope_theta)
+
+
+def mla_attention_from_latent(p: MLA, x, c_kv, k_rope, *, n_heads: int,
+                              qk_nope: int, qk_rope: int, v_head: int,
+                              rope_theta: float, causal: bool, dtype,
+                              q_offset: int = 0,
+                              kv_valid_len: Optional[int] = None,
+                              block_k: int = 512):
+    """Attention of the queries from x (at positions ``q_offset ..``)
+    against a latent KV at positions 0..Sk-1, through the flash-attention
+    kernel with 192-wide keys and 128-wide values at DeepSeek-V2's
+    widths."""
+    b, sq, _ = x.shape
+    qpos = q_offset + torch.arange(sq, device=x.device)
+    q_nope, q_rope = _mla_queries(p, x, qpos, rope_theta, dtype,
+                                  n_heads=n_heads, qk_nope=qk_nope,
+                                  qk_rope=qk_rope)
+    sk = c_kv.shape[1]
+    k_nope = (c_kv @ p.wk_b.to(dtype)).reshape(b, sk, n_heads, qk_nope)
+    v = (c_kv @ p.wv_b.to(dtype)).reshape(b, sk, n_heads, v_head)
+    k_full = torch.cat([k_nope, k_rope.expand(b, sk, n_heads, qk_rope)],
+                       dim=-1)
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    out = chunked_attention(
+        q_full, k_full, v, q_offset=q_offset, causal=causal, window=0,
+        kv_valid_len=kv_valid_len,
+        softmax_scale=1.0 / math.sqrt(qk_nope + qk_rope), block_k=block_k)
+    out = out.reshape(b, sq, n_heads * v_head)
+    return out.to(dtype) @ p.wo.to(dtype)
+
+
+def mla_decode(p: MLA, x, cache_ckv, cache_krope, cache_len: int, *,
+               n_heads: int, kv_lora: int, qk_nope: int, qk_rope: int,
+               v_head: int, rope_theta: float, dtype):
+    """One-token MLA decode with weight absorption.
+
+    The cache is the compressed pair ``ckv`` (B, S_max, kv_lora) and
+    ``krope`` (B, S_max, qk_rope); the new token's latent is written into
+    both at ``cache_len`` in place (the JAX function returns updated
+    copies).  Queries are mapped into latent space through ``wk_b``,
+    scored against the latent directly (one logical KV head), and the
+    outputs mapped back through ``wv_b``: plain products and a softmax in
+    f32, as the reference computes them.  Returns ``(out, cache_ckv,
+    cache_krope)``.
+    """
+    b, one, _ = x.shape
+    assert one == 1
+    s_max = cache_ckv.shape[1]
+    if not 0 <= cache_len < s_max:
+        raise ValueError(f"cache_len {cache_len} outside a cache of {s_max}")
+    pos = torch.full((1,), cache_len, device=x.device)
+    c_kv, k_rope = mla_latent(p, x, pos, rope_theta, dtype, kv_lora=kv_lora,
+                              qk_rope=qk_rope)
+    cache_ckv[:, cache_len] = c_kv[:, 0].to(cache_ckv.dtype)
+    cache_krope[:, cache_len] = k_rope[:, 0, 0].to(cache_krope.dtype)
+
+    q_nope, q_rope = _mla_queries(p, x, pos, rope_theta, dtype,
+                                  n_heads=n_heads, qk_nope=qk_nope,
+                                  qk_rope=qk_rope)
+    wk_b = p.wk_b.to(dtype).reshape(kv_lora, n_heads, qk_nope)
+    q_lat = torch.einsum("bqhn,lhn->bqhl", q_nope, wk_b)   # absorbed
+    ckv = cache_ckv.to(dtype).float()
+    krp = cache_krope.to(dtype).float()
+    scale = 1.0 / math.sqrt(qk_nope + qk_rope)
+    s = (torch.einsum("bqhl,bsl->bqhs", q_lat.float(), ckv)
+         + torch.einsum("bqhr,bsr->bqhs", q_rope.float(), krp)) * scale
+    valid = torch.arange(s_max, device=x.device) <= cache_len
+    s = torch.where(valid, s, -torch.inf)
+    probs = torch.softmax(s, dim=-1)                      # (B, 1, H, S)
+    out = torch.einsum("bqhs,bsl->bqhl", probs, ckv).to(dtype)
+    wv_b = p.wv_b.to(dtype).reshape(kv_lora, n_heads, v_head)
+    out = torch.einsum("bqhl,lhv->bqhv", out, wv_b)
+    out = out.reshape(b, 1, n_heads * v_head)
+    return out.to(dtype) @ p.wo.to(dtype), cache_ckv, cache_krope
 
 
 # ----------------------------------------------------------------- MLPs

@@ -1,0 +1,155 @@
+"""Mixture-of-Experts layer (OLMoE / DeepSeek-V2 style), single device.
+
+Counterpart of the JAX package's ``models/moe.py`` local path
+(``_route``, ``_dispatch_compute``, ``_apply_moe_local``): top-k routing
+with a Switch aux loss, capacity-bounded dispatch and optional shared
+experts.  The sharded dispatch (``apply_moe_sharded``) is not ported
+(ROADMAP §A10f); :func:`dispatch_compute` keeps its ``e_local`` /
+``expert_offset`` arguments for it.
+
+Capacity: ``C = max(ceil(T * k / E * capacity_factor), k)``.  The (token,
+slot) assignments are taken in the reference's order, token-major and
+slot by slot within a token; an assignment's position within its expert is
+the count of earlier assignments to that expert, and those at ``C`` or
+past it are dropped (their share falls back to the shared experts / the
+residual).  In decode every serving slot is a token, idle ones too, so
+idle slots take capacity, as in the reference.
+
+The expert products are plain batched matmuls (``torch.bmm``), as the
+reference runs them outside any kernel.  The combine gathers each token's
+k expert rows back and sums them in slot order, so the sum's float order
+is the same on the card as on the CPU (no atomics).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .layers import MLP, _empty, apply_mlp
+
+
+class MoE(nn.Module):
+    """``router`` (d, E) f32; experts stacked: ``w1`` / ``w3`` (E, d, ff),
+    ``w2`` (E, ff, d); ``shared`` an :class:`MLP` of ``ff * n_shared``
+    when ``n_shared > 0``."""
+
+    def __init__(self, d_model: int, moe_d_ff: int, n_experts: int,
+                 n_shared: int, act: str, device=None, dtype=torch.float32):
+        super().__init__()
+        self.router = _empty(d_model, n_experts, device=device,
+                             dtype=torch.float32)
+        self.w1 = _empty(n_experts, d_model, moe_d_ff, device=device,
+                         dtype=dtype)
+        self.w3 = _empty(n_experts, d_model, moe_d_ff, device=device,
+                         dtype=dtype)
+        self.w2 = _empty(n_experts, moe_d_ff, d_model, device=device,
+                         dtype=dtype)
+        if n_shared > 0:
+            self.shared = MLP(d_model, moe_d_ff * n_shared, act, device,
+                              dtype)
+
+
+def route(xf, router, n_experts: int, top_k: int, router_aux_weight: float):
+    """Token routing and the Switch aux loss.  xf: (T, d) -> gate values
+    (T, k) f32, gate indices (T, k) int64, aux (scalar f32).
+
+    The router product reads xf in its own dtype and accumulates in f32;
+    ``torch.topk`` gives the largest probabilities first, as
+    ``jax.lax.top_k``."""
+    logits = xf.float() @ router.to(xf.dtype).float()
+    probs = torch.softmax(logits, dim=-1)                     # (T, E)
+    gate_vals, gate_idx = torch.topk(probs, top_k, dim=-1, sorted=True)
+    gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
+    onehot_any = F.one_hot(gate_idx, n_experts).float()
+    frac = onehot_any.sum(dim=1).mean(dim=0)                  # (E,)
+    aux = router_aux_weight * n_experts * torch.sum(frac * probs.mean(dim=0))
+    return gate_vals, gate_idx, aux
+
+
+def dispatch_plan(gate_idx, *, e_local: int, expert_offset: int,
+                  capacity: int):
+    """Where each (token, slot) assignment goes: ``(expert, position,
+    keep)``, each of shape (T * k,) in token-major order.  ``expert`` is in
+    local coordinates (0 where the assignment is not local), ``position``
+    its index among the assignments to that expert (-1 if not local), and
+    ``keep`` whether it is local and within ``capacity``."""
+    flat_e = gate_idx.reshape(-1) - expert_offset
+    local = (flat_e >= 0) & (flat_e < e_local)
+    flat_e = torch.where(local, flat_e, 0)
+    onehot = F.one_hot(flat_e, e_local).to(torch.int32) * local[:, None].to(
+        torch.int32)
+    # torch sums int32 into int64: cast back, as the reference's int32
+    pos = (torch.cumsum(onehot, dim=0).to(torch.int32) * onehot)
+    pos_in_e = pos.sum(dim=-1).to(torch.int32) - 1
+    keep = local & (pos_in_e >= 0) & (pos_in_e < capacity)
+    return flat_e, pos_in_e, keep
+
+
+def dispatch_compute(p: MoE, xf, gate_vals, gate_idx, *, e_local: int,
+                     expert_offset: int, capacity: int, act: str, dtype):
+    """Gather each local expert's tokens, run the expert MLPs, and combine.
+
+    xf: (T, d); ``gate_idx`` holds global expert ids; this holder's
+    ``w1 w2 w3`` are experts ``[expert_offset, expert_offset + e_local)``.
+    Returns the (T, d) output of those experts in ``dtype``.  Assignments
+    that are not kept are written into a spare last column of the tables,
+    which is cut off (the reference's scatter drops them), so nothing here
+    waits on the card for a count."""
+    t, d = xf.shape
+    top_k = gate_idx.shape[-1]
+    flat_e, pos_in_e, keep = dispatch_plan(
+        gate_idx, e_local=e_local, expert_offset=expert_offset,
+        capacity=capacity)
+    tok_ids = torch.arange(t, device=xf.device).repeat_interleave(top_k)
+    col = torch.where(keep, pos_in_e, capacity).long()
+    idx_table = torch.full((e_local, capacity + 1), t, dtype=torch.long,
+                           device=xf.device)
+    idx_table[flat_e, col] = tok_ids
+    gate_table = torch.zeros((e_local, capacity + 1), dtype=torch.float32,
+                             device=xf.device)
+    gate_table[flat_e, col] = gate_vals.reshape(-1).float()
+    idx_table, gate_table = idx_table[:, :capacity], gate_table[:, :capacity]
+
+    xpad = torch.cat([xf, xf.new_zeros((1, d))], dim=0)
+    g = xpad[idx_table].to(dtype)                             # (E, C, d)
+    h = torch.bmm(g, p.w1.to(dtype))
+    h = F.silu(h) if act == "swiglu" else F.gelu(h, approximate="tanh")
+    if act in ("swiglu", "geglu"):
+        h = h * torch.bmm(g, p.w3.to(dtype))
+    y = torch.bmm(h, p.w2.to(dtype))
+    y = y * gate_table[..., None].to(dtype)
+
+    # each assignment's row of y (a zero row when dropped), summed per
+    # token in slot order
+    rows = torch.where(keep, flat_e * capacity + pos_in_e, e_local * capacity)
+    ypad = torch.cat([y.reshape(-1, d), y.new_zeros((1, d))], dim=0)
+    parts = ypad[rows.long()].reshape(t, top_k, d)
+    out = parts[:, 0]
+    for j in range(1, top_k):
+        out = out + parts[:, j]
+    return out
+
+
+def apply_moe(p: MoE, x, *, n_experts: int, top_k: int, act: str, dtype,
+              capacity_factor: float = 1.25,
+              router_aux_weight: float = 0.01):
+    """x: (B, S, d) -> ``(out (B, S, d), aux)``: the routed experts' output
+    plus the shared experts', and the load-balancing loss that training
+    adds (serving drops it)."""
+    b, s, d = x.shape
+    t = b * s
+    xf = x.reshape(t, d)
+    gate_vals, gate_idx, aux = route(xf, p.router, n_experts, top_k,
+                                     router_aux_weight)
+    capacity = max(int(math.ceil(t * top_k / n_experts * capacity_factor)),
+                   top_k)
+    out = dispatch_compute(p, xf, gate_vals, gate_idx, e_local=n_experts,
+                           expert_offset=0, capacity=capacity, act=act,
+                           dtype=dtype)
+    out = out.reshape(b, s, d)
+    if hasattr(p, "shared"):
+        out = out + apply_mlp(p.shared, x, act, dtype)
+    return out, aux

@@ -1,4 +1,5 @@
-"""The port's decoder LM: blocks of kind ``mamba``, ``shared`` and ``attn``.
+"""The port's decoder LM: blocks of kind ``mamba``, ``shared``, ``attn`` and
+``moe``, with GQA or MLA attention.
 
 Counterpart of the JAX package's ``models/transformer.py`` for the serving
 path.  The JAX package stacks each segment's parameters and scans over
@@ -8,12 +9,12 @@ per segment, run by a Python loop.  Parameter names follow the JAX pytree:
 ``segments/<i>/mixer/in_z`` stack (see ``repro_torch.convert``).
 
 Structures of later slices raise ``NotImplementedError`` naming their
-ROADMAP item: MoE, MLA, the encoder-decoder, modality frontends and
-training.
+ROADMAP item: the encoder-decoder, modality frontends and training.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import List, Tuple
 
@@ -25,6 +26,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 
 from . import layers as L
+from . import moe as M
 from . import ssm as S
 
 
@@ -86,9 +88,7 @@ def _ssm_dims(cfg: ModelConfig) -> S.SSMDims:
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for structures of later slices, naming
     each one's ROADMAP item."""
-    todo = [(cfg.n_experts > 0, "MoE blocks", "A10a"),
-            (cfg.attn == "mla", "MLA attention", "A10b"),
-            (cfg.is_encdec, "the encoder-decoder", "A10c"),
+    todo = [(cfg.is_encdec, "the encoder-decoder", "A10c"),
             (cfg.frontend != "none", f"the {cfg.frontend} frontend", "A10d")]
     missing = [f"{what} (ROADMAP §{item})" for hit, what, item in todo
                if hit]
@@ -115,34 +115,83 @@ class MambaBlock(nn.Module):
         return x + out, cache
 
 
-class AttnBlock(nn.Module):
-    """``ln1`` + GQA ``attn`` + ``ln2`` + ``mlp``: kinds ``attn`` and
-    ``shared`` (zamba2's one block applied at every marker)."""
+def uses_mla(cfg: ModelConfig, kind: str) -> bool:
+    """Whether a block of ``kind`` attends with MLA (``attn`` and ``moe``
+    blocks of an MLA config; zamba2's ``shared`` block is GQA)."""
+    return cfg.attn == "mla" and kind in ("attn", "moe")
 
-    def __init__(self, cfg: ModelConfig, device=None, dtype=torch.float32):
+
+def self_attention(p, h, cfg: ModelConfig, kind: str, positions, window,
+                   theta, dtype):
+    """The block's self-attention over h (prefill).  Returns ``(out,
+    leaf)``: the layer's decode-cache leaf, {"k", "v"} for GQA, the
+    latent {"ckv", "krope"} for MLA."""
+    if uses_mla(cfg, kind):
+        c_kv, k_rope = L.mla_latent(p, h, positions, theta, dtype,
+                                    kv_lora=cfg.kv_lora, qk_rope=cfg.qk_rope)
+        att = L.mla_attention_from_latent(
+            p, h, c_kv, k_rope, n_heads=cfg.n_heads, qk_nope=cfg.qk_nope,
+            qk_rope=cfg.qk_rope, v_head=cfg.v_head, rope_theta=theta,
+            causal=True, dtype=dtype)
+        return att, {"ckv": c_kv, "krope": k_rope[:, :, 0]}
+    att, k, v = L.gqa_attention(
+        p, h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+        head_dim=cfg.head_dim, positions=positions,
+        rope_theta=None if cfg.rope_theta == 0 else theta, causal=True,
+        window=window, dtype=dtype)
+    return att, {"k": k, "v": v}
+
+
+def apply_ffn(blk, h2, cfg: ModelConfig, dtype):
+    """The block's ``mlp``, or its ``moe`` (whose aux loss serving drops;
+    :func:`repro_torch.models.moe.apply_moe` returns it for training)."""
+    if hasattr(blk, "moe"):
+        out, _aux = M.apply_moe(blk.moe, h2, n_experts=cfg.n_experts,
+                                top_k=cfg.top_k, act=cfg.act, dtype=dtype,
+                                capacity_factor=cfg.moe_capacity_factor)
+        return out
+    return L.apply_mlp(blk.mlp, h2, cfg.act, dtype)
+
+
+class AttnBlock(nn.Module):
+    """``ln1`` + ``attn`` (GQA, or MLA for an MLA config) + ``ln2`` + an
+    FFN: ``mlp`` for kinds ``attn`` and ``shared`` (zamba2's one block
+    applied at every marker), ``moe`` for kind ``moe``."""
+
+    def __init__(self, cfg: ModelConfig, device=None, dtype=torch.float32,
+                 kind: str = "attn"):
         super().__init__()
         d = cfg.d_model
+        self.kind = kind
         self.ln1 = L.Norm(cfg.norm, d, device, dtype)
-        self.attn = L.GQA(d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
-                          cfg.qkv_bias, device, dtype)
+        if uses_mla(cfg, kind):
+            self.attn = L.MLA(d, cfg.n_heads, q_lora=cfg.q_lora,
+                              kv_lora=cfg.kv_lora, qk_nope=cfg.qk_nope,
+                              qk_rope=cfg.qk_rope, v_head=cfg.v_head,
+                              device=device, dtype=dtype)
+        else:
+            self.attn = L.GQA(d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                              cfg.qkv_bias, device, dtype)
         self.ln2 = L.Norm(cfg.norm, d, device, dtype)
-        self.mlp = L.MLP(d, cfg.d_ff, cfg.act, device, dtype)
+        if kind == "moe":
+            self.moe = M.MoE(d, cfg.moe_d_ff, cfg.n_experts,
+                             cfg.n_shared_experts, cfg.act, device, dtype)
+        else:
+            self.mlp = L.MLP(d, cfg.d_ff, cfg.act, device, dtype)
 
     def forward(self, x, cfg: ModelConfig, positions, window, theta, dtype):
-        """Returns (x, {"k", "v"} of the layer's keys and values)."""
+        """Returns (x, the layer's decode-cache leaf)."""
         h = L.apply_norm(cfg.norm, self.ln1, x)
-        att, k, v = L.gqa_attention(
-            self.attn, h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
-            head_dim=cfg.head_dim, positions=positions,
-            rope_theta=None if cfg.rope_theta == 0 else theta, causal=True,
-            window=window, dtype=dtype)
+        att, leaf = self_attention(self.attn, h, cfg, self.kind, positions,
+                                   window, theta, dtype)
         x = x + att
         h2 = L.apply_norm(cfg.norm, self.ln2, x)
-        return x + L.apply_mlp(self.mlp, h2, cfg.act, dtype), {"k": k,
-                                                              "v": v}
+        return x + apply_ffn(self, h2, cfg, dtype), leaf
 
 
-BLOCKS = {"mamba": MambaBlock, "attn": AttnBlock, "shared": AttnBlock}
+BLOCKS = {"mamba": MambaBlock,
+          "attn": functools.partial(AttnBlock, kind="attn"),
+          "moe": functools.partial(AttnBlock, kind="moe")}
 
 
 class LM(nn.Module):
@@ -163,7 +212,7 @@ class LM(nn.Module):
                            for _ in range(seg.count)])
             for seg in self.plan)
         if cfg.shared_attn_every:
-            self.shared_block = AttnBlock(cfg, device, dtype)
+            self.shared_block = AttnBlock(cfg, device, dtype, kind="shared")
         self.final_norm = L.Norm(cfg.norm, cfg.d_model, device, dtype)
         if not cfg.tie_embeddings:
             self.unembed = L._empty(cfg.d_model, cfg.vocab, device=device,
@@ -181,9 +230,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
     """A model with the JAX ``init_params`` shapes and init scales, drawn
     from ``generator`` (on ``device``'s type) in parameter order.
 
-    Dense weights are N(0, 1) / sqrt(d_in), the embedding table
-    N(0, 1) / sqrt(d_model), conv kernels N(0, 1) / sqrt(d_conv); norms
-    and ``d_skip`` are 1, biases 0, ``a_log = log(linspace(1, 16, H))``.
+    Dense weights are N(0, 1) / sqrt(d_in) (stacked experts (E, d_in,
+    d_out) too), the embedding table N(0, 1) / sqrt(d_model), conv kernels
+    N(0, 1) / sqrt(d_conv); norms and ``d_skip`` are 1, biases 0, ``a_log
+    = log(linspace(1, 16, H))``.
     Not JAX's random stream: the same seed gives other weights.
     """
     dev = resolve_device(device)
@@ -201,8 +251,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
                                dtype=torch.float32)
             if leaf == "table":
                 draw /= math.sqrt(prm.shape[1])
-            else:            # (d_in, d_out) weights and (d_conv, C) kernels
-                draw /= math.sqrt(prm.shape[0])
+            else:   # (d_in, d_out), (E, d_in, d_out) and (d_conv, C)
+                draw /= math.sqrt(prm.shape[-2])
             prm.copy_(draw)
     return model
 

@@ -12,9 +12,9 @@ position at the longer one's length and attends over zero rows (ROADMAP
 §C4).
 
 Prefill caches are written into their slot by the cache's known layout
-(layers on the leading axis of ``mamba`` and ``attn`` segments, the batch
-first in ``shared`` markers).  Greedy decoding takes the first maximal
-logit, as ``jnp.argmax``.  Sampling (``greedy=False``) draws from the
+(layers on the leading axis of ``mamba``, ``attn`` and ``moe`` segments,
+the batch first in ``shared`` markers).  Greedy decoding takes the first
+maximal logit, as ``jnp.argmax``.  Sampling (``greedy=False``) draws from the
 softmax with a ``torch.Generator`` seeded by ``sample_seed``: deterministic
 per seed and submission order, but not JAX's random stream.
 """
@@ -86,7 +86,7 @@ class ServeEngine:
                     big[name][slot] = small[name][0]
             else:
                 pairs = (zip(big, small) if seg.kind == "mamba" else
-                         ((big[n], small[n]) for n in ("k", "v")))
+                         ((big[n], small[n]) for n in big))
                 for dst, src in pairs:
                     dst[:, slot] = src[:, 0]
 

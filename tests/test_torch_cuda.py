@@ -1,6 +1,7 @@
 """Card-only checks of the port: the CUDA kernels against their plain
 versions, the scheduling engine on the card against the engine on the
-CPU, and the reduced zamba2 serving engine likewise.
+CPU, and the reduced zamba2, olmoe and DeepSeek serving engines
+likewise.
 
 Every test here is marked ``cuda`` and skips without a CUDA device; this
 file imports no JAX, so it also runs where only PyTorch is installed:
@@ -317,6 +318,33 @@ def test_flash_attention_kernel_matches_plain(cuda_device, dtype, b, sq, sk,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,h,hkv,d,dv,kw", [
+    # DeepSeek-V2's prefill (keys 192 in the 256 bucket, values 128) and
+    # reduced DeepSeek's (48 / 32); a short prompt (prefill variant: the
+    # decode variant needs Dv == D); a valid length; GQA; values padded
+    # inside the kernel (72 to 80; bf16 20, copied element by element)
+    (1, 512, 128, 128, 192, 128, {}),
+    (2, 37, 4, 4, 48, 32, {}),
+    (2, 5, 4, 4, 48, 32, {}),
+    (1, 100, 8, 8, 192, 128, dict(kv_valid_len=60)),
+    (1, 70, 4, 2, 96, 64, {}),
+    (1, 50, 4, 4, 128, 72, {}),
+    (1, 40, 2, 2, 64, 20, dict(causal=False))])
+def test_flash_attention_value_width_matches_plain(cuda_device, dtype, b,
+                                                   sq, h, hkv, d, dv, kw):
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import attention_ref
+    gen = torch.Generator().manual_seed(sq * d + dv)
+    q = _rand(gen, b, sq, h, d, dev=cuda_device, dtype=dtype)
+    k = _rand(gen, b, sq, hkv, d, dev=cuda_device, dtype=dtype)
+    v = _rand(gen, b, sq, hkv, dv, dev=cuda_device, dtype=dtype)
+    got = flash_attention(q, k, v, **kw)
+    assert got.shape == (b, sq, h, dv) and got.dtype == dtype
+    _close(got, attention_ref(q, k, v, **kw), LLM_TOL[dtype][0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,s,h,p,n,init", [
     (1, 200, 4, 64, 64, False), (2, 50, 3, 16, 16, True),
     (1, 130, 2, 64, 128, False),
@@ -371,6 +399,37 @@ def test_reduced_zamba2_engine_on_card_matches_cpu(cuda_device):
     assert out["cpu"] == out[cuda_device]
     assert all(build.LAUNCH_COUNTS[k] > 0
                for k in ("rmsnorm", "flash_attention", "ssd_scan"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "deepseek-v2-236b"])
+def test_reduced_moe_engine_on_card_matches_cpu(cuda_device, arch):
+    """Reduced olmoe (MoE blocks) and reduced DeepSeek-V2 (MLA, a dense
+    first layer, shared experts) serve the same greedy tokens on the card
+    as on the CPU, through the rmsnorm and flash-attention kernels."""
+    import copy
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg = get_config(arch).reduced()
+    cpu = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    models = {"cpu": cpu, cuda_device: copy.deepcopy(cpu).to(cuda_device)}
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(2, cfg.vocab, size=n).astype(np.int32)
+               for n in (9, 30, 4, 17)]
+    out = {}
+    build.LAUNCH_COUNTS.clear()
+    for dev, model in models.items():
+        eng = ServeEngine(model, cfg, n_slots=2, max_len=64, device=dev)
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=6)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_drained()
+        out[dev] = [r.out_tokens for r in reqs]
+    assert out["cpu"] == out[cuda_device]
+    assert all(build.LAUNCH_COUNTS[k] > 0
+               for k in ("rmsnorm", "flash_attention"))
 
 
 @pytest.mark.cuda

@@ -4,10 +4,10 @@
 * no file of the port (nor ``chip_smoke.py``) imports ``jax`` or ``repro``;
 * without a card, the entry points raise unless ``device="cpu"`` is given;
 * kernel backends refuse CPU tensors at the engine level;
-* structures of later slices (MoE, MLA, the encoder-decoder, frontends
-  and training in the LLM layer) raise ``NotImplementedError`` naming
-  their ROADMAP item, while every structure and flag of the scheduling
-  pass runs.
+* structures of later slices (the encoder-decoder, frontends and
+  training in the LLM layer) raise ``NotImplementedError`` naming their
+  ROADMAP item, while MoE and MLA build, and every structure and flag of
+  the scheduling pass runs.
 
 Kernel launches need a card: the ``cuda``-marked tests in
 ``test_torch_cuda.py`` skip here; they and ``chip_smoke.py`` run on the
@@ -149,7 +149,6 @@ def test_llm_entry_points_without_device_raise_on_a_cpu_box(no_card):
 
 
 @pytest.mark.parametrize("arch,items", [
-    ("olmoe-1b-7b", ["A10a"]), ("deepseek-v2-236b", ["A10a", "A10b"]),
     ("whisper-large-v3", ["A10c", "A10d"]), ("internvl2-2b", ["A10d"])])
 def test_llm_structures_of_later_slices_raise_not_implemented(arch, items):
     from repro_torch.configs import get_config
@@ -163,6 +162,24 @@ def test_llm_structures_of_later_slices_raise_not_implemented(arch, items):
             build()
         for item in items:
             assert f"ROADMAP §{item}" in str(err.value)
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "deepseek-v2-236b"])
+def test_llm_moe_and_mla_build(arch):
+    """MoE blocks (A10a) and MLA with its latent cache (A10b) are ported:
+    both configs build, published and reduced, and name no ROADMAP item."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.decode import init_decode_cache
+    from repro_torch.models.transformer import (LM, check_supported,
+                                                init_params)
+    check_supported(get_config(arch))
+    cfg = get_config(arch).reduced()
+    model = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    assert [b.kind for seg in model.segments for b in seg][-1] == "moe"
+    assert isinstance(LM(cfg, "cpu"), LM)
+    cache = init_decode_cache(cfg, 1, 8, device="cpu")
+    names = ({"ckv", "krope"} if cfg.attn == "mla" else {"k", "v"})
+    assert all(set(seg) == names for seg in cache["segments"])
 
 
 def test_llm_training_raises_not_implemented():
@@ -249,15 +266,36 @@ def test_kernel_c_interface_matches_the_loader():
     assert sig == build.expected_abi()
 
 
-@pytest.mark.parametrize("elapsed_s,rate,scale", [
-    (600.0, 5.0e-3, 1.0), (725.0, 6.0e-3, 1.0), (900.0, 6.0e-3, 0.5),
-    (1100.0, 6.0e-3, 0.25), (0.0, None, 1.0)])
-def test_chip_smoke_cuts_haswell_only_when_it_cannot_fit(elapsed_s, rate,
-                                                         scale):
+def _load_chip_smoke():
     import importlib.util
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   ROOT / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
+    return smoke
+
+
+@pytest.mark.parametrize("elapsed_s,rate,scale", [
+    (600.0, 5.0e-3, 1.0), (725.0, 6.0e-3, 1.0), (900.0, 6.0e-3, 0.5),
+    (1100.0, 6.0e-3, 0.25), (0.0, None, 1.0)])
+def test_chip_smoke_cuts_haswell_only_when_it_cannot_fit(elapsed_s, rate,
+                                                         scale):
     report = {} if rate is None else {"greedy_s_per_step": rate}
-    assert smoke.haswell_scale(report, elapsed_s) == scale
+    assert _load_chip_smoke().haswell_scale(report, elapsed_s) == scale
+
+
+@pytest.mark.parametrize("rule,elapsed_s,rate,scale", [
+    ("registry_scale", 500.0, 5.34e-3, 0.1),
+    ("registry_scale", 1050.0, 5.0e-3, 0.05),
+    ("registry_scale", 0.0, None, 0.1),
+    ("whatif_scale", 600.0, 5.0e-3, 0.1),
+    ("whatif_scale", 800.0, 3.84e-3, 0.1),
+    ("whatif_scale", 900.0, 5.34e-3, 0.05),
+    ("whatif_scale", 0.0, None, 0.1)])
+def test_chip_smoke_cuts_theta_phases_only_when_they_cannot_fit(
+        rule, elapsed_s, rate, scale):
+    """The registry phase and what-if (d) run theta at 0.1 and cut to 0.05
+    only when the time left would not hold them (what-if (d) also leaves
+    room for the dense phase and haswell at its least scale)."""
+    report = {} if rate is None else {"greedy_s_per_step": rate}
+    assert getattr(_load_chip_smoke(), rule)(report, elapsed_s) == scale

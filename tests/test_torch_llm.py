@@ -4,9 +4,12 @@ The JAX ``init_params(jax.random.key(0), cfg)`` weights cross into the port
 with ``lm_params_from_numpy``; then, in f32 at atol = rtol = 2e-4:
 ``forward_logits``, ``prefill`` (logits and every cache leaf) and three
 ``decode_step``s, and the two serving engines' greedy tokens, which must be
-identical.  Two models: reduced zamba2-2.7b (``mamba`` and ``shared``
-blocks, RMSNorm) and the stablelm ``_mini`` of ``tests/test_serve.py``
-(``attn`` blocks, LayerNorm, qkv bias).
+identical.  The models: the stablelm ``_mini`` of ``tests/test_serve.py``
+(``attn`` blocks, LayerNorm, qkv bias) and every other architecture the
+port serves, reduced (``MODELS``): zamba2-2.7b (``mamba`` and ``shared``
+blocks), gemma3-4b, glm4-9b, qwen2-72b, mamba2-1.3b, olmoe-1b-7b (``moe``
+blocks) and deepseek-v2-236b (MLA, its latent cache, a dense first layer
+and shared experts).
 
 Fault C4 (ROADMAP §C): both engines decode every slot at the longest
 active slot's length, so a short request batched beside a long one comes
@@ -54,8 +57,20 @@ def _mini_cfg():
         n_layers=2, d_model=64, d_ff=128, vocab=128, name="serve-mini")
 
 
-MODELS = {"zamba2": lambda: get_config("zamba2-2.7b").reduced(),
-          "mini": _mini_cfg}
+def _reduced(arch):
+    return lambda: get_config(arch).reduced()
+
+
+# the stablelm _mini, and every architecture the port serves, reduced:
+# geglu + tied embeddings + a 5:1 local / global window with two thetas
+# (gemma3), 4:2 GQA (glm4), qkv bias (qwen2), the attention-free stack
+# (mamba2), the hybrid (zamba2), MoE (olmoe), and MLA with a dense first
+# layer and shared experts (deepseek)
+MODELS = {"zamba2": _reduced("zamba2-2.7b"), "mini": _mini_cfg,
+          "gemma3": _reduced("gemma3-4b"), "glm4": _reduced("glm4-9b"),
+          "qwen2": _reduced("qwen2-72b"), "mamba2": _reduced("mamba2-1.3b"),
+          "olmoe": _reduced("olmoe-1b-7b"),
+          "deepseek": _reduced("deepseek-v2-236b")}
 _CACHE = {}
 
 
@@ -119,6 +134,42 @@ def test_prefill_and_three_decode_steps_match_jax(name):
     for key in jflat:
         np.testing.assert_allclose(tflat[key], jflat[key], **TOL,
                                    err_msg=key)
+
+
+@pytest.mark.parametrize("name", ["olmoe", "deepseek"])
+def test_convert_round_trips_moe_and_mla_leaves(name):
+    """Every JAX leaf lands in the port's parameter of the same path (MoE
+    leaves with the layer on axis 0 and the expert on axis 1; MLA's
+    projections and norms), and the latent cache (``ckv`` / ``krope``)
+    crosses both ways unchanged."""
+    cfg, params, model = _pair(name)
+    flat = _flat(params)
+    named = dict(model.named_parameters())
+    moe_keys = [k for k in flat if "/moe/" in k]
+    assert {k.rsplit("/moe/", 1)[1] for k in moe_keys} >= {
+        "router", "w1", "w2", "w3"}
+    for key, arr in flat.items():
+        parts = key.split("/")
+        if parts[0] == "segments":
+            got = np.stack([named[".".join(["segments", parts[1], str(i)]
+                                           + parts[2:])].detach().numpy()
+                            for i in range(arr.shape[0])])
+        else:
+            got = named[".".join(parts)].detach().numpy()
+        np.testing.assert_array_equal(got, arr, err_msg=key)
+    if cfg.attn == "mla":
+        assert any(k.endswith("/attn/kv_norm/scale") for k in flat)
+        assert sum(1 for k in named if k.endswith("attn.wk_b")) == \
+            cfg.n_layers
+    _, jc = JD.prefill(params, cfg, {"tokens": jnp.asarray(
+        _tokens(cfg, (2, 9), 5))}, cache_size=12, dtype=jnp.float32)
+    jflat = _flat(jc)
+    leaves = {k.rsplit("/", 1)[1] for k in jflat}
+    assert leaves == ({"ckv", "krope"} if cfg.attn == "mla" else {"k", "v"})
+    back = cache_to_numpy(cache_from_numpy(jflat, cfg, "cpu"))
+    assert sorted(back) == sorted(jflat)
+    for key in jflat:
+        np.testing.assert_array_equal(back[key], jflat[key], err_msg=key)
 
 
 def _serve(engine_mod, model_or_params, cfg, prompts, *, n_slots, max_len,

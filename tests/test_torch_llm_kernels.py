@@ -200,12 +200,85 @@ def test_attention_plan_fits_shared_memory(dh, elem_bytes):
 
 @pytest.mark.parametrize("arch", list_archs())
 def test_attention_head_dims_fit_the_kernel(arch):
-    """Every registered config with attention runs its head dim through
-    the kernel (MLA, ROADMAP A10b, is not ported)."""
+    """Every registered config with attention runs its head dims through
+    the kernel: GQA's head dim, and MLA's prefill keys (qk_nope + qk_rope)
+    with its narrower values (v_head)."""
     cfg = get_config(arch)
     if cfg.attn == "gqa":
         assert cfg.head_dim <= tfa.MAX_HEAD_DIM
         assert cfg.n_heads % cfg.n_kv_heads == 0
+    if cfg.attn == "mla":
+        assert cfg.v_head <= cfg.qk_nope + cfg.qk_rope <= tfa.MAX_HEAD_DIM
+
+
+# MLA's prefill: keys of qk_nope + qk_rope, values of v_head, one KV head a
+# query head (reduced deepseek 48 / 32; DeepSeek-V2 192 / 128)
+@pytest.mark.parametrize("b,s,h,dk,dv,valid", [
+    (2, 37, 4, 48, 32, None), (1, 70, 8, 192, 128, None),
+    (1, 40, 4, 192, 128, 23), (2, 5, 4, 48, 32, None)])
+def test_attention_plain_value_width_matches_model(b, s, h, dk, dv, valid):
+    """attention_ref and the wrapper with Dv < Dk against the JAX
+    ``chunked_attention`` (its "value width may differ" path)."""
+    rng = np.random.default_rng(dk + s)
+    q = rng.normal(size=(b, s, h, dk)).astype(np.float32)
+    k = rng.normal(size=(b, s, h, dk)).astype(np.float32)
+    v = rng.normal(size=(b, s, h, dv)).astype(np.float32)
+    scale = 1.0 / np.sqrt(dk)
+    got = tref.attention_ref(_t(q), _t(k), _t(v), kv_valid_len=valid,
+                             softmax_scale=scale, block_k=16)
+    assert got.shape == (b, s, h, dv)
+    pos = jnp.arange(s)
+    model = jlayers.chunked_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), q_positions=pos,
+        kv_positions=pos, causal=True, softmax_scale=scale,
+        kv_valid_len=None if valid is None else jnp.asarray(valid),
+        block_k=16)
+    np.testing.assert_allclose(got.numpy(), np.asarray(model), **ATOL)
+    wrapped = flash_attention(_t(q), _t(k), _t(v), kv_valid_len=valid,
+                              softmax_scale=scale, block_k=16)
+    np.testing.assert_array_equal(wrapped.numpy(), got.numpy())
+
+
+@pytest.mark.parametrize("elem_bytes", [4, 2], ids=["f32", "bf16"])
+def test_attention_plan_value_width(elem_bytes):
+    """DeepSeek-V2's prefill (1 x 512 x 128 heads, Dk 192 in the 256 bucket,
+    Dv 128) fits a CTA's shared memory, its V rows at V's own width; a Dv
+    that differs from Dk takes the prefill variant even where the decode
+    variant would serve Dv == Dk."""
+    p = tfa.plan(1, 512, 512, 128, 128, 192, elem_bytes, dv=128)
+    assert (p.variant, p.d_pad, p.dv_pad) == ("prefill", 192, 128)
+    assert p.smem_bytes <= tfa.MAX_SMEM_BYTES
+    same = tfa.plan(1, 512, 512, 128, 128, 192, elem_bytes)
+    assert p.smem_bytes < same.smem_bytes
+    # Q's 64 rows and two K / V buffers at padded row strides: f32 208 / 132
+    # words (32-key tiles), bf16 200 / 136 elements (64-key tiles)
+    assert p.smem_bytes == {4: 4 * (64 * 208 + 2 * 32 * (208 + 132)),
+                            2: 2 * (64 * 200 + 2 * 64 * (200 + 136))
+                            }[elem_bytes] == {4: 140_288,
+                                              2: 111_616}[elem_bytes]
+    assert tfa.plan(1, 4, 64, 4, 4, 48, elem_bytes).variant == "decode"
+    assert tfa.plan(1, 4, 64, 4, 4, 48, elem_bytes,
+                    dv=32).variant == "prefill"
+    assert tfa.plan(1, 4, 64, 4, 4, 48, elem_bytes,
+                    dv=48).variant == "decode"
+
+
+def test_attention_wrapper_value_width_bounds():
+    """The wrapper takes Dv <= Dk and refuses Dv > Dk (and other ragged
+    shapes), on the CPU as on the card."""
+    q = torch.zeros(1, 3, 4, 32)
+    k = torch.zeros(1, 5, 2, 32)
+    assert flash_attention(q, k, torch.zeros(1, 5, 2, 16)).shape == (
+        1, 3, 4, 16)
+    assert flash_attention(q, k, torch.zeros(1, 5, 2, 32)).shape == (
+        1, 3, 4, 32)
+    for v in (torch.zeros(1, 5, 2, 48), torch.zeros(1, 4, 2, 16),
+              torch.zeros(1, 5, 1, 16), torch.zeros(1, 5, 2, 0)):
+        with pytest.raises(ValueError, match="Dv <= Dh"):
+            flash_attention(q, k, v)
+    with pytest.raises(ValueError, match="head dim"):
+        big = torch.zeros(1, 2, 1, 272)
+        flash_attention(big, big, big)
 
 
 def test_attention_rows_that_see_no_key_are_zero():
