@@ -8,8 +8,10 @@ each against its plain PyTorch version on the card, drives the port's two
 main paths (the paper grid on the batched engine through
 ``repro_torch.experiments.backend_torch.run_cells`` and the experiment
 layer around it, ``python -m repro_torch.experiments``; the what-if query
-service, ``python -m repro_torch.serve``; and LLM serving through
-``repro_torch.serve.engine.ServeEngine``) and prints what it saw.
+service, ``python -m repro_torch.serve``; LLM serving through
+``repro_torch.serve.engine.ServeEngine``; and the encoder-decoder and the
+vision prefix through ``repro_torch.models.decode.prefill`` /
+``decode_step``) and prints what it saw.
 Phases:
 
 1. environment: versions, the card's name and power limit, the build;
@@ -82,7 +84,28 @@ Phases:
    192, values 128) held to its plain version in f32 (the run's own call)
    and bf16, and timed beside SDPA; rmsnorm at MLA's q_norm / kv_norm
    calls (widths 1,536 and 512);
-6. registry: the rest of the strategy registry through ``run_cells``, on
+6. encdec: the encoder-decoder and the modality frontends through the
+   port's LLM layer, f32, random weights from seed 0, launches counted
+   from 0 just before each run: (a) reduced whisper-large-v3 and reduced
+   internvl2-2b (with patches), the same seeded weights and inputs on the
+   card and on the CPU, through ``prefill`` and 8 greedy ``decode_step``s:
+   identical tokens and last logits within 1e-3; (b) whisper-large-v3 at
+   full width and depth (32 + 32 layers): 4 utterances of 1,500 frame
+   embeddings from the seed (the audio frontend is a stub), a 4-token
+   prompt, 60 greedy tokens, a 448-row cache; (c) internvl2-2b at full
+   width and depth: 4 sequences of 256 patch embeddings and 128 tokens,
+   32 greedy tokens, then 4 text-only requests of 64..256 tokens through
+   the engine (2 slots, 16 new each).  Each run: logits finite,
+   flash_attention launched in every call form (whisper: the encoder's
+   non-causal prefill, the cross-attention prefill and decode, the
+   decoder's own prefill and decode), rmsnorm for internvl2; prints
+   encoder s, prefill s, decode ms per step, peak memory, launches per
+   prefill and per decode step and the busy share of one prefill and one
+   decode step.  (d) flash_attention in each call form, the run's own
+   call (f32) and its bf16 copy, held to its plain version and timed
+   beside SDPA with the call's own ``causal``; rmsnorm at internvl2's
+   calls (1,536 x 2,048 and 4 x 2,048) beside ``F.rms_norm``;
+7. registry: the rest of the strategy registry through ``run_cells``, on
    theta at scale 0.1 (255 jobs on 4,392 nodes, 1 seed, proportions 0.2 /
    0.6 / 1.0): SJF with MIN, KEEPPREF, PREF_COMMON_POOL and
    STEAL_AGREEMENT (greedy, pooled and stealing batches; 13 cells) under
@@ -97,7 +120,7 @@ Phases:
    as in phase 3; each batch's wall, steps, window and ms per step, and the
    SJF greedy step beside the main phase's FCFS one.  Cut to scale 0.05,
    printed, if the time left would not hold it;
-7. experiment: ``python -m repro_torch.experiments``'s ``main(argv)`` as
+8. experiment: ``python -m repro_torch.experiments``'s ``main(argv)`` as
    a user runs it, each group of runs in a fresh temporary directory
    outside the repository, kernel launches counted from 0 before each
    run: (a) haswell at scale 0.02, 2 seeds, ``--crosscheck 2
@@ -115,7 +138,7 @@ Phases:
    engine's methodology gap, which the port shares with the JAX engine.
    Each run prints its wall, cells computed, store hits, launches and
    DES seconds;
-8. whatif: the what-if query service (``repro_torch.serve``) in a fresh
+9. whatif: the what-if query service (``repro_torch.serve``) in a fresh
    temporary cell store outside the repository: (a) 16 seeded queries at
    theta scale 1.0 (MIN, PREF, KEEPPREF, EASY; proportions 0.2 / 0.4 /
    0.6 / 1.0; 2 seeds; 10 distinct cells) submitted from 4 client threads
@@ -136,7 +159,7 @@ Phases:
    per-cell metrics identical; and a storm at theta 0.02 (greedy and
    balanced lanes) on the card equal to the same storm on the CPU bit for
    bit.  Prints wall, batches, coalesce widths, steps and launches;
-9. dense: the dense per-tick engine (``repro_torch.core.sim_dense``,
+10. dense: the dense per-tick engine (``repro_torch.core.sim_dense``,
    one scheduling pass a tick over whole job tensors), launches counted
    from 0 before each run: (a) the 20-job workload of
    ``tests/test_sim_jax.py`` on 10 nodes for 800 ticks under the 8
@@ -152,7 +175,7 @@ Phases:
    ticks equal to ``bisect``; wall, ms a tick and each lane's mean
    turnaround beside the port's DES (not gated); the tick kernel timed on
    the batch's 450th call (3 x 415 slots, priority bounds +-4 x 9,688);
-10. scale: the greedy batch on haswell at scale 1.0 (the whole trace,
+11. scale: the greedy batch on haswell at scale 1.0 (the whole trace,
    28,259 jobs on 2,388 nodes) with ``fused``, tick launches counted from
    0 just before it; the tick kernel is then timed on the run's call at
    its peak window (B = 16, W = 16,384): single-call and device (CUDA
@@ -198,10 +221,11 @@ SPLIT_TF32_PASSES = 3
 PAPER_STRATEGIES = ("easy", "min", "pref", "avg", "keeppref")
 TIME_LIMIT_S = 1200.0
 # haswell at scale 1.0: scan steps of the greedy batch, and its wall per
-# step over the theta fused greedy batch's (1.25-1.36 on H100 runs;
-# PERF.md section 5)
+# step over the theta fused greedy batch's: 1.18-1.73 on H100 runs
+# (PERF.md section 5), so the largest, that a slow haswell run still ends
+# inside the time limit
 HASWELL_STEPS = 52_160
-HASWELL_STEP_RATIO = 1.32
+HASWELL_STEP_RATIO = 1.75
 # the registry phase at theta scale 0.1: scan steps of its batches that run
 # the plain pass, and the plain pass's wall per step over the theta fused
 # greedy batch's (PERF.md section 5)
@@ -1206,7 +1230,11 @@ def ssd_rate(x):
 
 
 def library_call(kernel: str, args, kw):
-    """One PyTorch call computing the same function, or None."""
+    """One PyTorch call computing the same function, or None.  For
+    attention, SDPA with the call's own ``causal`` over its valid keys,
+    output (B, H, Sq, Dv); None for a sliding window and for a causal
+    call of several queries at an offset (SDPA's causal mask is aligned
+    top-left)."""
     import torch
     import torch.nn.functional as F
     if kernel == "rmsnorm":
@@ -1216,12 +1244,18 @@ def library_call(kernel: str, args, kw):
     if kernel != "flash_attention" or kw.get("window", 0) > 0:
         return None
     q, k, v = args
-    valid = kw.get("kv_valid_len") or k.shape[1]
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k[:, :valid], v[:, :valid]))
+    sq, off = q.shape[1], kw.get("q_offset", 0)
+    causal = kw.get("causal", True)
+    if causal and sq > 1 and off > 0:
+        return None   # SDPA's causal mask is top-left: it takes no offset
+    hi = min(k.shape[1], kw.get("kv_valid_len") or k.shape[1])
+    if causal and sq == 1:   # the one query sees keys 0..q_offset
+        hi, causal = min(hi, off + 1), False
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k[:, :hi], v[:, :hi]))
     gqa = q.shape[2] != k.shape[2]
-    causal = q.shape[1] > 1   # decode: the one query sees every valid key
     return lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=causal, enable_gqa=gqa)
+        qt, kt, vt, is_causal=causal, scale=kw.get("softmax_scale"),
+        enable_gqa=gqa)
 
 
 class Keep(Patch):
@@ -1242,21 +1276,35 @@ class Keep(Patch):
         return self.inner(*args, **kwargs)
 
 
-class Timed(Patch):
-    """Wraps ``decode.prefill`` / ``decode.decode_step``: synchronises after
-    each call, sums the wall time and counts calls with non-finite logits."""
+class Clock(Patch):
+    """Wraps a function: synchronises after each call and sums the wall
+    time."""
 
     def __init__(self, module, name):
         super().__init__(module, name)
-        self.seconds, self.calls, self.nonfinite = 0.0, 0, 0
+        self.seconds, self.calls = 0.0, 0
 
     def __call__(self, *args, **kwargs):
         import torch
         t0 = time.monotonic()
-        logits, cache = self.inner(*args, **kwargs)
+        out = self.inner(*args, **kwargs)
         torch.cuda.synchronize()
         self.seconds += time.monotonic() - t0
         self.calls += 1
+        return out
+
+
+class Timed(Clock):
+    """Wraps ``decode.prefill`` / ``decode.decode_step``: a :class:`Clock`
+    that also counts calls with non-finite logits."""
+
+    def __init__(self, module, name):
+        super().__init__(module, name)
+        self.nonfinite = 0
+
+    def __call__(self, *args, **kwargs):
+        import torch
+        logits, cache = super().__call__(*args, **kwargs)
         self.nonfinite += int(not bool(torch.isfinite(logits).all()))
         return logits, cache
 
@@ -1328,20 +1376,27 @@ def serve_device_busy(model, cfg, *, prompt=996, slots=SERVE["slots"],
     from a torch.profiler trace over the wall time of the same calls
     unprofiled."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import decode as D
     gen = torch.Generator().manual_seed(3)
     toks = torch.randint(2, cfg.vocab, (1, prompt), generator=gen).to(DEVICE)
     last = torch.randint(2, cfg.vocab, (slots, 1),
                          generator=gen).to(DEVICE)
     cache = D.init_decode_cache(cfg, slots, max_len, torch.float32, DEVICE)
-    calls = {
+    return busy_share(cfg, {
         "prefill": (lambda: D.prefill(model, cfg, {"tokens": toks},
                                       cache_size=max_len,
                                       dtype=torch.float32), 2),
         "decode step": (lambda: D.decode_step(model, cfg, last, cache,
                                               cache_len,
-                                              dtype=torch.float32), 5)}
+                                              dtype=torch.float32), 5)}, tag)
+
+
+def busy_share(cfg, calls, tag):
+    """Per named call ``(fn, reps)``: wall ms, device ms from a
+    torch.profiler trace of ``reps`` calls, their share and the device
+    ops a call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
     out = {}
     for name, (fn, reps) in calls.items():
         fn()
@@ -1708,20 +1763,19 @@ def phase_moe(report):
     out["kernel_rows"] = {"flash_attention": rows, "rmsnorm": norms}
     out["phase_s"] = time.monotonic() - t_phase
     log(f"[moe] phase {out['phase_s']:.1f}s")
-    add_moe_kernel_rows(report)
+    add_phase_kernel_rows(report, "moe", ("olmoe", "deepseek"))
 
 
-def add_moe_kernel_rows(report):
-    """The moe phase's launches (``moe_launches``) and timed shapes on the
-    rmsnorm and flash_attention entries of the kernels line: merged into
-    the serve phase's entries, or those entries themselves when the serve
-    phase did not run."""
-    moe = report["moe"]
-    runs = ("olmoe", "deepseek")
+def add_phase_kernel_rows(report, phase, runs):
+    """A phase's launches (``<phase>_launches``, per run) and timed shapes
+    on the rmsnorm and flash_attention entries of the kernels line: merged
+    into the serve phase's entries, or those entries themselves when the
+    serve phase did not run."""
+    data = report[phase]
     rows = report.setdefault("kernels", [])
-    for kernel, timed in moe["kernel_rows"].items():
+    for kernel, timed in data["kernel_rows"].items():
         entry = llm_kernel_entry(
-            kernel, timed, sum(moe[r]["launches"][kernel] for r in runs))
+            kernel, timed, sum(data[r]["launches"][kernel] for r in runs))
         row = next((r for r in rows if r["name"] == kernel), None)
         if row is None:
             row = entry
@@ -1730,7 +1784,283 @@ def add_moe_kernel_rows(report):
             row["shapes"].extend(timed)
             row["max_abs_err"] = max(row["max_abs_err"],
                                      entry["max_abs_err"])
-        row["moe_launches"] = {r: moe[r]["launches"][kernel] for r in runs}
+        row[f"{phase}_launches"] = {r: data[r]["launches"][kernel]
+                                    for r in runs}
+
+
+# ------------------------------------ the encoder-decoder and the frontends
+# whisper-large-v3 (arXiv:2212.04356) at its published width and depth, f32:
+# 4 utterances of 1,500 frame embeddings (its 30 s window; the audio
+# frontend is a stub, so the frames come from the seed), a 4-token prompt,
+# 60 greedy tokens, a 448-row decoder cache (its text context)
+WHISPER = dict(batch=4, front=1500, prompt=4, new=60, max_len=448)
+# internvl2-2b (arXiv:2404.16821), f32: 4 requests of 256 patch embeddings
+# and 128 tokens, 32 greedy tokens, cache 448; then 4 text-only requests of
+# 64..256 tokens through the engine (2 slots, 16 new tokens each), as the
+# reference's engine serves this arch
+INTERNVL2 = dict(batch=4, front=256, prompt=128, new=32, max_len=448,
+                 requests=4, slots=2, engine_new=16, engine_prompt=(64, 256))
+# the flash_attention call forms each run must take
+ENCDEC_FORMS = {"whisper": {"encoder", "cross prefill", "cross decode",
+                            "self prefill", "self decode"},
+                "internvl2": {"self prefill", "self decode"}}
+
+
+def attention_form(args, kw):
+    """(call form, size) of one flash_attention call on the encoder-decoder
+    / vision path: the encoder's non-causal self-attention, the
+    cross-attention's prefill (queries over every encoder row) and decode,
+    and the decoder's own causal prefill and decode."""
+    q, k = args[0], args[1]
+    causal = kw.get("causal", True)
+    if q.shape[1] == 1:
+        form = "self decode" if causal else "cross decode"
+    elif causal:
+        form = "self prefill"
+    else:
+        form = "encoder" if q.shape[1] == k.shape[1] else "cross prefill"
+    return form, q.shape[0] * q.shape[1] * (kw.get("kv_valid_len")
+                                            or k.shape[1])
+
+
+def frontend_batch(cfg, b, s, n_front, device, seed):
+    """Seeded tokens (b, s) and ``n_front`` rows of width d a sequence:
+    audio frames for an encoder-decoder, vision patches otherwise."""
+    import torch
+    gen = torch.Generator(device).manual_seed(seed)
+    return {"tokens": torch.randint(2, cfg.vocab, (b, s), generator=gen,
+                                    device=device),
+            "frames" if cfg.is_encdec else "patches": torch.randn(
+                (b, n_front, cfg.d_model), generator=gen, device=device)}
+
+
+def generate(model, cfg, batch, *, new, max_len, on_prefill=None):
+    """Greedy decoding through ``prefill`` and ``new - 1`` ``decode_step``s
+    (step i at position P + S + i: a vision prompt's patches count).
+    Returns (tokens (B, new), the last logits, the cache)."""
+    import torch
+    from repro_torch.models import decode as D
+    logits, cache = D.prefill(model, cfg, batch, cache_size=max_len,
+                              dtype=torch.float32)
+    if on_prefill is not None:
+        on_prefill()
+    pos = batch["tokens"].shape[1] + (batch["patches"].shape[1]
+                                      if "patches" in batch else 0)
+    toks = [logits.argmax(-1)]
+    for i in range(new - 1):
+        logits, cache = D.decode_step(model, cfg, toks[-1][:, None], cache,
+                                      pos + i, dtype=torch.float32)
+        toks.append(logits.argmax(-1))
+    return torch.stack(toks, 1), logits, cache
+
+
+def generate_reduced_card_vs_cpu(arch: str, new: int = 9):
+    """``arch`` reduced, the same seeded weights and inputs (frames or
+    patches) on the card (kernels) and on the CPU (plain versions), through
+    ``prefill`` and ``new - 1`` greedy ``decode_step``s: identical tokens,
+    the last logits within 1e-3."""
+    import copy
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+    cfg = get_config(arch).reduced()
+    cpu = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    card = copy.deepcopy(cpu).to(DEVICE)
+    batch = frontend_batch(cfg, 2, 11, cfg.n_frontend_tokens, "cpu", 1)
+    t_cpu, l_cpu, _ = generate(cpu, cfg, batch, new=new, max_len=64)
+    t_card, l_card, _ = generate(
+        card, cfg, {k: v.to(DEVICE) for k, v in batch.items()}, new=new,
+        max_len=64)
+    name = arch.split("-")[0]
+    if not torch.equal(t_cpu, t_card.cpu()):
+        raise AssertionError(f"reduced {name}: tokens on the card differ "
+                             "from the CPU")
+    err = float((l_card.cpu() - l_cpu).abs().max())
+    if not err <= 1e-3:
+        raise AssertionError(f"reduced {name}: last logits differ by {err}")
+    log(f"[encdec] reduced {name} (2 sequences, prefill + {new - 1} decode "
+        f"steps): tokens on the card == the CPU; last logits within "
+        f"{err:.3g} (limit 1e-3)")
+    return err
+
+
+def encdec_run(cfg, spec, seed, label):
+    """``cfg`` at full width on the card, random weights from seed 0:
+    ``spec["batch"]`` sequences of ``spec["front"]`` frames or patches and
+    ``spec["prompt"]`` tokens through ``generate`` (kernel launches counted
+    from 0 just before it); logits finite, flash_attention launched in its
+    forms, rmsnorm for an RMSNorm config.  Then the busy shares of one
+    prefill and one decode step.  Returns (numbers, the model, the largest
+    call's inputs of each kernel by label)."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.models import decode as D
+    from repro_torch.models import layers
+    from repro_torch.models.transformer import init_params, param_count
+    t0 = time.monotonic()
+    model = init_params(cfg, torch.Generator(DEVICE).manual_seed(0), DEVICE)
+    torch.cuda.synchronize()
+    n_params, built = param_count(model), time.monotonic() - t0
+    b, s, n_front = spec["batch"], spec["prompt"], spec["front"]
+    batch = frontend_batch(cfg, b, s, n_front, DEVICE, seed)
+    keep = Keep(layers, "flash_attention", attention_form)
+    keep_norm = Keep(layers, "rmsnorm_kernel", lambda a, k: (
+        f"{'prefill' if a[0].shape[1] > 1 else 'decode'} "
+        f"d={a[0].shape[-1]}", a[0].numel()))
+    enc = Clock(D, "run_encoder")
+    pre, dec = Timed(D, "prefill"), Timed(D, "decode_step")
+    at_prefill = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.LAUNCH_COUNTS.clear()  # this path's launches start here
+    t0 = time.monotonic()
+    with keep, keep_norm, enc, pre, dec:
+        toks, logits, cache = generate(
+            model, cfg, batch, new=spec["new"], max_len=spec["max_len"],
+            on_prefill=lambda: at_prefill.update(build.LAUNCH_COUNTS))
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = {k: build.LAUNCH_COUNTS[k] for k in LLM_KERNELS}
+    per_prefill = {k: at_prefill.get(k, 0) for k in LLM_KERNELS}
+    per_step = {k: (launches[k] - per_prefill[k]) / dec.calls
+                for k in LLM_KERNELS}
+    if pre.nonfinite or dec.nonfinite or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"{label}: non-finite logits")
+    if tuple(toks.shape) != (b, spec["new"]) or dec.calls != spec["new"] - 1:
+        raise AssertionError(f"{label}: tokens {tuple(toks.shape)}, "
+                             f"{dec.calls} decode steps")
+    want = {"flash_attention"} | ({"rmsnorm"} if cfg.norm == "rmsnorm"
+                                  else set())
+    if {k for k, n in launches.items() if n} != want:
+        raise AssertionError(f"{label}: launches {launches}, want {want}")
+    run = "whisper" if cfg.is_encdec else "internvl2"
+    if set(keep.kept) != ENCDEC_FORMS[run]:
+        raise AssertionError(f"{label}: attention took the forms "
+                             f"{sorted(keep.kept)}, want "
+                             f"{sorted(ENCDEC_FORMS[run])}")
+    rows = b * (n_front + s)
+    out = dict(params=n_params, weight_gb=4 * n_params / 1e9, init_s=built,
+               wall_s=wall, encoder_s=enc.seconds, prefill_s=pre.seconds,
+               prefill_rows=rows, prefill_rows_per_s=rows / pre.seconds,
+               decode_steps=dec.calls,
+               decode_ms_per_step=1e3 * dec.seconds / dec.calls,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               launches=launches, launches_per_prefill=per_prefill,
+               launches_per_decode_step=per_step)
+    enc_txt = (f"encoder {enc.seconds:.3f}s of " if cfg.is_encdec else "")
+    log(f"[encdec] {label} f32 on the card: {n_params:,} parameters "
+        f"({out['weight_gb']:.2f} GB, built in {built:.1f}s); {b} sequences"
+        f" of {n_front} {'frames' if cfg.is_encdec else 'patches'} + {s} "
+        f"tokens, {spec['new']} greedy tokens, cache {spec['max_len']}; "
+        f"wall {wall:.2f}s; {enc_txt}prefill {pre.seconds:.3f}s "
+        f"({rows / pre.seconds:.0f} rows/s); decode {dec.calls} steps "
+        f"{out['decode_ms_per_step']:.2f} ms/step; peak memory "
+        f"{out['peak_gb']:.2f} GB; logits finite; launches {launches}: a "
+        f"prefill {per_prefill}, a decode step {per_step}; attention forms "
+        f"{sorted(keep.kept)}")
+    pos = s + (0 if cfg.is_encdec else n_front) + spec["new"] - 1
+    last = toks[:, -1:]
+    out["busy"] = busy_share(cfg, {
+        "prefill": (lambda: D.prefill(model, cfg, batch,
+                                      cache_size=spec["max_len"],
+                                      dtype=torch.float32), 2),
+        "decode step": (lambda: D.decode_step(model, cfg, last, cache, pos,
+                                              dtype=torch.float32), 5)},
+        "encdec")
+    return out, model, {"flash_attention": keep.kept,
+                        "rmsnorm": keep_norm.kept}
+
+
+def phase_encdec(report):
+    """The encoder-decoder and the modality frontends through the port's
+    LLM layer: (a) reduced whisper and reduced internvl2 (with patches)
+    card == CPU; (b) whisper-large-v3 at full width and depth; (c)
+    internvl2-2b at full width and depth, with patches, then text-only
+    through the engine; (d) flash_attention in each call form of (b) and
+    (c), the run's own call (f32) and its bf16 copy, held to its plain
+    version and timed beside SDPA, and rmsnorm at internvl2's calls."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import plan
+    from repro_torch.models import decode as D
+    out = report.setdefault("encdec", {})
+    t_phase = time.monotonic()
+    out["reduced_err"] = {arch: generate_reduced_card_vs_cpu(arch)
+                          for arch in ("whisper-large-v3", "internvl2-2b")}
+
+    out["whisper"], model, kept_w = encdec_run(
+        get_config("whisper-large-v3"), WHISPER, 8, "whisper-large-v3")
+    del model
+    torch.cuda.empty_cache()
+
+    cfg = get_config("internvl2-2b")
+    out["internvl2"], model, kept_i = encdec_run(cfg, INTERNVL2, 9,
+                                                 "internvl2-2b")
+    prompts = serve_prompts(cfg.vocab, INTERNVL2["requests"],
+                            *INTERNVL2["engine_prompt"], 10)
+    pre, dec = Timed(D, "prefill"), Timed(D, "decode_step")
+    torch.cuda.synchronize()
+    build.LAUNCH_COUNTS.clear()  # this path's launches start here
+    t0 = time.monotonic()
+    with pre, dec:
+        reqs, eng = serve(model, cfg, prompts, slots=INTERNVL2["slots"],
+                          max_len=INTERNVL2["max_len"],
+                          new=INTERNVL2["engine_new"], device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = {k: build.LAUNCH_COUNTS[k] for k in LLM_KERNELS}
+    if pre.nonfinite or dec.nonfinite:
+        raise AssertionError("internvl2-2b engine: non-finite logits")
+    if not (launches["rmsnorm"] and launches["flash_attention"]):
+        raise AssertionError(f"internvl2-2b engine: launches {launches}")
+    n_prompt = sum(map(len, prompts))
+    out["internvl2_engine"] = dict(
+        wall_s=wall, requests=len(reqs), prompt_tokens=n_prompt,
+        tokens=sum(len(r.out_tokens) for r in reqs), prefill_s=pre.seconds,
+        prefill_tok_per_s=n_prompt / pre.seconds, decode_steps=dec.calls,
+        decode_ms_per_step=1e3 * dec.seconds / dec.calls, steps=eng.steps,
+        launches=launches)
+    e = out["internvl2_engine"]
+    log(f"[encdec] internvl2-2b text-only through the engine: "
+        f"{len(reqs)}/{len(reqs)} requests done, {INTERNVL2['slots']} "
+        f"slots, prompts {min(map(len, prompts))}..{max(map(len, prompts))}"
+        f" tokens ({n_prompt} in all), {INTERNVL2['engine_new']} new each; "
+        f"wall {wall:.2f}s; prefill {pre.seconds:.3f}s = "
+        f"{e['prefill_tok_per_s']:.0f} tokens/s; decode {dec.calls} steps "
+        f"{e['decode_ms_per_step']:.2f} ms/step; logits finite; launches "
+        f"{launches}")
+    del model, reqs, eng
+    torch.cuda.empty_cache()
+
+    rows = []
+    for run, kept in (("whisper", kept_w), ("internvl2", kept_i)):
+        for form, (_size, args, kw) in sorted(
+                kept["flash_attention"].items()):
+            q, k, v = args
+            variant = plan(q.shape[0], q.shape[1], k.shape[1], q.shape[2],
+                           k.shape[2], q.shape[3], q.element_size(),
+                           dv=v.shape[-1], causal=kw.get("causal", True),
+                           window=kw.get("window", 0),
+                           q_offset=kw.get("q_offset", 0),
+                           kv_valid=kw.get("kv_valid_len") or k.shape[1]
+                           ).variant
+            label = f"{run} {form} ({variant} variant)"
+            rows.append(llm_kernel_row("flash_attention", label, args, kw,
+                                       report, "encdec"))
+            half = tuple(t.to(torch.bfloat16) for t in args)
+            rows.append(llm_kernel_row("flash_attention", label, half, kw,
+                                       report, "encdec", "bfloat16"))
+    norms = [llm_kernel_row("rmsnorm", f"internvl2 {label}", args, kw,
+                            report, "encdec")
+             for label, (_size, args, kw) in sorted(
+                 kept_i["rmsnorm"].items())]
+    out["kernel_rows"] = {"flash_attention": rows, "rmsnorm": norms}
+    out["phase_s"] = time.monotonic() - t_phase
+    log(f"[encdec] phase {out['phase_s']:.1f}s; {report['gpu']}")
+    add_phase_kernel_rows(report, "encdec",
+                          ("whisper", "internvl2", "internvl2_engine"))
 
 
 # ------------------------------------------------- the dense per-tick engine
@@ -2855,11 +3185,11 @@ def phase_profile(report):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="env,parity,main,serve,moe,registry,"
+                    default="env,parity,main,serve,moe,encdec,registry,"
                             "experiment,whatif,dense,scale",
                     help="comma-separated subset of env,parity,main,serve,"
-                         "moe,registry,experiment,whatif,dense,scale (the "
-                         "default) "
+                         "moe,encdec,registry,experiment,whatif,dense,scale "
+                         "(the default) "
                          "and the opt-in waterfill, waterfill-plans, "
                          "profile and paper-scale")
     ap.add_argument("--paper-scale-budget", type=float,
@@ -2902,6 +3232,8 @@ def main(argv=None) -> int:
             phase_llm_kernels_at_serve_shape(report)
         if "moe" in phases:
             phase_moe(report)
+        if "encdec" in phases:
+            phase_encdec(report)
         if "registry" in phases:
             phase_registry(report, time.monotonic() - t_start)
         if "experiment" in phases:

@@ -91,17 +91,18 @@ def lm_params_from_numpy(flat: Mapping[str, object], cfg, device=None):
 
     ``flat`` maps each JAX leaf's path, joined by ``/``
     (``"segments/3/mixer/in_z"``, ``"segments/1/moe/shared/w1"``,
-    ``"shared_block/attn/wq"``, ``"embed/table"``), to its numpy array; a
-    segment's stacked leaves (layers on axis 0, then a MoE leaf's experts)
-    are split into the port's per-layer modules.  Every parameter must be
-    filled and every leaf used.
+    ``"segments/0/cross/wq"``, ``"enc_segments/0/attn/wq"``,
+    ``"shared_block/attn/wq"``, ``"enc_norm/scale"``, ``"embed/table"``), to
+    its numpy array; a segment's stacked leaves (layers on axis 0, then a
+    MoE leaf's experts) are split into the port's per-layer modules.  Every
+    parameter must be filled and every leaf used.
     """
     from repro_torch.models.transformer import LM
 
     def leaf(name):
         parts = name.split(".")
-        if parts[0] == "segments":
-            key = "/".join(["segments", parts[1]] + parts[3:])
+        if parts[0] in ("segments", "enc_segments"):
+            key = "/".join(parts[:2] + parts[3:])
             return key, np.asarray(flat[key])[int(parts[2])]
         key = "/".join(parts)
         return key, np.asarray(flat[key])
@@ -122,21 +123,22 @@ def cache_to_numpy(cache) -> Dict[str, np.ndarray]:
 
 
 def cache_from_numpy(flat: Mapping[str, object], cfg, device=None):
-    """The inverse of :func:`cache_to_numpy` for ``cfg``'s segment plan."""
+    """The inverse of :func:`cache_to_numpy` for ``cfg``'s decoder plan."""
     from repro_torch.models.ssm import MambaCache
-    from repro_torch.models.transformer import build_plan, uses_mla
+    from repro_torch.models.transformer import decoder_plan, uses_mla
     dev = resolve_device(device)
 
     def t(key):
         return torch.from_numpy(np.array(flat[key], copy=True)).to(dev)
 
     segs = []
-    for i, seg in enumerate(build_plan(cfg)):
+    for i, seg in enumerate(decoder_plan(cfg)):
         if seg.kind == "mamba":
             segs.append(MambaCache(*(t(f"segments/{i}/{f}")
                                      for f in MambaCache._fields)))
         else:
             names = (("ckv", "krope") if uses_mla(cfg, seg.kind)
+                     else ("k", "v", "ck", "cv") if seg.kind == "dec"
                      else ("k", "v"))
             segs.append({n: t(f"segments/{i}/{n}") for n in names})
     return {"segments": segs}

@@ -2,7 +2,9 @@
 
 Serves the published config on the card; ``--reduced`` serves the family-
 preserving smoke config (what the JAX command always serves), which is what
-runs on the CPU.  Weights are random, drawn from ``--seed``.
+runs on the CPU.  Weights are random, drawn from ``--seed``.  Requests are
+tokens only: a vision config is served text-only, and an encoder-decoder
+(whisper) exits non-zero (ROADMAP §C9).
 
 Example::
 
@@ -21,7 +23,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import get_config, list_archs
 from repro_torch.models.transformer import init_params, param_count
-from repro_torch.serve.engine import Request, ServeEngine
+from repro_torch.serve.engine import Request, ServeEngine, check_servable
 
 
 def main(argv=None) -> int:
@@ -48,6 +50,14 @@ def main(argv=None) -> int:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if cfg.is_encdec or cfg.frontend != "none":
+        print(f"[serve] note: {args.arch} frontend is stubbed; serving the "
+              "text decoder only")
+    try:
+        check_servable(cfg)
+    except ValueError as err:
+        print(f"[serve] {err}", file=sys.stderr)
+        return 1
     rng = np.random.default_rng(args.seed)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     model = init_params(cfg, gen, dev)

@@ -1,5 +1,5 @@
 """Neural layers of the port's LLM path: norms, RoPE, sinusoidal positions,
-GQA and MLA attention, MLPs and embeddings.
+GQA, MLA and cross attention, MLPs and embeddings.
 
 Counterpart of the JAX package's ``models/layers.py``, for what the serving
 path needs.  Parameters live in small ``nn.Module`` holders whose attribute
@@ -14,7 +14,6 @@ Weights keep JAX's (d_in, d_out) layout and are applied as ``x @ w``.
   decode: one query at the cache length), so the attention functions take a
   query offset and a valid length as Python ints instead of position arrays.
 * ``mesh_constrain`` has no counterpart: it is a no-op on one device.
-  Cross-attention is not ported yet (ROADMAP §A10c).
 """
 from __future__ import annotations
 
@@ -312,6 +311,50 @@ def mla_decode(p: MLA, x, cache_ckv, cache_krope, cache_len: int, *,
     out = torch.einsum("bqhl,lhv->bqhv", out, wv_b)
     out = out.reshape(b, 1, n_heads * v_head)
     return out.to(dtype) @ p.wo.to(dtype), cache_ckv, cache_krope
+
+
+# --------------------------------------------------- cross attention (whisper)
+class CrossAttention(nn.Module):
+    """Decoder-to-encoder attention weights ``wq wk wv wo``."""
+
+    def __init__(self, d_model: int, n_heads: int, head_dim: int,
+                 device=None, dtype=torch.float32):
+        super().__init__()
+        hd = n_heads * head_dim
+        self.wq = _empty(d_model, hd, device=device, dtype=dtype)
+        self.wk = _empty(d_model, hd, device=device, dtype=dtype)
+        self.wv = _empty(d_model, hd, device=device, dtype=dtype)
+        self.wo = _empty(hd, d_model, device=device, dtype=dtype)
+
+
+def cross_kv(p: CrossAttention, enc, *, n_heads: int, head_dim: int, dtype):
+    """The encoder states' keys and values, (B, Se, H, Dh) each: what
+    prefill keeps as the decode cache's ``ck`` / ``cv``."""
+    b, se, _ = enc.shape
+    e = enc.to(dtype)
+    return ((e @ p.wk.to(dtype)).reshape(b, se, n_heads, head_dim),
+            (e @ p.wv.to(dtype)).reshape(b, se, n_heads, head_dim))
+
+
+def cross_cached(p: CrossAttention, x, ck, cv, *, n_heads: int,
+                 head_dim: int, dtype, block_k: int = 512) -> torch.Tensor:
+    """x's queries against the encoder's keys / values ``ck`` / ``cv``: no
+    positions, no mask, every encoder row seen."""
+    b, sq, _ = x.shape
+    q = (x.to(dtype) @ p.wq.to(dtype)).reshape(b, sq, n_heads, head_dim)
+    out = chunked_attention(q, ck.to(dtype), cv.to(dtype), causal=False,
+                            block_k=block_k)
+    out = out.reshape(b, sq, n_heads * head_dim)
+    return out.to(dtype) @ p.wo.to(dtype)
+
+
+def cross_attention(p: CrossAttention, x, enc, *, n_heads: int,
+                    head_dim: int, dtype, block_k: int = 512):
+    """Decoder-to-encoder attention (no positions, bidirectional)."""
+    ck, cv = cross_kv(p, enc, n_heads=n_heads, head_dim=head_dim,
+                      dtype=dtype)
+    return cross_cached(p, x, ck, cv, n_heads=n_heads, head_dim=head_dim,
+                        dtype=dtype, block_k=block_k)
 
 
 # ----------------------------------------------------------------- MLPs

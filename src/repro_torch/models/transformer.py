@@ -1,15 +1,16 @@
-"""The port's decoder LM: blocks of kind ``mamba``, ``shared``, ``attn`` and
-``moe``, with GQA or MLA attention.
+"""The port's LM: blocks of kind ``mamba``, ``shared``, ``attn``, ``moe``,
+``enc`` and ``dec``, with GQA or MLA attention, whisper's encoder and the
+modality frontends' stubs (precomputed audio frames, vision patches).
 
 Counterpart of the JAX package's ``models/transformer.py`` for the serving
 path.  The JAX package stacks each segment's parameters and scans over
 them; here every layer is its own ``nn.Module`` in an ``nn.ModuleList``
 per segment, run by a Python loop.  Parameter names follow the JAX pytree:
 ``segments.<i>.<layer>.mixer.in_z`` is layer ``<layer>`` of the JAX
-``segments/<i>/mixer/in_z`` stack (see ``repro_torch.convert``).
+``segments/<i>/mixer/in_z`` stack, ``enc_segments.0.<layer>.attn.wq`` of
+``enc_segments/0/attn/wq`` (see ``repro_torch.convert``).
 
-Structures of later slices raise ``NotImplementedError`` naming their
-ROADMAP item: the encoder-decoder, modality frontends and training.
+Training raises ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -33,7 +34,7 @@ from . import ssm as S
 # ----------------------------------------------------------------- plan
 @dataclasses.dataclass(frozen=True)
 class Segment:
-    kind: str    # attn | moe | mamba | shared
+    kind: str    # attn | moe | mamba | shared | dec
     count: int
     start: int   # global index of the first layer in this segment
 
@@ -61,6 +62,16 @@ def build_plan(cfg: ModelConfig) -> Tuple[Segment, ...]:
     return tuple(segs)
 
 
+def decoder_plan(cfg: ModelConfig) -> Tuple[Segment, ...]:
+    """The plan every consumer runs (the JAX ``decode._dec_plan``): an
+    encoder-decoder's decoder is one ``dec`` segment, which the JAX
+    ``init_params`` builds in place of :func:`build_plan`'s ``attn``
+    segment."""
+    if cfg.is_encdec:
+        return (Segment("dec", cfg.n_layers, 0),)
+    return build_plan(cfg)
+
+
 def layer_windows(cfg: ModelConfig) -> np.ndarray:
     """Per-layer sliding window (0 = global attention)."""
     w = np.zeros(cfg.n_layers, dtype=np.int32)
@@ -85,19 +96,6 @@ def _ssm_dims(cfg: ModelConfig) -> S.SSMDims:
                                  cfg.ssm_expand, cfg.ssm_headdim)
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for structures of later slices, naming
-    each one's ROADMAP item."""
-    todo = [(cfg.is_encdec, "the encoder-decoder", "A10c"),
-            (cfg.frontend != "none", f"the {cfg.frontend} frontend", "A10d")]
-    missing = [f"{what} (ROADMAP §{item})" for hit, what, item in todo
-               if hit]
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported to repro_torch "
-            "yet")
-
-
 # ----------------------------------------------------------------- blocks
 class MambaBlock(nn.Module):
     """``ln`` + Mamba-2 ``mixer``."""
@@ -107,7 +105,8 @@ class MambaBlock(nn.Module):
         self.ln = L.Norm(cfg.norm, cfg.d_model, device, dtype)
         self.mixer = S.Mamba2(_ssm_dims(cfg), device, dtype)
 
-    def forward(self, x, cfg: ModelConfig, positions, window, theta, dtype):
+    def forward(self, x, cfg: ModelConfig, positions, window, theta, dtype,
+                enc=None):
         """Returns (x, the layer's :class:`MambaCache`)."""
         h = L.apply_norm(cfg.norm, self.ln, x)
         out, cache = S.apply_mamba2(self.mixer, h, _ssm_dims(cfg), dtype,
@@ -122,7 +121,7 @@ def uses_mla(cfg: ModelConfig, kind: str) -> bool:
 
 
 def self_attention(p, h, cfg: ModelConfig, kind: str, positions, window,
-                   theta, dtype):
+                   theta, dtype, causal: bool = True):
     """The block's self-attention over h (prefill).  Returns ``(out,
     leaf)``: the layer's decode-cache leaf, {"k", "v"} for GQA, the
     latent {"ckv", "krope"} for MLA."""
@@ -132,12 +131,12 @@ def self_attention(p, h, cfg: ModelConfig, kind: str, positions, window,
         att = L.mla_attention_from_latent(
             p, h, c_kv, k_rope, n_heads=cfg.n_heads, qk_nope=cfg.qk_nope,
             qk_rope=cfg.qk_rope, v_head=cfg.v_head, rope_theta=theta,
-            causal=True, dtype=dtype)
+            causal=causal, dtype=dtype)
         return att, {"ckv": c_kv, "krope": k_rope[:, :, 0]}
     att, k, v = L.gqa_attention(
         p, h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
         head_dim=cfg.head_dim, positions=positions,
-        rope_theta=None if cfg.rope_theta == 0 else theta, causal=True,
+        rope_theta=None if cfg.rope_theta == 0 else theta, causal=causal,
         window=window, dtype=dtype)
     return att, {"k": k, "v": v}
 
@@ -155,8 +154,10 @@ def apply_ffn(blk, h2, cfg: ModelConfig, dtype):
 
 class AttnBlock(nn.Module):
     """``ln1`` + ``attn`` (GQA, or MLA for an MLA config) + ``ln2`` + an
-    FFN: ``mlp`` for kinds ``attn`` and ``shared`` (zamba2's one block
-    applied at every marker), ``moe`` for kind ``moe``."""
+    FFN: ``mlp`` for kinds ``attn``, ``shared`` (zamba2's one block applied
+    at every marker), ``enc`` and ``dec``, ``moe`` for kind ``moe``.  An
+    ``enc`` block's self-attention is not causal; a ``dec`` block adds
+    ``lnx`` + ``cross`` (attention over the encoder states) after it."""
 
     def __init__(self, cfg: ModelConfig, device=None, dtype=torch.float32,
                  kind: str = "attn"):
@@ -178,33 +179,49 @@ class AttnBlock(nn.Module):
                              cfg.n_shared_experts, cfg.act, device, dtype)
         else:
             self.mlp = L.MLP(d, cfg.d_ff, cfg.act, device, dtype)
+        if kind == "dec":
+            self.lnx = L.Norm(cfg.norm, d, device, dtype)
+            self.cross = L.CrossAttention(d, cfg.n_heads, cfg.head_dim,
+                                          device, dtype)
 
-    def forward(self, x, cfg: ModelConfig, positions, window, theta, dtype):
-        """Returns (x, the layer's decode-cache leaf)."""
+    def forward(self, x, cfg: ModelConfig, positions, window, theta, dtype,
+                enc=None):
+        """Returns (x, the layer's decode-cache leaf); a ``dec`` block
+        attends over the encoder states ``enc`` and its leaf also holds
+        their keys and values, ``ck`` / ``cv``."""
         h = L.apply_norm(cfg.norm, self.ln1, x)
         att, leaf = self_attention(self.attn, h, cfg, self.kind, positions,
-                                   window, theta, dtype)
+                                   window, theta, dtype,
+                                   causal=self.kind != "enc")
         x = x + att
+        if self.kind == "dec":
+            heads = dict(n_heads=cfg.n_heads, head_dim=cfg.head_dim,
+                         dtype=dtype)
+            leaf["ck"], leaf["cv"] = L.cross_kv(self.cross, enc, **heads)
+            hx = L.apply_norm(cfg.norm, self.lnx, x)
+            x = x + L.cross_cached(self.cross, hx, leaf["ck"], leaf["cv"],
+                                   **heads)
         h2 = L.apply_norm(cfg.norm, self.ln2, x)
         return x + apply_ffn(self, h2, cfg, dtype), leaf
 
 
 BLOCKS = {"mamba": MambaBlock,
-          "attn": functools.partial(AttnBlock, kind="attn"),
-          "moe": functools.partial(AttnBlock, kind="moe")}
+          **{kind: functools.partial(AttnBlock, kind=kind)
+             for kind in ("attn", "moe", "enc", "dec")}}
 
 
 class LM(nn.Module):
-    """The decoder LM's parameters, uninitialised (see :func:`init_params`).
+    """The LM's parameters, uninitialised (see :func:`init_params`).
 
-    ``segments[i]`` holds segment i's layers (empty for a ``shared``
-    marker, which applies ``shared_block``)."""
+    ``segments[i]`` holds segment i's layers of :func:`decoder_plan`
+    (empty for a ``shared`` marker, which applies ``shared_block``); an
+    encoder-decoder also has ``enc_segments[0]``, its ``enc`` layers, and
+    ``enc_norm``."""
 
     def __init__(self, cfg: ModelConfig, device=None, dtype=torch.float32):
         super().__init__()
-        check_supported(cfg)
         self.cfg = cfg
-        self.plan = build_plan(cfg)
+        self.plan = decoder_plan(cfg)
         self.embed = L.Embed(cfg.vocab, cfg.d_model, device, dtype)
         self.segments = nn.ModuleList(
             nn.ModuleList([] if seg.kind == "shared" else
@@ -217,6 +234,11 @@ class LM(nn.Module):
         if not cfg.tie_embeddings:
             self.unembed = L._empty(cfg.d_model, cfg.vocab, device=device,
                                     dtype=dtype)
+        if cfg.is_encdec:
+            self.enc_segments = nn.ModuleList([nn.ModuleList(
+                BLOCKS["enc"](cfg, device, dtype)
+                for _ in range(cfg.enc_layers))])
+            self.enc_norm = L.Norm(cfg.norm, cfg.d_model, device, dtype)
 
 
 # ----------------------------------------------------------------- init
@@ -262,8 +284,9 @@ def param_count(model: nn.Module) -> int:
 
 
 # ----------------------------------------------------------------- forward
-def run_stack(model: LM, cfg: ModelConfig, x, positions, dtype):
-    """Run the decoder segment plan over x.
+def run_stack(model: LM, cfg: ModelConfig, x, positions, dtype, enc=None):
+    """Run the decoder segment plan over x (``dec`` blocks attend over the
+    encoder states ``enc``).
 
     Returns ``(x, leaves)``: per segment, the ``shared`` marker's k / v, or
     the list of its layers' cache leaves (what prefill keeps)."""
@@ -280,21 +303,39 @@ def run_stack(model: LM, cfg: ModelConfig, x, positions, dtype):
         for i, blk in enumerate(blocks):
             layer = seg.start + i
             x, leaf = blk(x, cfg, positions, int(windows[layer]),
-                          float(thetas[layer]), dtype)
+                          float(thetas[layer]), dtype, enc=enc)
             seg_leaves.append(leaf)
         leaves.append(seg_leaves)
     return x, leaves
 
 
-def embed_inputs(model: LM, cfg: ModelConfig, tokens, dtype):
-    """Token embedding (+ sinusoidal positions when the arch has no RoPE).
-    Returns (x, positions)."""
-    x = L.embed(model.embed, tokens, dtype)
-    positions = torch.arange(x.shape[1], device=x.device)
-    if cfg.rope_theta == 0:
+def run_encoder(model: LM, cfg: ModelConfig, frames, dtype):
+    """Whisper's encoder over precomputed frame embeddings (B, S, d) (the
+    audio frontend is a stub): sinusoidal positions, the ``enc`` stack
+    (non-causal, no RoPE), then ``enc_norm``."""
+    s = frames.shape[1]
+    x = frames.to(dtype) + L.sinusoidal_positions(
+        s, cfg.d_model, frames.device)[None].to(dtype)
+    positions = torch.arange(s, device=x.device)
+    for blk in model.enc_segments[0]:
+        x, _ = blk(x, cfg, positions, 0, 0.0, dtype)
+    return L.apply_norm(cfg.norm, model.enc_norm, x)
+
+
+def embed_inputs(model: LM, cfg: ModelConfig, batch, dtype):
+    """Token embedding, after the vision patches (B, P, d) of
+    ``batch["patches"]`` for a vision config, + sinusoidal positions when
+    the arch has no RoPE or is an encoder-decoder.  Returns ``(x,
+    positions 0..P+S-1, P)``."""
+    x = L.embed(model.embed, batch["tokens"], dtype)
+    offset = 0
+    if cfg.frontend == "vision" and "patches" in batch:
+        x = torch.cat([batch["patches"].to(dtype), x], dim=1)
+        offset = batch["patches"].shape[1]
+    if cfg.rope_theta == 0 or cfg.is_encdec:
         x = x + L.sinusoidal_positions(x.shape[1], cfg.d_model,
                                        x.device)[None].to(dtype)
-    return x, positions
+    return x, torch.arange(x.shape[1], device=x.device), offset
 
 
 def logits_fn(model: LM, cfg: ModelConfig, x, dtype):
@@ -305,10 +346,14 @@ def logits_fn(model: LM, cfg: ModelConfig, x, dtype):
 @torch.no_grad()
 def forward_logits(model: LM, cfg: ModelConfig, batch, *,
                    dtype=torch.bfloat16):
-    """Logits (B, S, vocab) of ``batch["tokens"]`` (B, S)."""
-    x, positions = embed_inputs(model, cfg, batch["tokens"], dtype)
-    x, _ = run_stack(model, cfg, x, positions, dtype)
-    return logits_fn(model, cfg, x, dtype)
+    """Logits (B, S, vocab) of ``batch["tokens"]`` (B, S), after the
+    encoder over ``batch["frames"]`` for an encoder-decoder; a vision
+    config's ``batch["patches"]`` positions give no logits."""
+    enc = (run_encoder(model, cfg, batch["frames"], dtype)
+           if cfg.is_encdec else None)
+    x, positions, offset = embed_inputs(model, cfg, batch, dtype)
+    x, _ = run_stack(model, cfg, x, positions, dtype, enc=enc)
+    return logits_fn(model, cfg, x[:, offset:], dtype)
 
 
 def forward_train(*args, **kwargs):

@@ -11,6 +11,12 @@ request batched beside a longer one writes its KV row and takes its RoPE
 position at the longer one's length and attends over zero rows (ROADMAP
 §C4).
 
+Requests carry tokens only, as the reference's do: a vision config is
+served text-only, and an encoder-decoder is refused at construction
+(:func:`check_servable`), where the reference's engine fails at its first
+prefill, which reads ``batch["frames"]`` (ROADMAP §C9).  Whisper runs
+through :func:`repro_torch.models.decode.prefill` / ``decode_step``.
+
 Prefill caches are written into their slot by the cache's known layout
 (layers on the leading axis of ``mamba``, ``attn`` and ``moe`` segments,
 the batch first in ``shared`` markers).  Greedy decoding takes the first
@@ -32,6 +38,17 @@ from repro_torch.models import decode as D
 from repro_torch.models.transformer import LM
 
 
+def check_servable(cfg: ModelConfig) -> None:
+    """Raise ``ValueError`` for a config the engine cannot serve: an
+    encoder-decoder, whose requests would need audio frames."""
+    if cfg.is_encdec:
+        raise ValueError(
+            f"{cfg.name}: the serving engine cannot serve an encoder-decoder "
+            "(requests carry no frames; the reference's engine fails the "
+            "same way, ROADMAP §C9); use repro_torch.models.decode.prefill "
+            "/ decode_step")
+
+
 @dataclasses.dataclass
 class Request:
     rid: int
@@ -47,6 +64,7 @@ class ServeEngine:
     def __init__(self, model: LM, cfg: ModelConfig, *, n_slots: int,
                  max_len: int, dtype=torch.float32, greedy: bool = True,
                  sample_seed: int = 0, device=None):
+        check_servable(cfg)
         self.device = resolve_device(device)
         on = {p.device.type for p in model.parameters()}
         if on != {self.device.type}:

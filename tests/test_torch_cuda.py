@@ -1,7 +1,7 @@
 """Card-only checks of the port: the CUDA kernels against their plain
 versions, the scheduling engine on the card against the engine on the
-CPU, and the reduced zamba2, olmoe and DeepSeek serving engines
-likewise.
+CPU, the reduced zamba2, olmoe and DeepSeek serving engines, and reduced
+whisper and internvl2 through prefill / decode likewise.
 
 Every test here is marked ``cuda`` and skips without a CUDA device; this
 file imports no JAX, so it also runs where only PyTorch is installed:
@@ -302,7 +302,15 @@ def test_rmsnorm_kernel_matches_plain(cuda_device, dtype, rows, d, kw):
     (2, 1, 4096, 8, 8, 80, dict(q_offset=3000, kv_valid_len=3001)),
     # either side of the variant boundary (Sq * H / Hkv = 16 decodes)
     (2, 2, 70, 16, 2, 64, dict(q_offset=60, kv_valid_len=62)),
-    (2, 4, 70, 16, 2, 64, dict(q_offset=60, kv_valid_len=64))])
+    (2, 4, 70, 16, 2, 64, dict(q_offset=60, kv_valid_len=64)),
+    # whisper: the cross-attention prefill (4 queries over every encoder
+    # row: the decode variant with Sq > 1 and no mask), the cross decode,
+    # the decoder's own 4-token prefill (decode variant, causal from 0)
+    # and the encoder's non-causal prefill with a ragged last tile
+    (2, 4, 1500, 20, 20, 64, dict(causal=False)),
+    (3, 1, 1500, 20, 20, 64, dict(causal=False)),
+    (2, 4, 448, 20, 20, 64, dict(kv_valid_len=4)),
+    (1, 1500, 1500, 20, 20, 64, dict(causal=False))])
 def test_flash_attention_kernel_matches_plain(cuda_device, dtype, b, sq, sk,
                                               h, hkv, d, kw):
     from repro_torch.kernels.flash_attention import flash_attention
@@ -430,6 +438,47 @@ def test_reduced_moe_engine_on_card_matches_cpu(cuda_device, arch):
     assert out["cpu"] == out[cuda_device]
     assert all(build.LAUNCH_COUNTS[k] > 0
                for k in ("rmsnorm", "flash_attention"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["whisper-large-v3", "internvl2-2b"])
+def test_reduced_encdec_and_vision_on_card_match_cpu(cuda_device, arch):
+    """Reduced whisper (encoder, cross-attention, the cross-KV cache) and
+    reduced internvl2 (patches prepended) give the same greedy tokens
+    through ``prefill`` and 6 ``decode_step``s on the card as on the CPU,
+    and last logits within 1e-3."""
+    import copy
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode as D
+    from repro_torch.models.transformer import init_params
+    cfg = get_config(arch).reduced()
+    cpu = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(5)
+    batch = {"tokens": torch.from_numpy(
+        rng.integers(2, cfg.vocab, size=(2, 11)).astype(np.int64)),
+        ("frames" if cfg.is_encdec else "patches"): torch.from_numpy(
+            rng.standard_normal((2, cfg.n_frontend_tokens, cfg.d_model))
+            .astype(np.float32))}
+    start = 11 + (0 if cfg.is_encdec else cfg.n_frontend_tokens)
+    out = {}
+    build.LAUNCH_COUNTS.clear()
+    for dev, model in (("cpu", cpu),
+                       (cuda_device, copy.deepcopy(cpu).to(cuda_device))):
+        logits, cache = D.prefill(model, cfg,
+                                  {k: v.to(dev) for k, v in batch.items()},
+                                  cache_size=48, dtype=torch.float32)
+        toks = [logits.argmax(-1)]
+        for i in range(6):
+            logits, cache = D.decode_step(model, cfg, toks[-1][:, None],
+                                          cache, start + i,
+                                          dtype=torch.float32)
+            toks.append(logits.argmax(-1))
+        out[str(dev)] = (torch.stack(toks, 1).cpu(), logits.cpu())
+    (t_cpu, l_cpu), (t_card, l_card) = out.values()
+    assert torch.equal(t_cpu, t_card)
+    assert float((l_cpu - l_card).abs().max()) <= 1e-3
+    assert build.LAUNCH_COUNTS["flash_attention"] > 0
+    assert (build.LAUNCH_COUNTS["rmsnorm"] > 0) == (cfg.norm == "rmsnorm")
 
 
 @pytest.mark.cuda

@@ -8,8 +8,9 @@ identical.  The models: the stablelm ``_mini`` of ``tests/test_serve.py``
 (``attn`` blocks, LayerNorm, qkv bias) and every other architecture the
 port serves, reduced (``MODELS``): zamba2-2.7b (``mamba`` and ``shared``
 blocks), gemma3-4b, glm4-9b, qwen2-72b, mamba2-1.3b, olmoe-1b-7b (``moe``
-blocks) and deepseek-v2-236b (MLA, its latent cache, a dense first layer
-and shared experts).
+blocks), deepseek-v2-236b (MLA, its latent cache, a dense first layer
+and shared experts) and internvl2-2b's text path (its patches and
+whisper-large-v3 are in ``tests/test_torch_encdec.py``).
 
 Fault C4 (ROADMAP §C): both engines decode every slot at the longest
 active slot's length, so a short request batched beside a long one comes
@@ -65,12 +66,14 @@ def _reduced(arch):
 # geglu + tied embeddings + a 5:1 local / global window with two thetas
 # (gemma3), 4:2 GQA (glm4), qkv bias (qwen2), the attention-free stack
 # (mamba2), the hybrid (zamba2), MoE (olmoe), and MLA with a dense first
-# layer and shared experts (deepseek)
+# layer and shared experts (deepseek), and a vision config served
+# text-only, as both engines serve it (internvl2)
 MODELS = {"zamba2": _reduced("zamba2-2.7b"), "mini": _mini_cfg,
           "gemma3": _reduced("gemma3-4b"), "glm4": _reduced("glm4-9b"),
           "qwen2": _reduced("qwen2-72b"), "mamba2": _reduced("mamba2-1.3b"),
           "olmoe": _reduced("olmoe-1b-7b"),
-          "deepseek": _reduced("deepseek-v2-236b")}
+          "deepseek": _reduced("deepseek-v2-236b"),
+          "internvl2": _reduced("internvl2-2b")}
 _CACHE = {}
 
 
