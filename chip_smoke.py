@@ -9,9 +9,10 @@ main paths (the paper grid on the batched engine through
 ``repro_torch.experiments.backend_torch.run_cells`` and the experiment
 layer around it, ``python -m repro_torch.experiments``; the what-if query
 service, ``python -m repro_torch.serve``; LLM serving through
-``repro_torch.serve.engine.ServeEngine``; and the encoder-decoder and the
+``repro_torch.serve.engine.ServeEngine``; the encoder-decoder and the
 vision prefix through ``repro_torch.models.decode.prefill`` /
-``decode_step``) and prints what it saw.
+``decode_step``; and LLM training through ``repro_torch.launch.train``)
+and prints what it saw.
 Phases:
 
 1. environment: versions, the card's name and power limit, the build;
@@ -105,7 +106,40 @@ Phases:
    call (f32) and its bf16 copy, held to its plain version and timed
    beside SDPA with the call's own ``causal``; rmsnorm at internvl2's
    calls (1,536 x 2,048 and 4 x 2,048) beside ``F.rms_norm``;
-7. registry: the rest of the strategy registry through ``run_cells``, on
+7. train: training through the port's LLM layer on the hand-written
+   backward kernels of RMSNorm and flash attention: (a) each backward
+   kernel against its plain version (``rmsnorm_bwd_ref``,
+   ``attention_bwd_ref``) in f32 and bf16 -- rmsnorm at 2,048 x 2,048
+   (internvl2's training rows), 996 x 2,560 and d = 2,561; attention at
+   internvl2's training call (4 x 512, 16 / 8 heads of 128, causal),
+   gemma3's (head 256, window 1,024), DeepSeek-V2's widths (192 / 128),
+   whisper's encoder (4 x 1,500 x 20 x 64, non-causal) and its cross
+   attention (448 queries over 1,500 keys) -- within 2e-4 (f32) / 5e-2
+   (bf16) of the largest |ref|, the same bits on a second call; median
+   times (CUDA events, 20 runs), device times (a CUDA graph of 20 calls),
+   the plain backward's time, and the kernel's forward + backward beside
+   ``F.rms_norm``'s / SDPA's through autograd; (b) one f32
+   ``make_train_step`` step of each reduced architecture the card trains
+   (stablelm, gemma3, glm4, qwen2, olmoe, DeepSeek, internvl2 with
+   patches, whisper), the same seeded weights and batch on the card and
+   the CPU: loss within 1e-4, every gradient within 1e-3 of its largest
+   |value|, every updated parameter within 1e-5; ``accum_steps`` 2 the
+   same; a ``compress_grads`` step's loss; remat none / dots / full the
+   same loss and gradient norm on the card; mamba2-1.3b and zamba2-2.7b
+   refused (``NotImplementedError``, ROADMAP §A10e2) before any step;
+   (c) internvl2-2b at full width and depth through
+   ``repro_torch.launch.train.train`` (the code of ``python -m
+   repro_torch.launch.train``): 8 steps of 4 x (256 patches + 256 tokens),
+   bf16 compute, f32 params, AdamW with the reference's defaults, remat
+   ``dots``: every loss and gradient norm finite, every parameter finite
+   and changed, launches a step of rmsnorm, rmsnorm_bwd, flash_attention
+   and flash_attention_bwd (counted from 0 just before the run) equal to
+   what the model's plan gives, and no call to a plain version (each
+   wrapped with a counter); s / step, positions / s, peak memory, and a
+   torch.profiler trace of step 7 (busy share, device time by kind: GEMMs,
+   the two kernels' forward and backward, the optimizer).  Each backward
+   kernel is then timed on (c)'s own call (bf16);
+8. registry: the rest of the strategy registry through ``run_cells``, on
    theta at scale 0.1 (255 jobs on 4,392 nodes, 1 seed, proportions 0.2 /
    0.6 / 1.0): SJF with MIN, KEEPPREF, PREF_COMMON_POOL and
    STEAL_AGREEMENT (greedy, pooled and stealing batches; 13 cells) under
@@ -120,7 +154,7 @@ Phases:
    as in phase 3; each batch's wall, steps, window and ms per step, and the
    SJF greedy step beside the main phase's FCFS one.  Cut to scale 0.05,
    printed, if the time left would not hold it;
-8. experiment: ``python -m repro_torch.experiments``'s ``main(argv)`` as
+9. experiment: ``python -m repro_torch.experiments``'s ``main(argv)`` as
    a user runs it, each group of runs in a fresh temporary directory
    outside the repository, kernel launches counted from 0 before each
    run: (a) haswell at scale 0.02, 2 seeds, ``--crosscheck 2
@@ -138,7 +172,7 @@ Phases:
    engine's methodology gap, which the port shares with the JAX engine.
    Each run prints its wall, cells computed, store hits, launches and
    DES seconds;
-9. whatif: the what-if query service (``repro_torch.serve``) in a fresh
+10. whatif: the what-if query service (``repro_torch.serve``) in a fresh
    temporary cell store outside the repository: (a) 16 seeded queries at
    theta scale 1.0 (MIN, PREF, KEEPPREF, EASY; proportions 0.2 / 0.4 /
    0.6 / 1.0; 2 seeds; 10 distinct cells) submitted from 4 client threads
@@ -159,7 +193,7 @@ Phases:
    per-cell metrics identical; and a storm at theta 0.02 (greedy and
    balanced lanes) on the card equal to the same storm on the CPU bit for
    bit.  Prints wall, batches, coalesce widths, steps and launches;
-10. dense: the dense per-tick engine (``repro_torch.core.sim_dense``,
+11. dense: the dense per-tick engine (``repro_torch.core.sim_dense``,
    one scheduling pass a tick over whole job tensors), launches counted
    from 0 before each run: (a) the 20-job workload of
    ``tests/test_sim_jax.py`` on 10 nodes for 800 ticks under the 8
@@ -175,7 +209,7 @@ Phases:
    ticks equal to ``bisect``; wall, ms a tick and each lane's mean
    turnaround beside the port's DES (not gated); the tick kernel timed on
    the batch's 450th call (3 x 415 slots, priority bounds +-4 x 9,688);
-11. scale: the greedy batch on haswell at scale 1.0 (the whole trace,
+12. scale: the greedy batch on haswell at scale 1.0 (the whole trace,
    28,259 jobs on 2,388 nodes) with ``fused``, tick launches counted from
    0 just before it; the tick kernel is then timed on the run's call at
    its peak window (B = 16, W = 16,384): single-call and device (CUDA
@@ -2063,6 +2097,671 @@ def phase_encdec(report):
                           ("whisper", "internvl2", "internvl2_engine"))
 
 
+# ------------------------------------------------------------- training
+# the backward kernels; "replaces" names the TPU kernel whose function
+# they differentiate (the Pallas kernels have no backward: JAX trains
+# through XLA autodiff of plain ops)
+BWD_KERNELS = {
+    "rmsnorm_bwd": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
+                    "src/repro/kernels/rmsnorm.py:19"),
+    "flash_attention_bwd": (
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "src/repro/kernels/flash_attention.py:36"),
+}
+# a backward output against its plain version: max |err| <= tol x the
+# largest |ref| of that output (its sums run over rows, keys or queries,
+# so the error grows with that length as |ref| does)
+BWD_TOL = {"float32": 2e-4, "bfloat16": 5e-2}
+# (a): internvl2's training rows and call, zamba2's prefill rows, the
+# forward's scalar-access width; gemma3's head dim with its window,
+# DeepSeek-V2's key / value widths, whisper's encoder and cross attention
+RMS_BWD_SHAPES = [("internvl2 train rows", dict(rows=2048, d=2048)),
+                  ("zamba2 prefill rows", dict(rows=996, d=2560)),
+                  ("odd width", dict(rows=7, d=2561))]
+ATTN_BWD_SHAPES = [
+    ("internvl2 train", dict(B=4, Sq=512, Sk=512, H=16, Hkv=8, D=128,
+                             Dv=128)),
+    ("gemma3 window", dict(B=1, Sq=1100, Sk=1100, H=8, Hkv=4, D=256,
+                           Dv=256, window=1024)),
+    ("DeepSeek widths", dict(B=1, Sq=512, Sk=512, H=128, Hkv=128, D=192,
+                             Dv=128)),
+    ("whisper encoder", dict(B=4, Sq=1500, Sk=1500, H=20, Hkv=20, D=64,
+                             Dv=64, causal=False)),
+    ("whisper cross", dict(B=4, Sq=448, Sk=1500, H=20, Hkv=20, D=64, Dv=64,
+                           causal=False)),
+]
+# (b): every architecture the card trains, reduced; Mamba-2's wait (A10e2)
+TRAIN_ARCHS = ("stablelm-1.6b", "gemma3-4b", "glm4-9b", "qwen2-72b",
+               "olmoe-1b-7b", "deepseek-v2-236b", "internvl2-2b",
+               "whisper-large-v3")
+TRAIN_REFUSED = ("mamba2-1.3b", "zamba2-2.7b")
+# (c): internvl2-2b at full width and depth, bf16 compute, f32 params,
+# AdamW with the reference's defaults, remat "dots" (TrainConfig's
+# defaults): 8 steps of 4 x (256 patches + 256 tokens)
+TRAIN_FULL = dict(arch="internvl2-2b", steps=8, batch=4, seq=512,
+                  profile_step=7)
+TRAIN_PLAIN = ("rmsnorm_ref", "attention_ref", "rmsnorm_bwd_ref",
+               "attention_bwd_ref")
+
+
+def max_rel_err(got, ref, tol, label):
+    """(max |got - ref|, that / max |ref|); raises when the second is above
+    ``tol`` (a NaN fails)."""
+    got, ref = got.detach().double(), ref.detach().double()
+    err = float((got - ref).abs().max())
+    big = float(ref.abs().max())
+    rel = err / max(big, 1e-30)
+    if not rel <= tol:
+        raise AssertionError(f"{label}: max |err| {err:.3g} is {rel:.3g} "
+                             f"of max |ref| {big:.3g} (tol {tol})")
+    return err, rel
+
+
+def bwd_case(gen, kernel, shape, dtype):
+    """Seeded inputs of a backward kernel on the card, the forward's
+    output and row log-sum-exp (attention) from the kernel."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention_with_lse
+
+    def rn(*s, dt=dtype):
+        return torch.randn(s, generator=gen).to(DEVICE, dt)
+
+    if kernel == "rmsnorm_bwd":
+        r, d = shape["rows"], shape["d"]
+        return (rn(r, d), rn(d, dt=torch.float32), rn(r, d)), {}
+    b, sq, sk, h, hkv = (shape[k] for k in ("B", "Sq", "Sk", "H", "Hkv"))
+    kw = {k: shape[k] for k in ("causal", "window") if k in shape}
+    q, k, v = rn(b, sq, h, shape["D"]), rn(b, sk, hkv, shape["D"]), \
+        rn(b, sk, hkv, shape["Dv"])
+    o, lse = flash_attention_with_lse(q, k, v, **kw)
+    return (q, k, v, o, lse, rn(b, sq, h, shape["Dv"])), kw
+
+
+def bwd_work(kernel, args, kw):
+    """(flops, bytes, rate, rate name) the least the card could take for a
+    backward call: RMSNorm reads x, dy and the scale, writes dx and dscale
+    (~8 flops an element, f32 CUDA cores); attention computes, per visible
+    (query, key) pair, S again (2 D), dP (2 Dv), dV (2 Dv), dQ (2 D) and
+    dK (2 D) flops, reads q, k, v, o, dO and lse once and writes dq, dk,
+    dv once, at the route's rate (bf16 tensor cores, or split TF32)."""
+    import torch
+    if kernel == "rmsnorm_bwd":
+        x, w = args[:2]
+        return (8.0 * x.numel(),
+                3 * x.numel() * x.element_size() + 2 * w.numel() *
+                w.element_size(), FP32_OPS_PER_S,
+                "f32 CUDA cores, 67 TFLOP/s")
+    q, k, v, o, lse, do = args
+    b, sq, h, d = q.shape
+    sk, dv = k.shape[1], v.shape[-1]
+    fwd_flops, _ = attention_work(q, k, v, kw)
+    pairs = fwd_flops / (2.0 * (d + dv))
+    es = q.element_size()
+    nbytes = es * (2 * (q.numel() + k.numel() + v.numel())
+                   + 2 * o.numel()) + 4 * lse.numel()
+    if q.dtype == torch.bfloat16:
+        rate, name = BF16_OPS_PER_S, "bf16 tensor cores, 989 TFLOP/s"
+    else:
+        rate = TF32_OPS_PER_S / SPLIT_TF32_PASSES
+        name = "split TF32, 495 / 3 TFLOP/s"
+    return 2.0 * (3 * d + 2 * dv) * pairs, nbytes, rate, name
+
+
+def bwd_fns(kernel, args, kw):
+    """(kernel backward, plain backward, kernel forward + backward through
+    autograd, library forward + backward through autograd) on one call's
+    inputs; the last two return the inputs' gradients.  The library's
+    attention is SDPA with the call's own mask (``is_causal``, or with a
+    window a boolean ``attn_mask`` built here, outside the timed call) and
+    value width."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd
+    if kernel == "rmsnorm_bwd":
+        x, w, dy = args[:3]
+        ins = x.detach().requires_grad_(), w.detach().requires_grad_()
+
+        def both(fn):
+            return lambda: torch.autograd.grad(fn(*ins), ins, dy)
+        return ((lambda: rmsnorm_bwd(*args)),
+                (lambda: ref.rmsnorm_bwd_ref(*args)), both(rmsnorm),
+                both(lambda a, b: F.rms_norm(a, (a.shape[-1],), b,
+                                             eps=1e-6)))
+    q, k, v, o, lse, do = args
+    ins = tuple(t.detach().requires_grad_() for t in (q, k, v))
+    causal, window = kw.get("causal", True), kw.get("window", 0)
+    mask = None
+    if window > 0:   # the kernel's band: query - window < key (<= query)
+        qpos = torch.arange(q.shape[1], device=q.device)[:, None]
+        kpos = torch.arange(k.shape[1], device=q.device)[None, :]
+        mask = kpos > qpos - window
+        if causal:
+            mask = mask & (kpos <= qpos)
+    gqa = q.shape[2] != k.shape[2]
+
+    def kern_both():
+        return torch.autograd.grad(flash_attention(*ins, **kw), ins, do)
+
+    def lib():
+        out = F.scaled_dot_product_attention(
+            *(t.transpose(1, 2) for t in ins), attn_mask=mask,
+            is_causal=causal and mask is None,
+            scale=kw.get("softmax_scale"), enable_gqa=gqa)
+        return torch.autograd.grad(out, ins, do.transpose(1, 2))
+    return ((lambda: flash_attention_bwd(*args, **kw)),
+            (lambda: ref.attention_bwd_ref(*args, **kw)), kern_both, lib)
+
+
+def bwd_row(kernel, label, args, kw, report, dname):
+    """One backward kernel on one call's inputs: held to its plain
+    version, then single-call (CUDA events, median of 20) and device (a
+    CUDA graph of 20 calls) times beside the plain backward, its bound,
+    and the kernel's forward + backward against the library's through
+    autograd, both as single-call and as device times."""
+    kern, plain, both, lib = bwd_fns(kernel, args, kw)
+    got, ref = kern(), plain()
+    names = ("dx", "dscale") if kernel == "rmsnorm_bwd" else ("dq", "dk",
+                                                              "dv")
+    errs = [max_rel_err(g, r, BWD_TOL[dname], f"{kernel} {label} {dname} "
+                        f"{n}") for n, g, r in zip(names, got, ref)]
+    err, rel = max(e for e, _ in errs), max(r for _, r in errs)
+    again = kern()
+    if not all(identical(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{kernel} {label} {dname}: a second call "
+                             "gave other bits")
+    flops, nbytes, rate, rate_name = bwd_work(kernel, args, kw)
+    b_bytes, b_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / rate * 1e3
+    r = {"label": label, "dtype": dname, "shape": list(args[0].shape),
+         "kwargs": kw, "max_abs_err": err, "max_rel_err": rel,
+         "ms": cuda_median_ms(kern), "device_ms": graph_ms(kern),
+         "plain_ms": cuda_median_ms(plain),
+         "bound_ms": max(b_bytes, b_ops),
+         "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+         "bound_rate": rate_name, "fwd_bwd_ms": cuda_median_ms(both),
+         "fwd_bwd_device_ms": graph_ms(both),
+         "library_ms": cuda_median_ms(lib),
+         "library_device_ms": graph_ms(lib)}
+    if kernel == "flash_attention_bwd" and args[2].shape[-1] != \
+            args[0].shape[-1]:
+        r["value_dim"] = args[2].shape[-1]
+    log(f"[train:a] {kernel} {label} {dname} {r['shape']} {kw}: "
+        f"{r['ms']:.4f} ms, device {r['device_ms']:.4f} ms (plain "
+        f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms by "
+        f"{r['bound_by']}, {rate_name}); forward + backward "
+        f"{r['fwd_bwd_ms']:.4f} ms, device {r['fwd_bwd_device_ms']:.4f} "
+        f"ms; library {r['library_ms']:.4f} ms, device "
+        f"{r['library_device_ms']:.4f} ms (library / kernels "
+        f"{r['library_device_ms'] / r['fwd_bwd_device_ms']:.3f} in device "
+        f"time); max |err| {err:.3g}, {rel:.3g} of max |ref| <= "
+        f"{BWD_TOL[dname]}; the same bits twice; {report['gpu']}")
+    return r
+
+
+def train_state_to(state, dev):
+    """A train state built on the CPU, moved to ``dev`` (the model in
+    place, the optimizer trees copied)."""
+    state["params"].to(dev)
+    state["opt"] = {k: ({n: t.to(dev) for n, t in v.items()}
+                        if isinstance(v, dict) else v)
+                    for k, v in state["opt"].items()}
+    if "ef" in state:
+        state["ef"] = {n: t.to(dev) for n, t in state["ef"].items()}
+    return state
+
+
+class KeepGrads(Patch):
+    """Wraps ``train_step.adamw_update``: keeps a copy of the gradients a
+    step hands the optimizer (which scales them in place)."""
+
+    def __call__(self, params, grads, *args, **kwargs):
+        self.grads = {n: g.detach().float().cpu().clone()
+                      for n, g in grads.items()}
+        return self.inner(params, grads, *args, **kwargs)
+
+
+class KeepCompression(Patch):
+    """Wraps ``train_step.compress_decompress``: keeps copies of the
+    gradients it is given and of the dequantized gradients and residuals
+    it returns."""
+
+    def __call__(self, grads, residuals):
+        deq, res = self.inner(grads, residuals)
+        self.kept = tuple({n: t.detach().float().cpu().clone()
+                           for n, t in tree.items()}
+                          for tree in (grads, deq, res))
+        return deq, res
+
+
+def train_reduced_card_vs_cpu(arch, tc=None, seed=0):
+    """One ``make_train_step`` step of ``arch`` reduced, f32, the same
+    weights (seed ``seed``, built on the CPU) and ``batch_for`` batch on
+    the CPU and on the card.  Returns {device: (loss, grad_norm, grads,
+    params, (grads, dequantized grads, residuals) of the compression or
+    None)}."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.convert import to_tensors
+    from repro_torch.train import train_step as TS
+    from repro_torch.train.data import batch_for
+    cfg = get_config(arch).reduced()
+    tc = tc or TS.TrainConfig(compute_dtype=torch.float32)
+    batch = batch_for(cfg, 32, 4, step=1, seed=seed)
+    out = {}
+    for dev in ("cpu", DEVICE):
+        state = train_state_to(TS.init_train_state(
+            cfg, tc, torch.Generator().manual_seed(seed), "cpu"), dev)
+        with KeepGrads(TS, "adamw_update") as keep, \
+                KeepCompression(TS, "compress_decompress") as comp:
+            comp.kept = None
+            state, stats = TS.make_train_step(cfg, tc)(
+                state, to_tensors(batch, dev))
+        out[dev] = (float(stats["loss"]), float(stats["grad_norm"]),
+                    keep.grads, {n: p.detach().float().cpu() for n, p in
+                                 state["params"].named_parameters()},
+                    comp.kept)
+    return out
+
+
+def check_card_vs_cpu(arch, out, tol_grad=1e-3, tol_param=1e-5):
+    """Loss within 1e-4 (relative), each gradient within ``tol_grad`` of
+    its largest |value| on the CPU, each updated parameter within
+    ``tol_param``; returns the worst (loss, grad, param) differences, the
+    first two relative (the gradient's to its largest |value|), the last
+    absolute."""
+    cpu, card = out["cpu"], out[DEVICE]
+    loss_err = abs(card[0] - cpu[0]) / abs(cpu[0])
+    if not loss_err <= 1e-4:
+        raise AssertionError(f"train (b) {arch}: loss {card[0]} on the card,"
+                             f" {cpu[0]} on the CPU")
+    grad_err = max(max_rel_err(card[2][n], g, tol_grad,
+                               f"train (b) {arch} grad {n}")[1]
+                   for n, g in cpu[2].items())
+    param_err = 0.0
+    for n, p in cpu[3].items():
+        d = float((card[3][n] - p).abs().max())
+        if not d <= tol_param:
+            raise AssertionError(f"train (b) {arch}: param {n} differs by "
+                                 f"{d:.3g} after the step")
+        param_err = max(param_err, d)
+    return loss_err, grad_err, param_err
+
+
+# how far, in int8 steps, the f32 roundings of a scale and of a quotient
+# (|gradient| / scale <= 127) can move a gradient / scale
+F32_STEP_SLACK = 4 * 127.0 * 2.0 ** -24
+
+
+def check_compression(out, tol_grad=1e-3):
+    """A first ``compress_grads`` step (zero residuals) on the card against
+    the CPU, per JAX leaf (one int8 scale, its largest |gradient| / 127):
+    the gradients handed to the compression within ``tol_grad`` of the
+    leaf's largest |value|; the int8 steps equal, except where the CPU's
+    gradient / scale lies within twice the two sides' drift (their
+    gradients' difference and their scales' difference, in steps) plus
+    :data:`F32_STEP_SLACK` of a rounding boundary: there it may round one
+    step apart; elsewhere the dequantized gradients equal up to the
+    scales' difference; and on each side residual = gradient - dequantized
+    gradient, so the residuals differ by the gradients' difference less
+    the dequantized ones' (within f32 rounding, 1e-6 of the leaf's largest
+    |value|).  Returns (flipped
+    elements, elements, worst dequantized gradient difference over the
+    leaf's largest |value|)."""
+    import torch
+    from repro_torch.convert import jax_key
+    (g_c, q_c, r_c), (g_d, q_d, r_d) = out["cpu"][4], out[DEVICE][4]
+    leaves = {}
+    for n in g_c:
+        leaves.setdefault(jax_key(n)[0], []).append(n)
+    flips = total = 0
+    worst = 0.0
+    for leaf, names in leaves.items():
+        amax_c = max(float(g_c[n].double().abs().max()) for n in names)
+        amax_d = max(float(g_d[n].double().abs().max()) for n in names)
+        s_c, s_d = (amax_c + 1e-12) / 127.0, (amax_d + 1e-12) / 127.0
+        e = max(float((g_d[n].double() - g_c[n].double()).abs().max())
+                for n in names)
+        if not e <= tol_grad * amax_c:
+            raise AssertionError(f"train (b) compress_grads {leaf}: "
+                                 f"gradients differ by {e:.3g}, max |grad| "
+                                 f"{amax_c:.3g}")
+        drift = e / s_c + 127.0 * abs(s_d - s_c) / s_c
+        for n in names:
+            gc, gd = g_c[n].double(), g_d[n].double()
+            qc, qd = q_c[n].double(), q_d[n].double()
+            kc, kd = torch.round(qc / s_c), torch.round(qd / s_d)
+            flip = kc != kd
+            frac = gc / s_c - torch.floor(gc / s_c)
+            edge = (frac - 0.5).abs() <= 2.0 * drift + F32_STEP_SLACK
+            if not bool(((kc - kd).abs() <= 1).all() and
+                         (edge | ~flip).all()):
+                raise AssertionError(
+                    f"train (b) compress_grads {n}: int8 steps differ "
+                    f"away from a rounding boundary (drift {drift:.3g} "
+                    f"steps)")
+            dq = (qd - qc).abs()
+            if not float(torch.where(flip, 0.0, dq).max()) <= \
+                    127.0 * abs(s_d - s_c) + 1e-6 * amax_c:
+                raise AssertionError(f"train (b) compress_grads {n}: "
+                                     "dequantized gradients differ")
+            rerr = ((r_d[n].double() - r_c[n].double())
+                    - ((gd - gc) - (qd - qc))).abs().max()
+            if not float(rerr) <= 1e-6 * amax_c:
+                raise AssertionError(f"train (b) compress_grads {n}: "
+                                     f"residuals differ by {float(rerr):.3g}"
+                                     " beyond gradient - dequantized")
+            flips += int(flip.sum())
+            total += flip.numel()
+            worst = max(worst, float(dq.max()) / amax_c)
+    return flips, total, worst
+
+
+def expected_train_launches(cfg, remat):
+    """The launches of one train step of an ``attn``-block config that the
+    model's plan gives: each block's two RMSNorms and its attention run
+    forward once, and again under remat's recompute, and backward once;
+    the final norm runs forward and backward once."""
+    layers = sum(seg.count for seg in cfg_plan(cfg))
+    fwd = 1 if remat == "none" else 2
+    return {"rmsnorm": 2 * layers * fwd + 1, "rmsnorm_bwd": 2 * layers + 1,
+            "flash_attention": layers * fwd, "flash_attention_bwd": layers}
+
+
+def cfg_plan(cfg):
+    from repro_torch.models.transformer import decoder_plan
+    plan = decoder_plan(cfg)
+    if any(seg.kind != "attn" for seg in plan) or cfg.norm != "rmsnorm":
+        raise ValueError(f"{cfg.name}: the launch plan counts attn blocks "
+                         "with RMSNorm only")
+    return plan
+
+
+def device_split(prof):
+    """Device ms of a profiled step by kind: the GEMMs, the two LLM
+    kernels' forward and backward, the optimizer's foreach kernels, the
+    rest."""
+    groups = {"gemm": ("gemm", "xmma", "cutlass", "nvjet", "cublas"),
+              "rmsnorm forward": ("rmsnorm_kernel",),
+              "rmsnorm backward": ("rmsnorm_bwd_kernel",
+                                   "rmsnorm_dw_kernel"),
+              "attention forward": ("prefill_kernel", "decode_kernel",
+                                    "combine_kernel"),
+              "attention backward": ("dkdv_kernel", "dq_kernel",
+                                     "delta_kernel"),
+              "optimizer": ("multi_tensor_apply", "foreach")}
+    out = dict.fromkeys(list(groups) + ["other"], 0.0)
+    for e in device_events(prof):
+        key = e.key.lower()
+        kind = next((g for g, pats in groups.items()
+                     if any(p.lower() in key for p in pats)), "other")
+        out[kind] += e.self_device_time_total / 1e3
+    return out
+
+
+class Counted(Patch):
+    """Wraps a function and counts its calls."""
+
+    def __init__(self, module, name):
+        super().__init__(module, name)
+        self.calls = 0
+
+    def __call__(self, *args, **kwargs):
+        self.calls += 1
+        return self.inner(*args, **kwargs)
+
+
+def train_full(report):
+    """(c): internvl2-2b at full width and depth through
+    ``launch.train.train`` (the code path of ``python -m
+    repro_torch.launch.train``), launches counted from 0 just before it and
+    the plain versions wrapped with counters that must stay at 0."""
+    import contextlib
+    import io
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as RN
+    from repro_torch.launch import train as LT
+    from repro_torch.train.train_step import TrainConfig
+    spec = TRAIN_FULL
+    cfg = get_config(spec["arch"])
+    tc = TrainConfig()
+    plain = [Counted(m, n) for n in TRAIN_PLAIN
+             for m in (ref, RN, FA) if hasattr(m, n)]
+    keep_attn = Keep(FA, "flash_attention_bwd",
+                     lambda a, k: ("internvl2 train call", 1))
+    keep_norm = Keep(RN, "rmsnorm_bwd", lambda a, k: (
+        "internvl2 train rows", a[0].numel()))
+    sums = {}
+    steps = {}
+
+    def snapshot(state):
+        return {n: float(p.detach().double().sum())
+                for n, p in state["params"].named_parameters()}
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    t_prof = [0.0]
+
+    def on_step(i, state, stats):
+        # step i's time ends here; what this call adds before the next
+        # step starts is left out of it
+        loss, gnorm = float(stats["loss"]), float(stats["grad_norm"])
+        torch.cuda.synchronize()
+        t_end = time.monotonic()
+        if i == spec["profile_step"]:
+            prof.__exit__(None, None, None)
+            t_prof[0] = t_end - t_prof[0]
+        steps[i] = dict(loss=loss, grad_norm=gnorm, t_end=t_end)
+        if not (math.isfinite(loss) and math.isfinite(gnorm)):
+            raise AssertionError(f"train (c) step {i}: loss {loss}, grad "
+                                 f"norm {gnorm}")
+        if i == 1:
+            sums["first"] = snapshot(state)
+            sums["n_params"] = sum(p.numel() for p in
+                                   state["params"].parameters())
+        if i == spec["steps"]:
+            sums["last"] = snapshot(state)
+            sums["finite"] = all(bool(torch.isfinite(p).all()) for p in
+                                 state["params"].parameters())
+        torch.cuda.synchronize()
+        steps[i]["t_next"] = time.monotonic()
+        if i == spec["profile_step"] - 1:
+            prof.__enter__()
+            t_prof[0] = time.monotonic()
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    build.LAUNCH_COUNTS.clear()  # this path's launches start here
+    t0 = time.monotonic()
+    with contextlib.ExitStack() as stack:
+        for p in plain + [keep_attn, keep_norm]:
+            stack.enter_context(p)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            LT.train(cfg, tc, steps=spec["steps"], batch=spec["batch"],
+                     seq=spec["seq"], seed=0, device=DEVICE, log_every=1,
+                     on_step=on_step)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    for line in buf.getvalue().splitlines():
+        log(f"[train:c] {line}")
+    launches = {k: build.LAUNCH_COUNTS[k] for k in
+                ("rmsnorm", "rmsnorm_bwd", "flash_attention",
+                 "flash_attention_bwd", "ssd_scan")}
+    per_step = {k: v / spec["steps"] for k, v in launches.items()}
+    want = {**expected_train_launches(cfg, tc.remat), "ssd_scan": 0}
+    if per_step != want:
+        raise AssertionError(f"train (c): launches a step {per_step}, the "
+                             f"plan gives {want}")
+    calls = {f"{p.module.__name__.rsplit('.', 1)[-1]}.{p.name}": p.calls
+             for p in plain}
+    if any(calls.values()):
+        raise AssertionError(f"train (c): plain versions called {calls}")
+    unchanged = [n for n, s in sums["first"].items()
+                 if s == sums["last"][n]]
+    if not sums["finite"] or unchanged:
+        raise AssertionError(f"train (c): params finite {sums['finite']}, "
+                             f"unchanged {unchanged[:5]}")
+    times = [steps[i + 1]["t_end"] - steps[i]["t_next"]
+             for i in range(1, spec["steps"])
+             if i + 1 != spec["profile_step"]]
+    s_step = statistics.median(times)
+    positions = spec["batch"] * spec["seq"]
+    text = spec["batch"] * (spec["seq"] - cfg.n_frontend_tokens)
+    split = device_split(prof)
+    dev_ms = sum(split.values())
+    out = dict(params=sums["n_params"],
+               wall_s=wall, s_per_step=s_step,
+               positions_per_s=positions / s_step,
+               text_tokens_per_s=text / s_step,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               losses=[steps[i]["loss"] for i in sorted(steps)],
+               grad_norms=[steps[i]["grad_norm"] for i in sorted(steps)],
+               launches=launches, launches_per_step=per_step,
+               plain_calls=calls, profiled_step_s=t_prof[0],
+               device_ms=dev_ms, busy=dev_ms / 1e3 / t_prof[0],
+               device_split_ms=split)
+    log(f"[train:c] {cfg.name} at full width and depth: {spec['steps']} "
+        f"steps of {spec['batch']} x ({cfg.n_frontend_tokens} patches + "
+        f"{spec['seq'] - cfg.n_frontend_tokens} tokens), bf16 compute, f32 "
+        f"params, AdamW, remat {tc.remat}: wall {wall:.2f}s, "
+        f"{s_step:.4f} s/step (median of the unprofiled steps), "
+        f"{out['positions_per_s']:.0f} positions/s "
+        f"({out['text_tokens_per_s']:.0f} text tokens/s), peak memory "
+        f"{out['peak_gb']:.2f} GB; losses "
+        f"{[round(x, 4) for x in out['losses']]}, every loss and grad norm "
+        f"finite, every parameter finite and changed; launches a step "
+        f"{per_step} == the plan's; plain versions called {calls}")
+    log(f"[train:c] profiled step {spec['profile_step']}: "
+        f"{t_prof[0] * 1e3:.1f} ms wall under the profiler, device busy "
+        f"{dev_ms:.1f} ms ({100.0 * out['busy']:.1f}%); device ms by kind "
+        + ", ".join(f"{k} {v:.2f}" for k, v in split.items())
+        + f"; {report['gpu']}")
+    kept = {"flash_attention_bwd": keep_attn.kept, "rmsnorm_bwd":
+            keep_norm.kept}
+    return out, kept
+
+
+def phase_train(report):
+    """Training through the port's LLM layer on hand-written backward
+    kernels: (a) both backward kernels against their plain versions at the
+    training path's shapes, f32 and bf16, timed beside the plain backward
+    and the library's forward + backward; (b) one train step of every
+    reduced architecture the card trains, card == CPU, the remat modes, an
+    accumulated and a compressed step, and the Mamba-2 configs refused; (c)
+    internvl2-2b at full width and depth through ``launch.train``; then
+    each backward kernel timed on (c)'s own calls."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.convert import to_tensors
+    from repro_torch.models import transformer as T
+    from repro_torch.train import train_step as TS
+    from repro_torch.train.data import batch_for
+    out = report.setdefault("train", {})
+    t_phase = time.monotonic()
+    gen = torch.Generator().manual_seed(24)
+    rows = {kernel: [] for kernel in BWD_KERNELS}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        for kernel, shapes in (("rmsnorm_bwd", RMS_BWD_SHAPES),
+                               ("flash_attention_bwd", ATTN_BWD_SHAPES)):
+            for label, shape in shapes:
+                args, kw = bwd_case(gen, kernel, shape, dtype)
+                rows[kernel].append(bwd_row(kernel, label, args, kw, report,
+                                            dname))
+                del args
+                torch.cuda.empty_cache()
+    out["a_s"] = time.monotonic() - t_phase
+
+    errs = {}
+    for arch in TRAIN_ARCHS:
+        errs[arch] = check_card_vs_cpu(arch,
+                                       train_reduced_card_vs_cpu(arch))
+        log(f"[train:b] {arch} reduced, one f32 step: card == CPU, loss "
+            f"{errs[arch][0]:.2g} (relative), worst gradient "
+            f"{errs[arch][1]:.3g} of its largest |value|, worst updated "
+            f"parameter {errs[arch][2]:.3g} (absolute)")
+    accum = TS.TrainConfig(compute_dtype=torch.float32, accum_steps=2)
+    errs["accum 2"] = check_card_vs_cpu("accum 2", train_reduced_card_vs_cpu(
+        "stablelm-1.6b", accum))
+    comp = train_reduced_card_vs_cpu("glm4-9b", TS.TrainConfig(
+        compute_dtype=torch.float32, compress_grads=True))
+    if not (abs(comp[DEVICE][0] - comp["cpu"][0]) <= 1e-4 * abs(
+            comp["cpu"][0]) and math.isfinite(comp[DEVICE][1])):
+        raise AssertionError(f"train (b) compress_grads: {comp[DEVICE][:2]}"
+                             f" on the card, {comp['cpu'][:2]} on the CPU")
+    flips, n_elem, comp_err = check_compression(comp)
+    errs["compress_grads"] = dict(flips=flips, elements=n_elem,
+                                  worst_rel=comp_err)
+    log(f"[train:b] accum_steps 2 (stablelm): card == CPU, worst gradient "
+        f"{errs['accum 2'][1]:.3g} of its largest |value|; compress_grads (glm4): loss "
+        f"{comp[DEVICE][0]:.6f} (CPU {comp['cpu'][0]:.6f}), grad norm "
+        f"{comp[DEVICE][1]:.6f} (CPU {comp['cpu'][1]:.6f}); compressed "
+        f"gradients and residuals card == CPU but {flips} of {n_elem} "
+        f"elements one int8 step apart at a rounding boundary (worst "
+        f"{comp_err:.3g} of the leaf's max |grad|)")
+    cfg = get_config("olmoe-1b-7b").reduced()
+    model = T.init_params(cfg, torch.Generator(DEVICE).manual_seed(0),
+                          DEVICE)
+    model.requires_grad_(True)
+    batch = to_tensors(batch_for(cfg, 32, 4, step=2, seed=0), DEVICE)
+    remat = {}
+    for mode in T.REMAT_MODES:
+        model.zero_grad(set_to_none=True)
+        loss, _ = T.forward_train(model, cfg, batch, dtype=torch.float32,
+                                  remat=mode)
+        loss.backward()
+        remat[mode] = (float(loss.detach()), float(torch.linalg.vector_norm(
+            torch.stack([p.grad.norm() for p in model.parameters()]))))
+    base = remat["none"]
+    if any(abs(v[0] - base[0]) > 1e-6 * abs(base[0]) or
+           abs(v[1] - base[1]) > 1e-5 * base[1] for v in remat.values()):
+        raise AssertionError(f"train (b): remat modes disagree {remat}")
+    log(f"[train:b] olmoe reduced on the card, remat none / dots / full: "
+        f"loss and gradient norm {remat}")
+    for arch in TRAIN_REFUSED:
+        try:
+            TS.init_train_state(get_config(arch).reduced(), TS.TrainConfig(),
+                                torch.Generator(DEVICE).manual_seed(0),
+                                DEVICE)
+        except NotImplementedError as e:
+            if "A10e2" not in str(e):
+                raise
+            log(f"[train:b] {arch} on the card: refused before any step "
+                f"({e})")
+        else:
+            raise AssertionError(f"train (b): {arch} was not refused")
+    del model
+    out["b"] = {"errors": errs, "remat": remat}
+    out["b_s"] = time.monotonic() - t_phase - out["a_s"]
+
+    out["full"], kept = train_full(report)
+    entries = report.setdefault("kernels", [])
+    for kernel, (source, replaces) in BWD_KERNELS.items():
+        (label, (_size, args, kw)), = kept[kernel].items()
+        main = bwd_row(kernel, label, args, kw, report,
+                       str(args[0].dtype).split(".")[-1])
+        entries.append({
+            "name": kernel, "route": "cuda", "source": source,
+            "replaces": replaces,
+            "launches": out["full"]["launches"][kernel],
+            **{k: main[k] for k in (
+                "max_abs_err", "max_rel_err", "ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms", "device_ms", "fwd_bwd_ms",
+                "fwd_bwd_device_ms", "library_device_ms", "shape",
+                "dtype")},
+            "shapes": rows[kernel]})
+    out["phase_s"] = time.monotonic() - t_phase
+    log(f"[train] phase {out['phase_s']:.1f}s ((a) {out['a_s']:.1f}s, (b) "
+        f"{out['b_s']:.1f}s); {report['gpu']}")
+
+
 # ------------------------------------------------- the dense per-tick engine
 # (a): tests/test_sim_jax.py's 20-job workload on 10 nodes and its horizon
 DENSE_TICKS = 800
@@ -2508,7 +3207,7 @@ def phase_registry(report, elapsed_s):
 
 # ------------------------------------------------ the experiment layer
 KERNEL_NAMES = ("schedule_tick", "waterfill", "rmsnorm", "flash_attention",
-                "ssd_scan")
+                "ssd_scan", "rmsnorm_bwd", "flash_attention_bwd")
 # the configuration the reference's CI gates: haswell at scale 0.02, 2
 # seeds, the paper grid, 2 cells crosschecked against the DES
 GATED_ARGV = ["--workload", "haswell", "--scale", "0.02", "--seeds", "2"]
@@ -3185,11 +3884,11 @@ def phase_profile(report):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="env,parity,main,serve,moe,encdec,registry,"
-                            "experiment,whatif,dense,scale",
+                    default="env,parity,main,serve,moe,encdec,train,"
+                            "registry,experiment,whatif,dense,scale",
                     help="comma-separated subset of env,parity,main,serve,"
-                         "moe,encdec,registry,experiment,whatif,dense,scale "
-                         "(the default) "
+                         "moe,encdec,train,registry,experiment,whatif,dense,"
+                         "scale (the default) "
                          "and the opt-in waterfill, waterfill-plans, "
                          "profile and paper-scale")
     ap.add_argument("--paper-scale-budget", type=float,
@@ -3234,6 +3933,8 @@ def main(argv=None) -> int:
             phase_moe(report)
         if "encdec" in phases:
             phase_encdec(report)
+        if "train" in phases:
+            phase_train(report)
         if "registry" in phases:
             phase_registry(report, time.monotonic() - t_start)
         if "experiment" in phases:

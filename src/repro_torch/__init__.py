@@ -4,12 +4,15 @@ A second package beside the JAX reference ``repro``: it runs the paper grid
 (the batched event-stepped engine, its metrics, chunked and card-split
 lane execution in ``sweep.shard``, and the experiment layer,
 ``python -m repro_torch.experiments``), the what-if scheduling query
-service (``serve.whatif``, ``python -m repro_torch.serve``) and LLM
-serving (``serve.engine`` over ``models``: the ``mamba``, ``shared``,
-``attn`` and ``moe`` block kinds, GQA or MLA attention) in PyTorch, with
-the greedy scheduling pass, the prefix waterfill, RMSNorm, flash attention
-and the Mamba-2 SSD scan as hand-written CUDA kernels for Hopper
-(``repro_torch/kernels/csrc``).  It imports ``torch`` and numpy only; the
+service (``serve.whatif``, ``python -m repro_torch.serve``), LLM serving
+(``serve.engine`` over ``models``: the ``mamba``, ``shared``, ``attn``,
+``moe``, ``enc`` and ``dec`` block kinds, GQA or MLA attention) and LLM
+training (``train``, ``python -m repro_torch.launch.train``) in PyTorch,
+with the greedy scheduling pass, the prefix waterfill, RMSNorm, flash
+attention and the Mamba-2 SSD scan as hand-written CUDA kernels for Hopper
+(``repro_torch/kernels/csrc``), and RMSNorm's and attention's gradients as
+hand-written backward kernels (the SSD scan has none yet, so Mamba-2
+blocks train on the CPU only).  It imports ``torch`` and numpy only; the
 JAX package is never imported here.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;

@@ -3,8 +3,9 @@
 The JAX package's ``BatchedLanes`` / ``PassParams`` / slot arrays, handed
 over as numpy arrays keyed by field name, become the port's tensors on a
 given device (dtypes kept: bool, int32, float32), and a result dict comes
-back as numpy.  The LLM layer's parameters and decode caches cross the
-same way, keyed by their JAX pytree paths.  The parity tests use this so
+back as numpy.  The LLM layer's parameters (and their gradients), decode
+caches and train states cross the same way, keyed by their JAX pytree
+paths.  The parity tests use this so
 both packages compute on identical inputs; nothing here imports JAX.
 """
 from __future__ import annotations
@@ -99,15 +100,100 @@ def lm_params_from_numpy(flat: Mapping[str, object], cfg, device=None):
     """
     from repro_torch.models.transformer import LM
 
-    def leaf(name):
-        parts = name.split(".")
-        if parts[0] in ("segments", "enc_segments"):
-            key = "/".join(parts[:2] + parts[3:])
-            return key, np.asarray(flat[key])[int(parts[2])]
-        key = "/".join(parts)
-        return key, np.asarray(flat[key])
+    return _fill(LM(cfg, resolve_device(device)), flat,
+                 lambda name: _jax_leaf(name, flat))
 
-    return _fill(LM(cfg, resolve_device(device)), flat, leaf)
+
+def jax_key(name: str):
+    """``(JAX leaf path, layer index or None)`` of a parameter name of the
+    port's LM: a segment's layer ``segments.<i>.<layer>.<rest>`` is row
+    ``<layer>`` of the stack ``segments/<i>/<rest>``."""
+    parts = name.split(".")
+    if parts[0] in ("segments", "enc_segments"):
+        return "/".join(parts[:2] + parts[3:]), int(parts[2])
+    return "/".join(parts), None
+
+
+def _jax_leaf(name: str, flat: Mapping[str, object]):
+    key, layer = jax_key(name)
+    arr = np.asarray(flat[key])
+    return key, arr if layer is None else arr[layer]
+
+
+def named_to_numpy(named: Mapping[str, torch.Tensor]
+                   ) -> Dict[str, np.ndarray]:
+    """Tensors keyed by the port's parameter names -> numpy arrays keyed by
+    the JAX leaf paths, a segment's layers stacked on axis 0 in order: the
+    inverse of the mapping :func:`lm_params_from_numpy` reads."""
+    stacks: Dict[str, dict] = {}
+    out = {}
+    for name, t in named.items():
+        key, layer = jax_key(name)
+        arr = t.detach().cpu().numpy()
+        if layer is None:
+            out[key] = arr
+        else:
+            stacks.setdefault(key, {})[layer] = arr
+    for key, rows in stacks.items():
+        out[key] = np.stack([rows[i] for i in range(len(rows))])
+    return out
+
+
+def named_from_numpy(flat: Mapping[str, object], model: torch.nn.Module,
+                     device=None) -> Dict[str, torch.Tensor]:
+    """The inverse of :func:`named_to_numpy` for ``model``'s parameter
+    names: a tree of the JAX layout (an optimizer moment, a residual) as
+    tensors keyed by parameter name, on ``device``."""
+    dev = resolve_device(device)
+    return {name: torch.from_numpy(np.array(_jax_leaf(name, flat)[1],
+                                            copy=True)).to(dev)
+            for name, _ in model.named_parameters()}
+
+
+def lm_params_to_numpy(model: torch.nn.Module, cfg, *, grad: bool = False
+                       ) -> Dict[str, np.ndarray]:
+    """The LM's parameters (or, with ``grad``, their ``.grad``) as numpy
+    arrays keyed by the JAX ``init_params`` leaf paths: the inverse of
+    :func:`lm_params_from_numpy`.  Raises for a model of another config's
+    plan."""
+    from repro_torch.models.transformer import decoder_plan
+    if tuple(model.plan) != decoder_plan(cfg):
+        raise ValueError(f"the model's plan {model.plan} is not {cfg.name}'s")
+    return named_to_numpy({n: p.grad if grad else p
+                           for n, p in model.named_parameters()})
+
+
+def train_state_to_numpy(state) -> Dict[str, object]:
+    """A train state (``repro_torch.train.train_step``) in the JAX train
+    state's layout: ``{"params", "opt": {"mu", "nu", "step"[, "master"]}[,
+    "ef"]}``, each tree keyed by JAX leaf paths, ``step`` an int32."""
+    opt = state["opt"]
+    out = {"params": named_to_numpy(dict(state["params"].named_parameters())),
+           "opt": {k: named_to_numpy(opt[k]) for k in ("mu", "nu", "master")
+                   if k in opt}}
+    out["opt"]["step"] = np.int32(int(opt["step"]))
+    if "ef" in state:
+        out["ef"] = named_to_numpy(state["ef"])
+    return out
+
+
+def train_state_from_numpy(tree: Mapping[str, object], cfg, device=None):
+    """The inverse of :func:`train_state_to_numpy`: a JAX train state's
+    arrays (``tree["params"]`` and the ``opt`` / ``ef`` trees keyed by leaf
+    path) as the port's train state on ``device``, its parameters needing
+    gradients.  Refuses what ``train_step.check_trainable`` refuses."""
+    from repro_torch.train.train_step import check_trainable
+    dev = resolve_device(device)
+    check_trainable(cfg, dev)
+    model = lm_params_from_numpy(tree["params"], cfg, dev)
+    model.requires_grad_(True)
+    opt = {k: named_from_numpy(v, model, dev)
+           for k, v in tree["opt"].items() if k != "step"}
+    opt["step"] = torch.tensor(int(tree["opt"]["step"]), dtype=torch.int32)
+    state = {"params": model, "opt": opt}
+    if "ef" in tree:
+        state["ef"] = named_from_numpy(tree["ef"], model, dev)
+    return state
 
 
 def cache_to_numpy(cache) -> Dict[str, np.ndarray]:

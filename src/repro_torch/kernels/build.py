@@ -46,8 +46,10 @@ import torch
 
 CSRC = pathlib.Path(__file__).resolve().with_name("csrc")
 SOURCES = ("schedule_tick.cu", "waterfill.cu", "rmsnorm.cu",
-           "flash_attention.cu", "ssd_scan.cu", "bindings.cpp")
-HEADERS = ("kernels.h", "block.cuh", "dtype.cuh", "mma.cuh", "atomics.cuh")
+           "flash_attention.cu", "flash_attention_bwd.cu", "ssd_scan.cu",
+           "bindings.cpp")
+HEADERS = ("kernels.h", "block.cuh", "dtype.cuh", "mma.cuh", "atomics.cuh",
+           "attention.cuh")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3",
               "--fmad=false", "-std=c++17", "-Xcompiler", "-fPIC",
               "-Xptxas=-v")
@@ -66,7 +68,9 @@ _SIGNATURES = {
     "repro_schedule_tick": [_P] * 20 + [_I] * 14 + [_P],
     "repro_waterfill": [_P] * 5 + [_I] * 4 + [_P],
     "repro_rmsnorm": [_P, _P, _P, _I, _I, _F, _I, _P],
-    "repro_flash_attention": [_P] * 5 + [_I] * 11 + [_F, _I, _I, _P],
+    "repro_rmsnorm_bwd": [_P] * 6 + [_I] * 3 + [_F, _I, _P],
+    "repro_flash_attention": [_P] * 6 + [_I] * 11 + [_F, _I, _I, _P],
+    "repro_flash_attention_bwd": [_P] * 10 + [_I] * 9 + [_F, _I, _P],
     "repro_ssd_scan": [_P] * 9 + [_I] * 8 + [_P],
 }
 _CODES = {_P: "P", _I: "I", _F: "F"}

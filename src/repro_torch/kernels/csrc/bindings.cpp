@@ -109,17 +109,39 @@ int repro_rmsnorm(const void* x, const void* w, void* out, int rows, int d,
       repro::launch_rmsnorm(a, static_cast<cudaStream_t>(stream)));
 }
 
+int repro_rmsnorm_bwd(const void* x, const void* w, const void* dy,
+                      void* dx, void* dw, void* partial, int rows, int d,
+                      int parts, float eps, int types, void* stream) {
+  repro::NormBwdArgs a;
+  a.x = x;
+  a.w = w;
+  a.dy = dy;
+  a.dx = dx;
+  a.dw = dw;
+  a.partial = static_cast<float*>(partial);
+  a.rows = rows;
+  a.d = d;
+  a.parts = parts;
+  a.eps = eps;
+  // bit 0: x's (and dy's) DType, bit 1: w's
+  a.dtype = types & 1;
+  a.wdtype = (types >> 1) & 1;
+  return static_cast<int>(
+      repro::launch_rmsnorm_bwd(a, static_cast<cudaStream_t>(stream)));
+}
+
 int repro_flash_attention(const void* q, const void* k, const void* v,
-                          void* o, void* scratch, int B, int Sq, int Sk,
-                          int H, int Hkv, int D, int Dv, int q_offset,
-                          int kv_valid, int window, int causal, float scale,
-                          int n_split, int dtype, void* stream) {
+                          void* o, void* scratch, void* lse, int B, int Sq,
+                          int Sk, int H, int Hkv, int D, int Dv,
+                          int q_offset, int kv_valid, int window, int causal,
+                          float scale, int n_split, int dtype, void* stream) {
   repro::AttnArgs a;
   a.q = q;
   a.k = k;
   a.v = v;
   a.o = o;
   a.scratch = static_cast<float*>(scratch);
+  a.lse = static_cast<float*>(lse);
   a.B = B;
   a.Sq = Sq;
   a.Sk = Sk;
@@ -134,6 +156,38 @@ int repro_flash_attention(const void* q, const void* k, const void* v,
   a.scale = scale;
   a.n_split = n_split;
   return static_cast<int>(repro::launch_flash_attention(
+      a, dtype, static_cast<cudaStream_t>(stream)));
+}
+
+int repro_flash_attention_bwd(const void* q, const void* k, const void* v,
+                              const void* o, const void* dout,
+                              const void* lse, void* delta, void* dq,
+                              void* dk, void* dv, int B, int Sq, int Sk,
+                              int H, int Hkv, int D, int Dv, int window,
+                              int causal, float scale, int dtype,
+                              void* stream) {
+  repro::AttnBwdArgs a;
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.o = o;
+  a.dout = dout;
+  a.lse = static_cast<const float*>(lse);
+  a.delta = static_cast<float*>(delta);
+  a.dq = dq;
+  a.dk = dk;
+  a.dv = dv;
+  a.B = B;
+  a.Sq = Sq;
+  a.Sk = Sk;
+  a.H = H;
+  a.Hkv = Hkv;
+  a.D = D;
+  a.Dv = Dv;
+  a.window = window;
+  a.causal = causal;
+  a.scale = scale;
+  return static_cast<int>(repro::launch_flash_attention_bwd(
       a, dtype, static_cast<cudaStream_t>(stream)));
 }
 
@@ -200,8 +254,11 @@ Abi make_abi() {
                                &repro_schedule_tick);
   out = append_signature(out, "repro_waterfill", &repro_waterfill);
   out = append_signature(out, "repro_rmsnorm", &repro_rmsnorm);
+  out = append_signature(out, "repro_rmsnorm_bwd", &repro_rmsnorm_bwd);
   out = append_signature(out, "repro_flash_attention",
                          &repro_flash_attention);
+  out = append_signature(out, "repro_flash_attention_bwd",
+                         &repro_flash_attention_bwd);
   out = append_signature(out, "repro_ssd_scan", &repro_ssd_scan);
   *out = '\0';
   return abi;

@@ -102,6 +102,25 @@ struct NormArgs {
 };
 cudaError_t launch_rmsnorm(const NormArgs& args, cudaStream_t stream);
 
+// RMSNorm's gradient over `rows` contiguous rows of width d, given the
+// output's gradient dy (x's type): dx = r (w dy) - x r^3 mean(x w dy) with
+// r = rsqrt(mean(x^2) + eps), written in x's type; dw = sum over rows of
+// dy x r, in w's type.  `parts` CTAs each take every parts-th row and write
+// their columns' sums to `partial` (f32, parts x d); a second kernel adds
+// the parts up in order, so dw has the same bits on every run.
+struct NormBwdArgs {
+  const void* x;
+  const void* w;
+  const void* dy;
+  void* dx;
+  void* dw;
+  float* partial;
+  int rows, d, parts;
+  float eps;
+  int dtype, wdtype;
+};
+cudaError_t launch_rmsnorm_bwd(const NormBwdArgs& args, cudaStream_t stream);
+
 // Online-softmax attention.  q: (B, Sq, H, D); k: (B, Sk, Hkv, D); v:
 // (B, Sk, Hkv, Dv) with Dv <= D; o: (B, Sq, H, Dv); all contiguous and of
 // one type; query head h reads KV head h / (H / Hkv).
@@ -114,12 +133,16 @@ cudaError_t launch_rmsnorm(const NormArgs& args, cudaStream_t stream);
 // (H / Hkv) * Sq <= 16 and Dv == D): the visible keys are cut into n_split
 // ranges, each CTA writes its rows' (acc, m, l) to `scratch`, f32 of shape
 // (B, H, Sq, n_split, D + 2), and a second kernel combines the splits.
+// `lse`, null or f32 (B, H, Sq), takes each row's log-sum-exp of its scaled
+// scores (+inf for a row that sees no key): the prefill variant writes it
+// for the backward; the decode variant refuses it.
 struct AttnArgs {
   const void* q;
   const void* k;
   const void* v;
   void* o;
   float* scratch;
+  float* lse;
   int B, Sq, Sk, H, Hkv, D, Dv;
   int q_offset, kv_valid, window, causal;
   float scale;
@@ -127,6 +150,33 @@ struct AttnArgs {
 };
 cudaError_t launch_flash_attention(const AttnArgs& args, int dtype,
                                    cudaStream_t stream);
+
+// The gradient of the prefill variant's attention (q_offset 0, every key
+// valid), given the forward's output o and row log-sum-exp lse (B, H, Sq),
+// and the output's gradient dout (o's shape and type).  Writes dq (q's
+// shape), dk and dv (k's and v's), all of q's type.  `delta`: f32 scratch
+// (B, H, Sq), each row's sum of dout * o.  The dK / dV kernel takes a tile
+// of keys of one KV head and walks the query tiles of all H / Hkv heads of
+// its group that see it; the dQ kernel takes a tile of queries of one head
+// and walks the key tiles it sees.  No atomics: every output element is
+// written once, by one thread.
+struct AttnBwdArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* o;
+  const void* dout;
+  const float* lse;
+  float* delta;
+  void* dq;
+  void* dk;
+  void* dv;
+  int B, Sq, Sk, H, Hkv, D, Dv;
+  int window, causal;
+  float scale;
+};
+cudaError_t launch_flash_attention_bwd(const AttnBwdArgs& args, int dtype,
+                                       cudaStream_t stream);
 
 // Mamba-2 chunked SSD scan.  x: (B, S, H, P); dt: (B, S, H); b, c: (B, S, N)
 // of one type; a: (H,) f32; init: (B, H, P, N) f32 or null.  Writes

@@ -10,6 +10,13 @@ decode when ``Sq * (H / Hkv) <= 16`` and V is as wide as K, the tensor-core
 prefill otherwise.  V may be narrower than K (MLA: 192-wide keys, 128-wide
 values); the prefill variant then runs P V and writes the output at V's
 width, so V is never padded to K's.
+
+Training: when q, k or v needs a gradient, :func:`flash_attention` runs as
+an autograd function.  Its forward is the prefill variant, asked to write
+each row's log-sum-exp as well; its backward is :func:`flash_attention_bwd`,
+the kernels of ``csrc/flash_attention_bwd.cu`` (plain
+:func:`repro_torch.kernels.ref.attention_bwd_ref` on the CPU).  A query
+offset and a valid length are decode's alone and are refused there.
 """
 from __future__ import annotations
 
@@ -23,7 +30,7 @@ import torch
 
 from . import KernelModule
 from .build import dtype_code, launch
-from .ref import attention_ref
+from .ref import attention_bwd_ref, attention_ref
 
 MAX_HEAD_DIM = 256
 # a CTA's dynamic shared memory on Hopper (232,448 bytes)
@@ -120,41 +127,148 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     j at j; key j is seen when ``j < kv_valid_len``, (causal) ``j <=
     query`` and (``window > 0``) ``j > query - window``.
     A row that sees no key is 0.  ``block_k`` is the plain version's KV
-    block; the kernel tiles by its own.
+    block; the kernel tiles by its own.  Differentiable (see the module's
+    docstring) with ``q_offset`` 0 and no ``kv_valid_len``.
     """
     if q.device.type not in ("cuda", "cpu"):
         raise ValueError(f"flash_attention runs on cuda or cpu, not "
                          f"{q.device}")
     check_shapes(q, k, v)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        if q_offset or kv_valid_len is not None:
+            raise ValueError(
+                f"q_offset {q_offset} / kv_valid_len {kv_valid_len}: the "
+                "attention backward takes neither (they are decode's)")
+        return _Attention.apply(q, k, v, bool(causal), int(window),
+                                _scale(q, softmax_scale))
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window,
                              q_offset=q_offset, kv_valid_len=kv_valid_len,
                              softmax_scale=softmax_scale, block_k=block_k)
+    _check_dtypes(q, k, v)
     b, sq, h, dh = q.shape
     sk, hkv, dv = k.shape[1], k.shape[2], v.shape[3]
-    if k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"q {q.dtype}, k {k.dtype}, v {v.dtype}: need k "
-                         "and v of q's dtype")
-    code = dtype_code(q.dtype)
-    scale = (softmax_scale if softmax_scale is not None
-             else 1.0 / math.sqrt(dh))
     valid = sk if kv_valid_len is None else int(kv_valid_len)
     p = plan(b, sq, sk, h, hkv, dh, q.element_size(), dv=dv,
              causal=bool(causal), window=int(window), q_offset=int(q_offset),
              kv_valid=valid)
+    return _launch(q, k, v, causal, window, int(q_offset), valid,
+                   _scale(q, softmax_scale), p.n_split)[0]
+
+
+def _scale(q, softmax_scale):
+    return (softmax_scale if softmax_scale is not None
+            else 1.0 / math.sqrt(q.shape[-1]))
+
+
+def _check_dtypes(*ts):
+    if any(t.dtype != ts[0].dtype for t in ts):
+        raise ValueError(f"{', '.join(str(t.dtype) for t in ts)}: need "
+                         "every tensor in q's dtype")
+
+
+def _launch(q, k, v, causal, window, q_offset, valid, scale, n_split,
+            want_lse=False):
+    """One launch of the forward kernel: ``(out, lse)``, ``lse`` (B, H, Sq)
+    f32 from the prefill variant (``n_split`` 0) when ``want_lse``, else
+    None."""
+    b, sq, h, dh = q.shape
+    sk, hkv, dv = k.shape[1], k.shape[2], v.shape[3]
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = q.new_empty((b, sq, h, dv))
-    scratch = None
-    if p.n_split:
-        scratch = torch.empty((b, h, sq, p.n_split, dh + 2),
+    scratch = lse = None
+    if n_split:
+        scratch = torch.empty((b, h, sq, n_split, dh + 2),
                               dtype=torch.float32, device=q.device)
+    if want_lse:
+        lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     if q.numel():
         launch("flash_attention", q, "repro_flash_attention", q.data_ptr(),
                k.data_ptr(), v.data_ptr(), out.data_ptr(),
-               None if scratch is None else scratch.data_ptr(), b, sq, sk, h,
-               hkv, dh, dv, int(q_offset), valid, int(window),
-               int(bool(causal)), scale, p.n_split, code)
-    return out
+               None if scratch is None else scratch.data_ptr(),
+               None if lse is None else lse.data_ptr(), b, sq, sk, h, hkv,
+               dh, dv, q_offset, valid, int(window), int(bool(causal)),
+               scale, n_split, dtype_code(q.dtype))
+    return out, lse
+
+
+def flash_attention_with_lse(q, k, v, *, causal: bool = True,
+                             window: int = 0, softmax_scale=None):
+    """The training forward: ``(out, lse)``, ``lse`` (B, H, Sq) f32 each
+    row's log-sum-exp of its scaled scores (+inf for a row that sees no
+    key), from the prefill variant (``q_offset`` 0, every key valid).  The
+    autograd function's forward, without the graph."""
+    check_shapes(q, k, v)
+    scale = _scale(q, softmax_scale)
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, causal=causal, window=window,
+                             softmax_scale=scale, return_lse=True)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda or cpu, not "
+                         f"{q.device}")
+    _check_dtypes(q, k, v)
+    return _launch(q, k, v, causal, window, 0, k.shape[1], scale, 0,
+                   want_lse=True)
+
+
+class _Attention(torch.autograd.Function):
+    """Attention with the backward kernels as its gradient: the forward
+    keeps q, k, v, the output and the rows' log-sum-exp."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        out, lse = flash_attention_with_lse(q, k, v, causal=causal,
+                                            window=window,
+                                            softmax_scale=scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mask = causal, window, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        causal, window, scale = ctx.mask
+        dq, dk, dv = flash_attention_bwd(*ctx.saved_tensors, do,
+                                         causal=causal, window=window,
+                                         softmax_scale=scale)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                        window: int = 0, softmax_scale=None):
+    """The gradient of :func:`flash_attention` (``q_offset`` 0, every key
+    valid) given its output ``o``, the rows' log-sum-exp ``lse`` (B, H, Sq)
+    f32 and the output's gradient ``do``: ``(dq, dk, dv)`` in the inputs'
+    dtype.  Deterministic: no atomics, so the same inputs give the same
+    bits."""
+    check_shapes(q, k, v)
+    if q.device.type == "cpu":
+        return attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
+                                 window=window, softmax_scale=softmax_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd runs on cuda or cpu, not "
+                         f"{q.device}")
+    b, sq, h, dh = q.shape
+    sk, hkv, dv = k.shape[1], k.shape[2], v.shape[3]
+    if (o.shape != (b, sq, h, dv) or do.shape != o.shape
+            or lse.shape != (b, h, sq) or lse.dtype != torch.float32):
+        raise ValueError(f"o {tuple(o.shape)}, do {tuple(do.shape)}, lse "
+                         f"{tuple(lse.shape)} {lse.dtype}: need o and do "
+                         f"{(b, sq, h, dv)} and lse {(b, h, sq)} float32")
+    _check_dtypes(q, k, v, o, do)
+    q, k, v, o, do, lse = (t.contiguous() for t in (q, k, v, o, do, lse))
+    dq, dk, dvv = (torch.empty_like(t) for t in (q, k, v))
+    if not (b and h):
+        return dq, dk, dvv
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    launch("flash_attention_bwd", q, "repro_flash_attention_bwd",
+           q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+           do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+           dk.data_ptr(), dvv.data_ptr(), b, sq, sk, h, hkv, dh, dv,
+           int(window), int(bool(causal)), _scale(q, softmax_scale),
+           dtype_code(q.dtype))
+    return dq, dk, dvv
 
 
 # one name for the module and its wrapper: calling the module calls it

@@ -3,7 +3,10 @@
 Each kernel wrapper falls back to its plain version only for tensors that
 lie on the CPU; the CPU tests use these, and ``chip_smoke.py`` holds every
 kernel against its plain version on the card.  Nothing on the main path
-calls them when a card is present.
+calls them when a card is present.  The backward kernels have theirs too
+(:func:`rmsnorm_bwd_ref`, :func:`attention_bwd_ref`): they compute what the
+kernels compute, step by step, and the CPU path of the autograd functions
+runs them.
 """
 from __future__ import annotations
 
@@ -64,6 +67,22 @@ def rmsnorm_ref(x, scale, eps: float = 1e-6):
     return (y * scale.float()).to(x.dtype)
 
 
+def rmsnorm_bwd_ref(x, scale, dy, eps: float = 1e-6):
+    """The gradient of :func:`rmsnorm_ref` given the output's gradient
+    ``dy``: ``dx = r (scale dy) - x r^3 mean(x scale dy)`` with ``r =
+    rsqrt(mean(x^2) + eps)``, in f32, returned in x's dtype, and ``dscale
+    = sum over rows of dy x r`` in scale's dtype (what ``rmsnorm.cu``'s
+    backward computes)."""
+    xf, g = x.float(), dy.float()
+    d = x.shape[-1]
+    r = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    gw = scale.float() * g
+    coef = torch.mean(xf * gw, dim=-1, keepdim=True) * (r * r * r)
+    dx = r * gw - xf * coef
+    dscale = (g * xf * r).reshape(-1, d).sum(dim=0)
+    return dx.to(x.dtype), dscale.to(scale.dtype)
+
+
 def _online_softmax_block(acc, m, l, s, v, mask):
     """One online-softmax update.  s: (B, Hkv, Q, K); v: (B, K, Hkv, Dv)."""
     s = torch.where(mask, s, -torch.inf)
@@ -78,7 +97,8 @@ def _online_softmax_block(acc, m, l, s, v, mask):
 
 def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
                   q_offset: int = 0, kv_valid_len=None,
-                  softmax_scale=None, block_k: int = 512):
+                  softmax_scale=None, block_k: int = 512,
+                  return_lse: bool = False):
     """Blockwise online-softmax attention in the grouped (Hkv-major) layout:
     the JAX package's ``models/layers._grouped_attention``, which its
     ``chunked_attention`` takes on one device.
@@ -90,7 +110,10 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     query - window``.  q is scaled before the product; sums are f32; a row
     that sees no key is 0.  KV blocks past the last visible key are not
     visited (the JAX scan visits them, but a fully masked block leaves
-    (acc, m, l) as they were).  Returns (B, Sq, H, Dv) in q's dtype.
+    (acc, m, l) as they were).  Returns (B, Sq, H, Dv) in q's dtype; with
+    ``return_lse`` also each row's log-sum-exp of its scaled scores, f32
+    (B, H, Sq), +inf for a row that sees no key (what the kernel writes for
+    the backward).
     """
     b, sq, h, dh = q.shape
     sk, hkv = k.shape[1], k.shape[2]
@@ -120,7 +143,52 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
         acc, m, l = _online_softmax_block(acc, m, l, s, vblk, mask)
     out = acc / torch.clamp(l[..., None], min=1e-20)
     out = out.reshape(b, hkv, groups, sq, dv).reshape(b, h, sq, dv)
-    return out.transpose(1, 2).to(q.dtype)
+    out = out.transpose(1, 2).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(l > 0, m + torch.log(l), torch.inf)
+    return out, lse.reshape(b, h, sq)
+
+
+def attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
+                      window: int = 0, softmax_scale=None):
+    """The gradient of :func:`attention_ref` (``q_offset`` 0, every key
+    valid) given its output ``o``, the rows' log-sum-exp ``lse`` (B, H, Sq)
+    and the output's gradient ``do``: P recomputed from ``lse``, D =
+    rowsum(dO * O), dS = P (dP - D), in f32 and the grouped (Hkv-major)
+    layout of :func:`attention_ref`, as ``flash_attention_bwd.cu`` computes
+    them.  Returns ``(dq, dk, dv)`` in q's, k's and v's dtypes."""
+    b, sq, h, dh = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    dv = v.shape[-1]
+    groups = h // hkv
+    scale = (softmax_scale if softmax_scale is not None
+             else 1.0 / math.sqrt(dh))
+
+    def grouped(t, width):     # (B, Sq, H, w) -> (B, Hkv, G * Sq, w)
+        return t.float().transpose(1, 2).reshape(b, hkv, groups * sq, width)
+
+    qf, dof, of = grouped(q, dh), grouped(do, dv), grouped(o, dv)
+    kf = k.float().permute(0, 2, 1, 3)                      # (B, Hkv, Sk, D)
+    vf = v.float().permute(0, 2, 1, 3)
+    qpos = torch.arange(sq, device=q.device).repeat(groups)[:, None]
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((groups * sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (kpos <= qpos)
+    if window > 0:
+        mask = mask & (kpos > qpos - window)
+    s = scale * (qf @ kf.transpose(-1, -2))                 # (B, Hkv, R, Sk)
+    lse_g = lse.float().reshape(b, hkv, groups * sq)[..., None]
+    p = torch.where(mask, torch.exp(s - lse_g), 0.0)
+    delta = (dof * of).sum(dim=-1, keepdim=True)
+    ds = p * (dof @ vf.transpose(-1, -2) - delta)
+    dq = scale * (ds @ kf)
+    dk = scale * (ds.transpose(-1, -2) @ qf)
+    dvv = p.transpose(-1, -2) @ dof
+    dq = dq.reshape(b, h, sq, dh).transpose(1, 2)
+    return (dq.to(q.dtype), dk.permute(0, 2, 1, 3).to(k.dtype),
+            dvv.permute(0, 2, 1, 3).to(v.dtype))
 
 
 def ssd_ref(x, dt, a, b, c, *, chunk: int = 128, initial_state=None):

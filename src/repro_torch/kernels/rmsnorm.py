@@ -1,9 +1,15 @@
-"""RMSNorm: the CUDA kernel ``csrc/rmsnorm.cu`` and its wrapper.
+"""RMSNorm: the CUDA kernels ``csrc/rmsnorm.cu`` and their wrappers.
 
 Replaces the JAX package's Pallas ``repro/kernels/rmsnorm.py::rmsnorm``.
 :func:`rmsnorm` launches the kernel for CUDA tensors and uses the plain
 version (:func:`repro_torch.kernels.ref.rmsnorm_ref`) only for tensors on
 the CPU.  :func:`plan` picks the kernel's load width and CTA shape.
+
+Training: when x or the scale needs a gradient, :func:`rmsnorm` runs as an
+autograd function whose backward is :func:`rmsnorm_bwd`, the backward
+kernel (plain :func:`repro_torch.kernels.ref.rmsnorm_bwd_ref` on the CPU).
+The kernel's output would otherwise carry no graph: it is filled through
+ctypes, out of autograd's sight.
 """
 from __future__ import annotations
 
@@ -14,8 +20,8 @@ from typing import NamedTuple
 import torch
 
 from . import KernelModule
-from .build import dtype_code, launch
-from .ref import rmsnorm_ref
+from .build import dtype_code, launch, sm_count
+from .ref import rmsnorm_bwd_ref, rmsnorm_ref
 
 # vectors a thread keeps in registers: 4 for narrow rows (a warp per row);
 # wide rows take the fewest of 4, 8 and 16 that hold the row in 256
@@ -26,6 +32,8 @@ ROWS_PER_CTA = 4
 WIDE_ROW_VECTORS = (4, 8, 16)
 CTA_THREADS = 256
 MAX_THREADS = 512
+# the backward's CTAs (each sums its rows' dscale terms into a partial row)
+BWD_CTAS_PER_SM = 2
 
 
 class NormPlan(NamedTuple):
@@ -84,8 +92,64 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     x: (..., d) float32 or bfloat16; scale: (d,) float32 or bfloat16 on
     x's device, read in its own dtype.  Computes in f32 and returns x's
     dtype, as the model's ``layers.rmsnorm`` does (the Pallas kernel always
-    returns f32).
+    returns f32).  Differentiable (see the module's docstring).
     """
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        return _RMSNorm.apply(x, scale, eps)
+    return _forward(x, scale, eps)
+
+
+class _RMSNorm(torch.autograd.Function):
+    """RMSNorm with the backward kernel as its gradient."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        x, scale = x.contiguous(), scale.contiguous()
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return _forward(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        dx, dscale = rmsnorm_bwd(x, scale, dy, ctx.eps)
+        return dx, dscale, None
+
+
+def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
+                eps: float = 1e-6):
+    """The gradient of :func:`rmsnorm` given the output's gradient ``dy``
+    (x's shape and dtype): ``(dx, dscale)``, dx in x's dtype, dscale in
+    scale's.  dscale's sums over rows take a fixed order: the same inputs
+    give the same bits."""
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return rmsnorm_bwd_ref(x, scale, dy, eps)
+        raise ValueError(f"rmsnorm_bwd runs on cuda or cpu, not {x.device}")
+    d = x.shape[-1]
+    if (scale.shape != (d,) or dy.shape != x.shape or dy.dtype != x.dtype
+            or scale.get_device() != x.get_device()
+            or dy.get_device() != x.get_device()):
+        raise ValueError(f"x {tuple(x.shape)} {x.dtype}, dy "
+                         f"{tuple(dy.shape)} {dy.dtype}, scale "
+                         f"{tuple(scale.shape)}: need dy of x's shape and "
+                         "dtype and scale (d,), on x's device")
+    x, dy, scale = x.contiguous(), dy.contiguous(), scale.contiguous()
+    dx = torch.empty_like(x)
+    rows = x.numel() // d if d else 0
+    if not rows:
+        return dx, torch.zeros_like(scale)
+    dscale = torch.empty_like(scale)
+    parts = min(rows, BWD_CTAS_PER_SM * sm_count(x.get_device()))
+    partial = torch.empty((parts, d), dtype=torch.float32, device=x.device)
+    types = dtype_code(x.dtype) | dtype_code(scale.dtype) << 1
+    launch("rmsnorm_bwd", x, "repro_rmsnorm_bwd", x.data_ptr(),
+           scale.data_ptr(), dy.data_ptr(), dx.data_ptr(), dscale.data_ptr(),
+           partial.data_ptr(), rows, d, parts, eps, types)
+    return dx, dscale
+
+
+def _forward(x: torch.Tensor, scale: torch.Tensor, eps: float):
     if not x.is_cuda:
         if x.device.type == "cpu":
             return rmsnorm_ref(x, scale, eps)

@@ -5,6 +5,10 @@ Replaces the JAX package's Pallas ``repro/kernels/ssd_scan.py::ssd_scan``.
 version (:func:`repro_torch.kernels.ref.ssd_ref`) only for tensors on the
 CPU.  :func:`plan` picks the chunk length and the heads a chunk-scan CTA
 serves.
+
+The scan has no backward kernel yet (ROADMAP §A10e2): on a CUDA tensor that
+needs a gradient :func:`ssd_scan` raises rather than return an output cut
+from the autograd graph.  On the CPU the plain version is differentiable.
 """
 from __future__ import annotations
 
@@ -97,6 +101,12 @@ def ssd_scan(x, dt, a, b, c, *, chunk: int = 128, initial_state=None):
             return ssd_ref(x, dt, a, b, c, chunk=chunk,
                            initial_state=initial_state)
         raise ValueError(f"ssd_scan runs on cuda or cpu, not {x.device}")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, dt, a, b, c, initial_state)):
+        raise NotImplementedError(
+            "ssd_scan has no backward kernel yet: training Mamba-2 blocks "
+            "on the card waits for ROADMAP §A10e2")
     bsz, s, h, p = x.shape
     n = b.shape[-1]
     if (dt.shape != (bsz, s, h) or a.shape != (h,) or b.shape != (bsz, s, n)

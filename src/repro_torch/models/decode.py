@@ -105,7 +105,7 @@ def _attn_block_decode(p, x, cfg: ModelConfig, leaf, cache_len: int,
                                n_heads=cfg.n_heads, head_dim=cfg.head_dim,
                                dtype=dtype)
     h2 = L.apply_norm(cfg.norm, p.ln2, x)
-    return x + apply_ffn(p, h2, cfg, dtype)
+    return x + apply_ffn(p, h2, cfg, dtype)[0]
 
 
 @torch.no_grad()

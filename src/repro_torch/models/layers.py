@@ -2,14 +2,16 @@
 GQA, MLA and cross attention, MLPs and embeddings.
 
 Counterpart of the JAX package's ``models/layers.py``, for what the serving
-path needs.  Parameters live in small ``nn.Module`` holders whose attribute
-names are the JAX parameter dict's keys (``Norm.scale``, ``GQA.wq``, ...);
-the functions take such a holder where the JAX functions take a dict.
+and training paths need (training adds :func:`cross_entropy`).  Parameters
+live in small ``nn.Module`` holders whose attribute names are the JAX
+parameter dict's keys (``Norm.scale``, ``GQA.wq``, ...); the functions take
+such a holder where the JAX functions take a dict.
 Weights keep JAX's (d_in, d_out) layout and are applied as ``x @ w``.
 
 * :func:`rmsnorm` goes through the CUDA kernel wrapper
   (:mod:`repro_torch.kernels.rmsnorm`), :func:`chunked_attention` through
   the flash-attention wrapper; on CPU tensors both use their plain versions.
+  Both are differentiable through their backward kernels.
 * Attention positions are contiguous on the whole path (prefill: 0..S-1;
   decode: one query at the cache length), so the attention functions take a
   query offset and a valid length as Python ints instead of position arrays.
@@ -29,6 +31,8 @@ from repro_torch.kernels.rmsnorm import rmsnorm as rmsnorm_kernel
 
 
 def _empty(*shape, device=None, dtype=torch.float32) -> nn.Parameter:
+    """A parameter without a gradient: serving's.  The train state turns
+    gradients on (``repro_torch.train.train_step.init_train_state``)."""
     return nn.Parameter(torch.empty(shape, device=device, dtype=dtype),
                         requires_grad=False)
 
@@ -396,3 +400,15 @@ def embed(p: Embed, tokens: torch.Tensor, dtype) -> torch.Tensor:
 def unembed(p_embed: Embed, x, dtype, w_unembed=None) -> torch.Tensor:
     w = w_unembed if w_unembed is not None else p_embed.table.T
     return x.to(dtype) @ w.to(dtype)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  z_loss: float = 0.0) -> torch.Tensor:
+    """Mean token cross-entropy in f32, with optional z-loss."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    loss = torch.mean(lse - ll)
+    if z_loss > 0:
+        loss = loss + z_loss * torch.mean(lse * lse)
+    return loss

@@ -2,15 +2,23 @@
 ``enc`` and ``dec``, with GQA or MLA attention, whisper's encoder and the
 modality frontends' stubs (precomputed audio frames, vision patches).
 
-Counterpart of the JAX package's ``models/transformer.py`` for the serving
-path.  The JAX package stacks each segment's parameters and scans over
-them; here every layer is its own ``nn.Module`` in an ``nn.ModuleList``
-per segment, run by a Python loop.  Parameter names follow the JAX pytree:
-``segments.<i>.<layer>.mixer.in_z`` is layer ``<layer>`` of the JAX
-``segments/<i>/mixer/in_z`` stack, ``enc_segments.0.<layer>.attn.wq`` of
-``enc_segments/0/attn/wq`` (see ``repro_torch.convert``).
+Counterpart of the JAX package's ``models/transformer.py``: serving
+(:func:`run_stack`, used by ``decode.prefill``) and training
+(:func:`forward_train`).  The JAX package stacks each segment's parameters
+and scans over them; here every layer is its own ``nn.Module`` in an
+``nn.ModuleList`` per segment, run by a Python loop.  Parameter names
+follow the JAX pytree: ``segments.<i>.<layer>.mixer.in_z`` is layer
+``<layer>`` of the JAX ``segments/<i>/mixer/in_z`` stack,
+``enc_segments.0.<layer>.attn.wq`` of ``enc_segments/0/attn/wq`` (see
+``repro_torch.convert``).
 
-Training raises ``NotImplementedError`` naming its ROADMAP item.
+Training differentiates through the kernels' autograd functions (RMSNorm's
+and attention's backward kernels; the SSD scan has none yet, so Mamba-2
+blocks train on the CPU only: ROADMAP §A10e2).  ``remat`` checkpoints each
+layer as the JAX ``_remat`` does: ``"dots"`` keeps the layer's plain matrix
+products (``aten.mm`` / ``addmm``: XLA's dots with no batch dimensions) and
+recomputes the rest, ``"full"`` keeps nothing, ``"none"`` checkpoints
+nothing.  It changes memory, never values.
 """
 from __future__ import annotations
 
@@ -22,6 +30,8 @@ from typing import List, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -106,12 +116,16 @@ class MambaBlock(nn.Module):
         self.mixer = S.Mamba2(_ssm_dims(cfg), device, dtype)
 
     def forward(self, x, cfg: ModelConfig, positions, window, theta, dtype,
-                enc=None):
-        """Returns (x, the layer's :class:`MambaCache`)."""
+                enc=None, keep_cache: bool = True):
+        """Returns (x, the layer's :class:`MambaCache` or None without
+        ``keep_cache``, no aux loss)."""
         h = L.apply_norm(cfg.norm, self.ln, x)
+        if not keep_cache:
+            return x + S.apply_mamba2(self.mixer, h, _ssm_dims(cfg),
+                                      dtype), None, None
         out, cache = S.apply_mamba2(self.mixer, h, _ssm_dims(cfg), dtype,
                                     return_cache=True)
-        return x + out, cache
+        return x + out, cache, None
 
 
 def uses_mla(cfg: ModelConfig, kind: str) -> bool:
@@ -142,14 +156,14 @@ def self_attention(p, h, cfg: ModelConfig, kind: str, positions, window,
 
 
 def apply_ffn(blk, h2, cfg: ModelConfig, dtype):
-    """The block's ``mlp``, or its ``moe`` (whose aux loss serving drops;
-    :func:`repro_torch.models.moe.apply_moe` returns it for training)."""
+    """The block's ``mlp``, or its ``moe``: ``(out, aux)``, aux the MoE
+    load-balancing loss that training adds up (serving drops it), None for
+    an ``mlp``."""
     if hasattr(blk, "moe"):
-        out, _aux = M.apply_moe(blk.moe, h2, n_experts=cfg.n_experts,
-                                top_k=cfg.top_k, act=cfg.act, dtype=dtype,
-                                capacity_factor=cfg.moe_capacity_factor)
-        return out
-    return L.apply_mlp(blk.mlp, h2, cfg.act, dtype)
+        return M.apply_moe(blk.moe, h2, n_experts=cfg.n_experts,
+                           top_k=cfg.top_k, act=cfg.act, dtype=dtype,
+                           capacity_factor=cfg.moe_capacity_factor)
+    return L.apply_mlp(blk.mlp, h2, cfg.act, dtype), None
 
 
 class AttnBlock(nn.Module):
@@ -186,9 +200,10 @@ class AttnBlock(nn.Module):
 
     def forward(self, x, cfg: ModelConfig, positions, window, theta, dtype,
                 enc=None):
-        """Returns (x, the layer's decode-cache leaf); a ``dec`` block
+        """Returns (x, the layer's decode-cache leaf, aux): a ``dec`` block
         attends over the encoder states ``enc`` and its leaf also holds
-        their keys and values, ``ck`` / ``cv``."""
+        their keys and values, ``ck`` / ``cv``; aux is a ``moe`` block's
+        load-balancing loss, else None."""
         h = L.apply_norm(cfg.norm, self.ln1, x)
         att, leaf = self_attention(self.attn, h, cfg, self.kind, positions,
                                    window, theta, dtype,
@@ -202,7 +217,8 @@ class AttnBlock(nn.Module):
             x = x + L.cross_cached(self.cross, hx, leaf["ck"], leaf["cv"],
                                    **heads)
         h2 = L.apply_norm(cfg.norm, self.ln2, x)
-        return x + apply_ffn(self, h2, cfg, dtype), leaf
+        out, aux = apply_ffn(self, h2, cfg, dtype)
+        return x + out, leaf, aux
 
 
 BLOCKS = {"mamba": MambaBlock,
@@ -284,41 +300,92 @@ def param_count(model: nn.Module) -> int:
 
 
 # ----------------------------------------------------------------- forward
+def stack_layers(model: LM, cfg: ModelConfig):
+    """``(segment index, block, window, theta)`` of each layer of the
+    decoder plan, in order; a ``shared`` marker applies ``shared_block``
+    with global attention and the config's theta."""
+    windows, thetas = layer_windows(cfg), layer_thetas(cfg)
+    for i, (seg, blocks) in enumerate(zip(model.plan, model.segments)):
+        if seg.kind == "shared":
+            yield i, model.shared_block, 0, float(np.float32(cfg.rope_theta))
+        for j, blk in enumerate(blocks):
+            layer = seg.start + j
+            yield i, blk, int(windows[layer]), float(thetas[layer])
+
+
 def run_stack(model: LM, cfg: ModelConfig, x, positions, dtype, enc=None):
     """Run the decoder segment plan over x (``dec`` blocks attend over the
     encoder states ``enc``).
 
     Returns ``(x, leaves)``: per segment, the ``shared`` marker's k / v, or
     the list of its layers' cache leaves (what prefill keeps)."""
-    windows, thetas = layer_windows(cfg), layer_thetas(cfg)
-    leaves = []
-    for seg, blocks in zip(model.plan, model.segments):
-        if seg.kind == "shared":
-            x, leaf = model.shared_block(x, cfg, positions, 0,
-                                         float(np.float32(cfg.rope_theta)),
-                                         dtype)
-            leaves.append(leaf)
-            continue
-        seg_leaves = []
-        for i, blk in enumerate(blocks):
-            layer = seg.start + i
-            x, leaf = blk(x, cfg, positions, int(windows[layer]),
-                          float(thetas[layer]), dtype, enc=enc)
-            seg_leaves.append(leaf)
-        leaves.append(seg_leaves)
+    leaves = [None if seg.kind == "shared" else [] for seg in model.plan]
+    for i, blk, window, theta in stack_layers(model, cfg):
+        x, leaf, _ = blk(x, cfg, positions, window, theta, dtype, enc=enc)
+        if leaves[i] is None:
+            leaves[i] = leaf
+        else:
+            leaves[i].append(leaf)
     return x, leaves
 
 
-def run_encoder(model: LM, cfg: ModelConfig, frames, dtype):
+REMAT_MODES = ("none", "dots", "full")
+# what "dots" keeps: the plain matrix products (batched ones, the MoE's
+# expert products, are recomputed, as under JAX's
+# dots_with_no_batch_dims_saveable)
+_SAVED_OPS = frozenset((torch.ops.aten.mm.default,
+                        torch.ops.aten.addmm.default))
+
+
+def _keep_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_call(fn, remat: str, *args, **kwargs):
+    """``fn(*args, **kwargs)`` under the checkpoint policy ``remat`` (the
+    JAX ``_remat``): ``"none"`` runs it plainly, ``"full"`` recomputes all
+    of it in the backward, ``"dots"`` all but the matrix products."""
+    if remat == "none":
+        return fn(*args, **kwargs)
+    if remat == "full":
+        return checkpoint(fn, *args, use_reentrant=False, **kwargs)
+    if remat == "dots":
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=functools.partial(
+                              create_selective_checkpoint_contexts,
+                              _keep_dots), **kwargs)
+    raise ValueError(f"remat {remat!r} is not one of {REMAT_MODES}")
+
+
+def train_stack(model: LM, cfg: ModelConfig, x, positions, dtype, *,
+                enc=None, remat: str = "dots"):
+    """Run the decoder plan over x for training: each layer under
+    ``remat``, no cache leaf kept (a Mamba block builds none).  Returns
+    ``(x, the MoE blocks' aux losses summed, f32)``."""
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for _, blk, window, theta in stack_layers(model, cfg):
+        extra = ({"keep_cache": False} if isinstance(blk, MambaBlock)
+                 else {})
+        x, _, aux = remat_call(blk, remat, x, cfg, positions, window, theta,
+                               dtype, enc=enc, **extra)
+        if aux is not None:
+            aux_total = aux_total + aux
+    return x, aux_total
+
+
+def run_encoder(model: LM, cfg: ModelConfig, frames, dtype,
+                remat: str = "none"):
     """Whisper's encoder over precomputed frame embeddings (B, S, d) (the
     audio frontend is a stub): sinusoidal positions, the ``enc`` stack
-    (non-causal, no RoPE), then ``enc_norm``."""
+    (non-causal, no RoPE; each layer under ``remat`` when training), then
+    ``enc_norm``."""
     s = frames.shape[1]
     x = frames.to(dtype) + L.sinusoidal_positions(
         s, cfg.d_model, frames.device)[None].to(dtype)
     positions = torch.arange(s, device=x.device)
     for blk in model.enc_segments[0]:
-        x, _ = blk(x, cfg, positions, 0, 0.0, dtype)
+        x, _, _ = remat_call(blk, remat, x, cfg, positions, 0, 0.0, dtype)
     return L.apply_norm(cfg.norm, model.enc_norm, x)
 
 
@@ -356,6 +423,21 @@ def forward_logits(model: LM, cfg: ModelConfig, batch, *,
     return logits_fn(model, cfg, x[:, offset:], dtype)
 
 
-def forward_train(*args, **kwargs):
-    raise NotImplementedError("training is not ported to repro_torch yet "
-                              "(ROADMAP §A10e)")
+def forward_train(model: LM, cfg: ModelConfig, batch, *,
+                  dtype=torch.bfloat16, remat: str = "dots"):
+    """``(loss, {"ce_loss", "aux_loss"})`` of ``batch``: ``tokens`` and
+    ``labels`` (B, S), and ``frames`` for an encoder-decoder (the encoder
+    runs first) or ``patches`` for a vision config (prepended; their
+    positions give no loss).  The mean token cross-entropy in f32 plus the
+    MoE blocks' aux losses, as the JAX ``forward_train`` computes them;
+    every layer under ``remat`` (:data:`REMAT_MODES`)."""
+    if remat not in REMAT_MODES:
+        raise ValueError(f"remat {remat!r} is not one of {REMAT_MODES}")
+    enc = (run_encoder(model, cfg, batch["frames"], dtype, remat)
+           if cfg.is_encdec else None)
+    x, positions, offset = embed_inputs(model, cfg, batch, dtype)
+    x, aux = train_stack(model, cfg, x, positions, dtype, enc=enc,
+                         remat=remat)
+    logits = logits_fn(model, cfg, x[:, offset:], dtype)
+    loss = L.cross_entropy(logits, batch["labels"])
+    return loss + aux, {"ce_loss": loss, "aux_loss": aux}

@@ -8,7 +8,14 @@ namespace repro {
 cudaError_t launch_rmsnorm(const NormArgs&, cudaStream_t) {
   return cudaErrorNotSupported;
 }
+cudaError_t launch_rmsnorm_bwd(const NormBwdArgs&, cudaStream_t) {
+  return cudaErrorNotSupported;
+}
 cudaError_t launch_flash_attention(const AttnArgs&, int, cudaStream_t) {
+  return cudaErrorNotSupported;
+}
+cudaError_t launch_flash_attention_bwd(const AttnBwdArgs&, int,
+                                       cudaStream_t) {
   return cudaErrorNotSupported;
 }
 cudaError_t launch_ssd_scan(const SsdArgs&, int, cudaStream_t) {

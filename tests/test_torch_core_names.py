@@ -10,7 +10,8 @@
   and of the modules listed in ``MODULES`` resolves in ``repro_torch``
   under the port's renames (``*_jax`` -> ``*_torch``, ``*_pallas`` ->
   ``*_waterfill``, ``simulate_jax`` -> ``simulate_dense``), apart from
-  the names ``BY_DESIGN`` covers.
+  the names ``BY_DESIGN`` covers; the modules include the training
+  slice's (``train.*``, ``elastic.compression``).
 """
 import ast
 import dataclasses
@@ -43,7 +44,12 @@ PACKAGES = ("core", "sweep", "configs", "kernels")
 MODULES = (("core.speedup", "core.speedup"), ("core.traces", "core.traces"),
            ("core.sim_jax", "core.sim_dense"),
            ("kernels.waterfill", "kernels.waterfill"),
-           ("sweep.runner", "sweep.runner"))
+           ("sweep.runner", "sweep.runner"),
+           # the training slice
+           ("train.data", "train.data"),
+           ("train.optimizer", "train.optimizer"),
+           ("train.train_step", "train.train_step"),
+           ("elastic.compression", "elastic.compression"))
 
 
 def port_name(name: str) -> str:

@@ -1,7 +1,8 @@
-"""Card-only checks of the port: the CUDA kernels against their plain
-versions, the scheduling engine on the card against the engine on the
-CPU, the reduced zamba2, olmoe and DeepSeek serving engines, and reduced
-whisper and internvl2 through prefill / decode likewise.
+"""Card-only checks of the port: the CUDA kernels (the backward kernels of
+RMSNorm and attention too) against their plain versions, the scheduling
+engine on the card against the engine on the CPU, the reduced zamba2,
+olmoe and DeepSeek serving engines, reduced whisper and internvl2 through
+prefill / decode likewise, and one reduced train step card == CPU.
 
 Every test here is marked ``cuda`` and skips without a CUDA device; this
 file imports no JAX, so it also runs where only PyTorch is installed:
@@ -508,3 +509,145 @@ def test_lane_metrics_do_not_move_with_the_lane_position(cuda_device):
     first = out[("cpu", tuple(range(len(lanes))))]
     for key, got in out.items():
         assert got == first, key
+
+
+# ------------------------------------------------- LLM backward kernels
+# the backward kernels against their plain versions: max |err| within tol
+# times the largest |ref| of each output (its sums run over the rows, the
+# keys or the queries, so the error grows with that length as |ref| does)
+BWD_TOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}
+
+
+def _close_to_max(got, ref, tol, label):
+    err = float((got.float() - ref.float()).abs().max())
+    big = float(ref.float().abs().max())
+    assert err <= tol * big, f"{label}: max |err| {err:.3g} > {tol} x {big}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d,wdtype", [
+    # internvl2's training rows, zamba2's prefill rows, an odd width (the
+    # forward's scalar accesses), a narrow one, a bf16 weight, one row
+    (2048, 2048, torch.float32), (996, 2560, torch.float32),
+    (7, 2561, torch.float32), (3, 20, torch.float32),
+    (33, 512, torch.bfloat16), (1, 5120, torch.float32)])
+def test_rmsnorm_backward_kernel_matches_plain(cuda_device, dtype, rows, d,
+                                               wdtype):
+    """dx and dscale within tolerance of ``rmsnorm_bwd_ref``, the same bits
+    on a second call (no atomics), and the autograd function's gradients
+    are the kernel's."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.ref import rmsnorm_bwd_ref
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd
+    gen = torch.Generator().manual_seed(rows + d)
+    x = _rand(gen, rows, d, dev=cuda_device, dtype=dtype)
+    w = _rand(gen, d, dev=cuda_device, dtype=wdtype)
+    dy = _rand(gen, rows, d, dev=cuda_device, dtype=dtype)
+    dx, dw = rmsnorm_bwd(x, w, dy)
+    assert dx.dtype == dtype and dw.dtype == wdtype
+    rdx, rdw = rmsnorm_bwd_ref(x, w, dy)
+    _close_to_max(dx, rdx, BWD_TOL[dtype], "dx")
+    _close_to_max(dw, rdw, BWD_TOL[dtype], "dscale")
+    dx2, dw2 = rmsnorm_bwd(x, w, dy)
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
+    xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+    before = build.LAUNCH_COUNTS["rmsnorm_bwd"]
+    rmsnorm(xg, wg).backward(dy)
+    assert build.LAUNCH_COUNTS["rmsnorm_bwd"] == before + 1
+    assert torch.equal(xg.grad, dx) and torch.equal(wg.grad, dw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,sk,h,hkv,d,dv,kw", [
+    # internvl2's training call (GQA 16 / 8 of 128, causal)
+    (4, 512, 512, 16, 8, 128, 128, {}),
+    # gemma3's head dim with a window (dK and dV in passes of their own)
+    (1, 300, 300, 8, 4, 256, 256, dict(window=100)),
+    # DeepSeek's widths (keys 192, values 128) and reduced DeepSeek's
+    (1, 200, 200, 16, 16, 192, 128, {}), (2, 37, 37, 4, 4, 48, 32, {}),
+    # whisper: the encoder (non-causal) and the cross attention (Sq != Sk)
+    (2, 150, 150, 20, 20, 64, 64, dict(causal=False)),
+    (2, 45, 150, 20, 20, 64, 64, dict(causal=False)),
+    # head dims padded in the kernel, rows copied element by element, a
+    # 8:1 grouping with a window, one query
+    (2, 77, 77, 8, 2, 80, 80, {}), (1, 50, 50, 4, 2, 20, 20, {}),
+    (2, 40, 40, 8, 1, 32, 32, dict(window=16)),
+    (1, 1, 9, 2, 2, 64, 64, dict(causal=False))])
+def test_flash_attention_backward_kernel_matches_plain(
+        cuda_device, dtype, b, sq, sk, h, hkv, d, dv, kw):
+    """The training forward's output and log-sum-exp, and dq / dk / dv
+    through autograd, within tolerance of ``attention_ref`` and
+    ``attention_bwd_ref``; a second backward gives the same bits."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd, flash_attention_with_lse)
+    from repro_torch.kernels.ref import attention_bwd_ref, attention_ref
+    gen = torch.Generator().manual_seed(sq * sk + d)
+    q = _rand(gen, b, sq, h, d, dev=cuda_device, dtype=dtype)
+    k = _rand(gen, b, sk, hkv, d, dev=cuda_device, dtype=dtype)
+    v = _rand(gen, b, sk, hkv, dv, dev=cuda_device, dtype=dtype)
+    do = _rand(gen, b, sq, h, dv, dev=cuda_device, dtype=dtype)
+    out, lse = flash_attention_with_lse(q, k, v, **kw)
+    rout, rlse = attention_ref(q, k, v, return_lse=True, **kw)
+    _close(out, rout, LLM_TOL[dtype][0])
+    _close(lse, rlse, 2e-5)
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    flash_attention(qg, kg, vg, **kw).backward(do)
+    ref = attention_bwd_ref(q, k, v, rout, rlse, do, **kw)
+    for name, got, r in zip("qkv", (qg.grad, kg.grad, vg.grad), ref):
+        assert got.dtype == dtype
+        _close_to_max(got, r, BWD_TOL[dtype], f"d{name}")
+    again = flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    for got, g2 in zip((qg.grad, kg.grad, vg.grad), again):
+        assert torch.equal(got, g2)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_refuses_a_gradient_on_the_card(cuda_device):
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    gen = torch.Generator().manual_seed(0)
+    x = _rand(gen, 1, 16, 2, 8, dev=cuda_device).requires_grad_()
+    dt = _rand(gen, 1, 16, 2, dev=cuda_device, lo=0.1, hi=0.5)
+    a = _rand(gen, 2, dev=cuda_device, lo=0.5, hi=1.0)
+    bc = _rand(gen, 1, 16, 4, dev=cuda_device)
+    with pytest.raises(NotImplementedError, match="A10e2"):
+        ssd_scan(x, dt, a, bc, bc)
+    with torch.no_grad():
+        assert ssd_scan(x, dt, a, bc, bc)[0].shape == (1, 16, 2, 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["stablelm-1.6b", "internvl2-2b",
+                                  "olmoe-1b-7b", "whisper-large-v3"])
+def test_reduced_train_step_on_card_matches_cpu(cuda_device, arch):
+    """One f32 train step of the reduced config, the same seeded weights
+    and batch on the card (the backward kernels) and on the CPU: loss,
+    every gradient (through the grad norm) and every updated parameter
+    within 1e-3 of the CPU's."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import to_tensors
+    from repro_torch.train.data import batch_for
+    from repro_torch.train.train_step import (TrainConfig, init_train_state,
+                                              make_train_step)
+    cfg = get_config(arch).reduced()
+    tc = TrainConfig(compute_dtype=torch.float32)
+    batch = batch_for(cfg, 32, 2, step=1, seed=0)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        state = init_train_state(cfg, tc, torch.Generator().manual_seed(0),
+                                 "cpu")
+        state["params"].to(dev)
+        state = {"params": state["params"], "opt": {
+            k: ({n: t.to(dev) for n, t in v.items()} if isinstance(v, dict)
+                else v) for k, v in state["opt"].items()}}
+        state, stats = make_train_step(cfg, tc)(state, to_tensors(batch,
+                                                                  dev))
+        out[dev] = (float(stats["loss"]), float(stats["grad_norm"]),
+                    {n: p.detach().cpu()
+                     for n, p in state["params"].named_parameters()})
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-3
+    assert abs(out["cuda"][1] - out["cpu"][1]) <= 1e-3 * out["cpu"][1]
+    for n, p in out["cpu"][2].items():
+        torch.testing.assert_close(out["cuda"][2][n], p, atol=1e-3,
+                                   rtol=1e-3)

@@ -4,7 +4,8 @@ Trace generation, the scenario transform, lane construction and the
 batch-level statics are numpy code copied into the port; these tests hold
 the copies to the reference byte for byte at a small scale.  The model
 configs (``configs/base.py`` and the arch modules) are copied whole and
-held to the reference file for file.
+held to the reference file for file; ``train/data.py`` too, but for its
+config import.
 """
 import dataclasses
 import pathlib
@@ -162,6 +163,18 @@ def test_config_module_is_a_byte_copy(name):
     ref = pathlib.Path(jcore.__file__).parents[1] / "configs" / name
     port = pathlib.Path(tcore.__file__).parents[1] / "configs" / name
     assert port.read_bytes() == ref.read_bytes()
+
+
+def test_train_data_module_is_a_copy_but_for_its_config_import():
+    """``train/data.py`` (the synthetic token pipeline) is copied whole;
+    only its config import names the port's package."""
+    import repro.train.data as jdata
+    import repro_torch.train.data as tdata
+    ref = pathlib.Path(jdata.__file__).read_text()
+    port = pathlib.Path(tdata.__file__).read_text()
+    assert ref.count("from repro.configs.base import") == 1
+    assert port == ref.replace("from repro.configs.base import",
+                               "from repro_torch.configs.base import")
 
 
 def test_config_registry_matches_reference():

@@ -4,11 +4,14 @@
 * no file of the port (nor ``chip_smoke.py``) imports ``jax`` or ``repro``;
 * without a card, the entry points raise unless ``device="cpu"`` is given;
 * kernel backends refuse CPU tensors at the engine level;
-* training in the LLM layer raises ``NotImplementedError`` naming its
-  ROADMAP item, while MoE, MLA, the encoder-decoder and the vision
-  frontend build, and every structure and flag of the scheduling pass
-  runs;
-* the smoke's library call for attention computes the same function.
+* training refuses Mamba-2 blocks on the card with a
+  ``NotImplementedError`` naming its ROADMAP item (the SSD scan has no
+  backward kernel yet) and takes every other config; MoE, MLA, the
+  encoder-decoder and the vision frontend build, and every structure and
+  flag of the scheduling pass runs;
+* the smoke's library calls compute the kernels' functions and their
+  gradients, and its card-vs-CPU gate of a compressed train step takes
+  rounding-boundary flips only.
 
 Kernel launches need a card: the ``cuda``-marked tests in
 ``test_torch_cuda.py`` skip here; they and ``chip_smoke.py`` run on the
@@ -31,6 +34,12 @@ MODULES = sorted(
     ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
     .removesuffix(".__init__")
     for p in PORT.rglob("*.py"))
+# the training slice's modules, which the two checks below must cover
+TRAINING_MODULES = ("repro_torch.train", "repro_torch.train.data",
+                    "repro_torch.train.optimizer",
+                    "repro_torch.train.train_step", "repro_torch.elastic",
+                    "repro_torch.elastic.compression",
+                    "repro_torch.launch.train")
 
 
 def _imported_roots(path):
@@ -50,6 +59,9 @@ def test_port_file_imports_neither_jax_nor_repro(path):
 
 
 def test_every_module_imports_with_jax_and_repro_blocked():
+    assert set(TRAINING_MODULES) <= set(MODULES)
+    assert {PORT / "train" / "data.py", PORT / "elastic" / "compression.py",
+            PORT / "launch" / "train.py"} <= set(PORT_FILES)
     code = (
         "import sys\n"
         "for m in ('jax', 'jaxlib', 'repro'):\n"
@@ -147,6 +159,13 @@ def test_llm_entry_points_without_device_raise_on_a_cpu_box(no_card):
         ServeEngine(model, cfg, n_slots=1, max_len=8)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         main(["--arch", "zamba2-2.7b", "--reduced", "--requests", "1"])
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.train.train_step import TrainConfig, init_train_state
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_train_state(get_config("stablelm-1.6b").reduced(),
+                         TrainConfig(), torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_main(["--arch", "stablelm-1.6b", "--reduced", "--steps", "1"])
 
 
 @pytest.mark.parametrize("size", ["published", "reduced"])
@@ -192,9 +211,22 @@ def test_llm_moe_and_mla_build(arch):
 
 
 def test_llm_training_raises_not_implemented():
-    from repro_torch.models.transformer import forward_train
-    with pytest.raises(NotImplementedError, match="ROADMAP §A10e"):
-        forward_train()
+    """Training is ported (A10e) but for Mamba-2 blocks on the card: the
+    train-step check refuses a Mamba config for a ``cuda`` device, before
+    any step and without a card, and passes a dense one."""
+    from repro_torch.configs import get_config
+    from repro_torch.train.train_step import (TrainConfig, check_trainable,
+                                              init_train_state)
+    for arch in ("mamba2-1.3b", "zamba2-2.7b"):
+        cfg = get_config(arch).reduced()
+        with pytest.raises(NotImplementedError, match="ROADMAP §A10e2"):
+            check_trainable(cfg, "cuda")
+        check_trainable(cfg, "cpu")
+    check_trainable(get_config("internvl2-2b").reduced(), "cuda")
+    state = init_train_state(get_config("stablelm-1.6b").reduced(),
+                             TrainConfig(), torch.Generator().manual_seed(0),
+                             "cpu")
+    assert all(p.requires_grad for p in state["params"].parameters())
 
 
 def test_serve_engine_refuses_a_model_on_another_device():
@@ -344,3 +376,95 @@ def test_chip_smoke_library_call_refuses_what_sdpa_cannot_mask():
                               dict(causal=True, q_offset=5)) is None
     assert smoke.library_call("flash_attention", (q, k, k),
                               dict(window=4)) is None
+
+
+@pytest.mark.parametrize("case", [
+    # internvl2's call: causal GQA
+    dict(B=1, Sq=37, Sk=37, H=8, Hkv=2, D=16, Dv=16),
+    # gemma3's: a sliding window
+    dict(B=1, Sq=37, Sk=37, H=4, Hkv=2, D=16, Dv=16, window=8),
+    # DeepSeek's: a value width below the key width
+    dict(B=1, Sq=20, Sk=20, H=4, Hkv=4, D=24, Dv=16),
+    # whisper's encoder (non-causal) and cross attention
+    dict(B=2, Sq=33, Sk=33, H=4, Hkv=4, D=16, Dv=16, causal=False),
+    dict(B=2, Sq=4, Sk=45, H=4, Hkv=4, D=16, Dv=16, causal=False)])
+def test_chip_smoke_backward_library_call_is_the_gradient(case):
+    """The smoke's timed forward + backward calls, the kernels' autograd
+    and SDPA's with the call's mask and value width, give the gradients
+    the backward kernel computes (CPU tensors, within 2e-5)."""
+    from repro_torch.kernels.ref import attention_bwd_ref, attention_ref
+    gen = torch.Generator().manual_seed(5)
+    b, sq, sk, h, hkv, d, dv = (case.pop(k) for k in
+                                ("B", "Sq", "Sk", "H", "Hkv", "D", "Dv"))
+    q = torch.randn((b, sq, h, d), generator=gen)
+    k = torch.randn((b, sk, hkv, d), generator=gen)
+    v = torch.randn((b, sk, hkv, dv), generator=gen)
+    do = torch.randn((b, sq, h, dv), generator=gen)
+    o, lse = attention_ref(q, k, v, return_lse=True, **case)
+    args = (q, k, v, o, lse, do)
+    want = attention_bwd_ref(*args, **case)
+    _, _, both, lib = _load_chip_smoke().bwd_fns("flash_attention_bwd",
+                                                 args, case)
+    for fn in (both, lib):
+        for got, ref in zip(fn(), want):
+            np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=2e-5,
+                                       rtol=2e-5)
+
+
+def test_chip_smoke_backward_library_call_of_rmsnorm_is_the_gradient():
+    from repro_torch.kernels.ref import rmsnorm_bwd_ref
+    gen = torch.Generator().manual_seed(6)
+    x, dy = (torch.randn((7, 33), generator=gen) for _ in "xy")
+    w = torch.randn((33,), generator=gen)
+    want = rmsnorm_bwd_ref(x, w, dy)
+    _, _, both, lib = _load_chip_smoke().bwd_fns("rmsnorm_bwd", (x, w, dy),
+                                                 {})
+    for fn in (both, lib):
+        for got, ref in zip(fn(), want):
+            np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=2e-5,
+                                       rtol=2e-5)
+
+
+@pytest.mark.parametrize("fault", [None, "gradient", "step", "scale",
+                                   "residual"])
+def test_chip_smoke_compression_gate_takes_only_boundary_flips(fault):
+    """The smoke's card-vs-CPU gate of a compressed step: the card's side
+    is the CPU's gradients with 1e-6 noise (sums in another order), one of
+    them just past a rounding boundary, so one element rounds one int8
+    step apart and passes; a changed gradient, one step off away from a
+    boundary, a wrong scale or a wrong residual fails (CPU tensors)."""
+    from repro_torch.elastic.compression import (compress_decompress,
+                                                 init_residuals)
+    smoke = _load_chip_smoke()
+    gen = torch.Generator().manual_seed(11)
+    shapes = {"embed.table": (64, 16), "segments.0.0.attn.wq": (16, 32),
+              "segments.0.1.attn.wq": (16, 32), "final_norm.scale": (16,)}
+    g_c = {n: torch.randn(s, generator=gen) for n, s in shapes.items()}
+    t = g_c["embed.table"]
+    t[0, 0], t[1, 1], t[2, 2] = 127.0, 10.5, 5.0   # scale 1: 10.5 -> 10
+    g_d = {n: g + 1e-6 * torch.randn(g.shape, generator=gen)
+           for n, g in g_c.items()}
+    g_d["embed.table"][1, 1] = 10.5 + 2e-6          # -> 11
+    if fault == "gradient":
+        g_d["segments.0.1.attn.wq"][3, 4] += 1.0
+    out = {}
+    for dev, g in (("cpu", g_c), (smoke.DEVICE, g_d)):
+        deq, res = compress_decompress(g, init_residuals(g))
+        out[dev] = (0.0, 0.0, None, None, (g, deq, res))
+    _, deq, res = out[smoke.DEVICE][4]
+    if fault == "step":      # 5.0 is half a step from any boundary
+        deq["embed.table"][2, 2] += 1.0
+        res["embed.table"][2, 2] -= 1.0
+    elif fault == "scale":
+        for n in deq:
+            deq[n] *= 1.001
+            res[n] = g_d[n] - deq[n]
+    elif fault == "residual":
+        res["final_norm.scale"][3] += 1e-3
+    if fault is None:
+        flips, total, worst = smoke.check_compression(out)
+        assert (flips, total) == (1, sum(g.numel() for g in g_c.values()))
+        assert worst == pytest.approx(1.0 / 127.0, rel=1e-5)
+    else:
+        with pytest.raises(AssertionError):
+            smoke.check_compression(out)

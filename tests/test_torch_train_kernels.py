@@ -1,0 +1,157 @@
+"""The plain backward versions of the LLM kernels and the autograd
+functions around the kernels, on the CPU.
+
+* ``rmsnorm_bwd_ref`` and ``attention_bwd_ref`` (what the backward kernels
+  compute, step by step, from the saved row log-sum-exp) against
+  ``torch.autograd`` of the plain forwards ``rmsnorm_ref`` and
+  ``attention_ref``: causal, sliding window, non-causal, cross (Sq != Sk),
+  GQA and values narrower than keys.  Inputs are float64; the plain
+  versions compute in f32, so the tolerance is 1e-5 of the largest |grad|.
+* ``attention_ref(return_lse=True)``: the log-sum-exp of the scaled scores,
+  +inf for a row that sees no key.
+* the wrappers as autograd functions: their gradients are the plain
+  backward versions' on the CPU; the attention backward refuses decode's
+  ``q_offset`` / ``kv_valid_len``; ``ssd_scan`` stays differentiable on
+  the CPU (the card refuses it: ``tests/test_torch_cuda.py``).
+* ``check_trainable``: a Mamba-2 config is refused on a CUDA device, a
+  dense one is not (no card needed: the device's type decides).
+"""
+import math
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention, flash_attention_bwd, flash_attention_with_lse)
+from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd  # noqa: E402
+from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
+from repro_torch.train.train_step import check_trainable  # noqa: E402
+
+TOL = 1e-5
+
+
+def _close_to_max(got, exp, tol=TOL):
+    got, exp = got.detach(), exp.detach()
+    big = float(exp.abs().max())
+    err = float((got.double() - exp.double()).abs().max())
+    assert err <= tol * max(big, 1e-12), (err, big)
+
+
+def _rand(gen, *shape):
+    return torch.randn(shape, generator=gen, dtype=torch.float64)
+
+
+@pytest.mark.parametrize("shape", [(3, 5, 33), (1, 2561), (7, 20)])
+def test_rmsnorm_bwd_ref_is_the_gradient_of_rmsnorm_ref(shape):
+    gen = torch.Generator().manual_seed(sum(shape))
+    x = _rand(gen, *shape).requires_grad_()
+    w = _rand(gen, shape[-1]).requires_grad_()
+    dy = _rand(gen, *shape)
+    gx, gw = torch.autograd.grad(ref.rmsnorm_ref(x, w), (x, w), dy)
+    dx, dw = ref.rmsnorm_bwd_ref(x.detach(), w.detach(), dy)
+    assert dx.dtype == x.dtype and dw.dtype == w.dtype
+    _close_to_max(dx, gx)
+    _close_to_max(dw, gw)
+    # the wrapper's autograd function runs the plain backward on the CPU
+    fx, fw = torch.autograd.grad(rmsnorm(x, w), (x, w), dy)
+    assert torch.equal(fx, dx) and torch.equal(fw, dw)
+    assert all(torch.equal(a, b) for a, b in zip(
+        rmsnorm_bwd(x.detach(), w.detach(), dy), (dx, dw)))
+
+
+CASES = {
+    "causal": dict(B=2, Sq=13, Sk=13, H=4, Hkv=2, D=16, Dv=16),
+    "window": dict(B=2, Sq=21, Sk=21, H=4, Hkv=4, D=16, Dv=16, window=5),
+    "non-causal": dict(B=1, Sq=17, Sk=17, H=3, Hkv=3, D=8, Dv=8,
+                       causal=False),
+    "cross": dict(B=2, Sq=4, Sk=19, H=2, Hkv=2, D=8, Dv=8, causal=False),
+    "causal cross": dict(B=1, Sq=5, Sk=9, H=2, Hkv=1, D=8, Dv=8),
+    "GQA 4:1": dict(B=1, Sq=11, Sk=11, H=8, Hkv=2, D=12, Dv=12),
+    "Dv < Dk": dict(B=2, Sq=9, Sk=9, H=4, Hkv=4, D=24, Dv=16),
+    "no key": dict(B=1, Sq=6, Sk=6, H=2, Hkv=2, D=8, Dv=8, window=1),
+}
+
+
+def _attn_case(name):
+    case = dict(CASES[name])
+    b, sq, sk, h, hkv, d, dv = (case.pop(k) for k in
+                                ("B", "Sq", "Sk", "H", "Hkv", "D", "Dv"))
+    gen = torch.Generator().manual_seed(sq * sk + d)
+    q = _rand(gen, b, sq, h, d).requires_grad_()
+    k = _rand(gen, b, sk, hkv, d).requires_grad_()
+    v = _rand(gen, b, sk, hkv, dv).requires_grad_()
+    return q, k, v, _rand(gen, b, sq, h, dv), case
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_attention_bwd_ref_is_the_gradient_of_attention_ref(name):
+    q, k, v, do, kw = _attn_case(name)
+    out = ref.attention_ref(q, k, v, **kw)
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    o, lse = ref.attention_ref(q, k, v, return_lse=True, **kw)
+    assert torch.equal(o, out.detach()) and lse.shape == (
+        q.shape[0], q.shape[2], q.shape[1]) and lse.dtype == torch.float32
+    got = ref.attention_bwd_ref(q.detach(), k.detach(), v.detach(), o, lse,
+                                do, **kw)
+    for g, e in zip(got, grads):
+        assert g.dtype == e.dtype and g.shape == e.shape
+        _close_to_max(g, e)
+    # the wrapper's autograd function: the plain forward and backward
+    fgrads = torch.autograd.grad(flash_attention(q, k, v, **kw), (q, k, v),
+                                 do)
+    for g, e in zip(fgrads, got):
+        assert torch.equal(g, e)
+    fo, flse = flash_attention_with_lse(q.detach(), k.detach(), v.detach(),
+                                        **kw)
+    assert torch.equal(fo, o) and torch.equal(flse, lse)
+    assert all(torch.equal(a, b) for a, b in zip(flash_attention_bwd(
+        q.detach(), k.detach(), v.detach(), o, lse, do, **kw), got))
+
+
+def test_attention_lse_is_the_scaled_scores_logsumexp():
+    q, k, v, _, _ = _attn_case("no key")
+    _, lse = ref.attention_ref(q, k, v, window=1, softmax_scale=0.3,
+                               return_lse=True)
+    s = 0.3 * torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    exp = torch.logsumexp(s.masked_fill(
+        ~torch.eye(6, dtype=torch.bool), -math.inf), dim=-1)
+    torch.testing.assert_close(lse, exp, atol=1e-5, rtol=1e-5)
+    _, lse = ref.attention_ref(q[:, :2], k[:, :3], v[:, :3],
+                               kv_valid_len=0, return_lse=True)
+    assert torch.isinf(lse).all() and (lse > 0).all()
+
+
+@pytest.mark.parametrize("kw", [dict(q_offset=3), dict(kv_valid_len=5)])
+def test_attention_backward_refuses_decode_arguments(kw):
+    q, k, v, _, _ = _attn_case("causal")
+    with pytest.raises(ValueError, match="backward"):
+        flash_attention(q, k, v, **kw)
+    with torch.no_grad():
+        assert flash_attention(q, k, v, **kw).shape == q.shape
+
+
+def test_ssd_scan_is_differentiable_on_the_cpu():
+    gen = torch.Generator().manual_seed(5)
+    x = _rand(gen, 1, 20, 2, 4).float().requires_grad_()
+    dt = (0.1 + 0.4 * torch.rand((1, 20, 2), generator=gen))
+    a = 0.5 + torch.rand(2, generator=gen)
+    b, c = _rand(gen, 1, 20, 3).float(), _rand(gen, 1, 20, 3).float()
+    y, state = ssd_scan(x, dt, a, b, c, chunk=8)
+    (y.sum() + state.sum()).backward()
+    assert x.grad.shape == x.shape and torch.isfinite(x.grad).all()
+
+
+@pytest.mark.parametrize("arch,refused", [
+    ("mamba2-1.3b", True), ("zamba2-2.7b", True), ("stablelm-1.6b", False),
+    ("deepseek-v2-236b", False), ("whisper-large-v3", False)])
+def test_check_trainable_refuses_mamba_blocks_on_the_card(arch, refused):
+    cfg = get_config(arch).reduced()
+    check_trainable(cfg, "cpu")
+    if refused:
+        with pytest.raises(NotImplementedError, match="ROADMAP §A10e2"):
+            check_trainable(cfg, "cuda")
+    else:
+        check_trainable(cfg, torch.device("cuda"))
