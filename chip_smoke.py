@@ -272,6 +272,11 @@ REGISTRY_STEP_RATIO = 3.3
 WHATIF_D_STEPS = 4_320
 WHATIF_D_STEP_RATIO = 4.2
 DENSE_GREEDY_STEPS = 15_000
+# the experiment phase's wall and what-if (a)-(c)'s, in theta fused greedy
+# steps (two H100 runs at 6.80-6.88 ms a greedy step took 125-130 s and
+# 56-61 s: ~19,000 and ~8,300 steps)
+EXPERIMENT_STEPS = 19_000
+WHATIF_ABC_STEPS = 8_300
 
 
 def log(msg: str) -> None:
@@ -2209,11 +2214,12 @@ def bwd_work(kernel, args, kw):
 
 def bwd_fns(kernel, args, kw):
     """(kernel backward, plain backward, kernel forward + backward through
-    autograd, library forward + backward through autograd) on one call's
-    inputs; the last two return the inputs' gradients.  The library's
-    attention is SDPA with the call's own mask (``is_causal``, or with a
-    window a boolean ``attn_mask`` built here, outside the timed call) and
-    value width."""
+    autograd, library forward + backward through autograd, the library's
+    forward alone, on inputs that need a gradient as in the fourth) on one
+    call's inputs; the third and fourth return the inputs' gradients.  The
+    library's attention is SDPA with the call's own mask (``is_causal``, or
+    with a window a boolean ``attn_mask`` built here, outside the timed
+    call) and value width."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
@@ -2226,10 +2232,11 @@ def bwd_fns(kernel, args, kw):
 
         def both(fn):
             return lambda: torch.autograd.grad(fn(*ins), ins, dy)
+        def lib_fwd(a, b):
+            return F.rms_norm(a, (a.shape[-1],), b, eps=1e-6)
         return ((lambda: rmsnorm_bwd(*args)),
                 (lambda: ref.rmsnorm_bwd_ref(*args)), both(rmsnorm),
-                both(lambda a, b: F.rms_norm(a, (a.shape[-1],), b,
-                                             eps=1e-6)))
+                both(lib_fwd), lambda: lib_fwd(*ins))
     q, k, v, o, lse, do = args
     ins = tuple(t.detach().requires_grad_() for t in (q, k, v))
     causal, window = kw.get("causal", True), kw.get("window", 0)
@@ -2245,14 +2252,34 @@ def bwd_fns(kernel, args, kw):
     def kern_both():
         return torch.autograd.grad(flash_attention(*ins, **kw), ins, do)
 
-    def lib():
-        out = F.scaled_dot_product_attention(
+    def lib_fwd():
+        return F.scaled_dot_product_attention(
             *(t.transpose(1, 2) for t in ins), attn_mask=mask,
             is_causal=causal and mask is None,
             scale=kw.get("softmax_scale"), enable_gqa=gqa)
-        return torch.autograd.grad(out, ins, do.transpose(1, 2))
+
+    def lib():
+        return torch.autograd.grad(lib_fwd(), ins, do.transpose(1, 2))
     return ((lambda: flash_attention_bwd(*args, **kw)),
-            (lambda: ref.attention_bwd_ref(*args, **kw)), kern_both, lib)
+            (lambda: ref.attention_bwd_ref(*args, **kw)), kern_both, lib,
+            lib_fwd)
+
+
+def bwd_plan_text(args):
+    """The attention backward's launch plan for one call's inputs
+    (``flash_attention.bwd_plan``), as the [train:a] line prints it."""
+    from repro_torch.kernels.flash_attention import bwd_plan
+    q, k, v = args[:3]
+    b, sq, h, d = q.shape
+    p = bwd_plan(b, sq, k.shape[1], h, k.shape[2], d, q.element_size(),
+                 dv=v.shape[-1])
+    return (f"plan {p.route}, {p.stages} stage(s); dK / dV: "
+            f"{p.kv_warpgroups} group(s) x {p.kv_keys} keys"
+            f"{' split dK | dV' if p.kv_split else ''}, {p.kv_query_tile}-"
+            f"query tiles, {p.kv_ctas} CTAs, {p.kv_smem_bytes} B; dQ: "
+            f"{p.dq_queries} queries x {p.dq_key_tile}-key tiles, "
+            f"{p.dq_ctas} CTAs, {p.dq_smem_bytes} B; {p.kernels} kernels, "
+            f"{p.kv_launches} dK / dV launch"), p
 
 
 def bwd_row(kernel, label, args, kw, report, dname):
@@ -2260,8 +2287,10 @@ def bwd_row(kernel, label, args, kw, report, dname):
     version, then single-call (CUDA events, median of 20) and device (a
     CUDA graph of 20 calls) times beside the plain backward, its bound,
     and the kernel's forward + backward against the library's through
-    autograd, both as single-call and as device times."""
-    kern, plain, both, lib = bwd_fns(kernel, args, kw)
+    autograd, both as single-call and as device times; the library's
+    backward alone as its forward + backward less its forward (device
+    times)."""
+    kern, plain, both, lib, lib_fwd = bwd_fns(kernel, args, kw)
     got, ref = kern(), plain()
     names = ("dx", "dscale") if kernel == "rmsnorm_bwd" else ("dq", "dk",
                                                               "dv")
@@ -2283,10 +2312,17 @@ def bwd_row(kernel, label, args, kw, report, dname):
          "bound_rate": rate_name, "fwd_bwd_ms": cuda_median_ms(both),
          "fwd_bwd_device_ms": graph_ms(both),
          "library_ms": cuda_median_ms(lib),
-         "library_device_ms": graph_ms(lib)}
-    if kernel == "flash_attention_bwd" and args[2].shape[-1] != \
-            args[0].shape[-1]:
-        r["value_dim"] = args[2].shape[-1]
+         "library_device_ms": graph_ms(lib),
+         "library_fwd_device_ms": graph_ms(lib_fwd)}
+    r["library_bwd_device_ms"] = (r["library_device_ms"]
+                                  - r["library_fwd_device_ms"])
+    plan = ""
+    if kernel == "flash_attention_bwd":
+        if args[2].shape[-1] != args[0].shape[-1]:
+            r["value_dim"] = args[2].shape[-1]
+        plan, p = bwd_plan_text(args)
+        r["plan"] = dict(vars(p))
+        plan = f"; {plan}"
     log(f"[train:a] {kernel} {label} {dname} {r['shape']} {kw}: "
         f"{r['ms']:.4f} ms, device {r['device_ms']:.4f} ms (plain "
         f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms by "
@@ -2295,8 +2331,12 @@ def bwd_row(kernel, label, args, kw, report, dname):
         f"ms; library {r['library_ms']:.4f} ms, device "
         f"{r['library_device_ms']:.4f} ms (library / kernels "
         f"{r['library_device_ms'] / r['fwd_bwd_device_ms']:.3f} in device "
-        f"time); max |err| {err:.3g}, {rel:.3g} of max |ref| <= "
-        f"{BWD_TOL[dname]}; the same bits twice; {report['gpu']}")
+        f"time); backward alone, device: kernels {r['device_ms']:.4f} ms, "
+        f"library {r['library_bwd_device_ms']:.4f} ms (its forward "
+        f"{r['library_fwd_device_ms']:.4f} ms; library / kernels "
+        f"{r['library_bwd_device_ms'] / r['device_ms']:.3f}); max |err| "
+        f"{err:.3g}, {rel:.3g} of max |ref| <= {BWD_TOL[dname]}; the same "
+        f"bits twice{plan}; {report['gpu']}")
     return r
 
 
@@ -2488,7 +2528,7 @@ def device_split(prof):
                                    "rmsnorm_dw_kernel"),
               "attention forward": ("prefill_kernel", "decode_kernel",
                                     "combine_kernel"),
-              "attention backward": ("dkdv_kernel", "dq_kernel",
+              "attention backward": ("dkdv_", "dq_kernel", "dq_wg_kernel",
                                      "delta_kernel"),
               "optimizer": ("multi_tensor_apply", "foreach")}
     out = dict.fromkeys(list(groups) + ["other"], 0.0)
@@ -2754,7 +2794,8 @@ def phase_train(report):
             **{k: main[k] for k in (
                 "max_abs_err", "max_rel_err", "ms", "plain_ms", "bound_ms",
                 "bound_by", "library_ms", "device_ms", "fwd_bwd_ms",
-                "fwd_bwd_device_ms", "library_device_ms", "shape",
+                "fwd_bwd_device_ms", "library_device_ms",
+                "library_fwd_device_ms", "library_bwd_device_ms", "shape",
                 "dtype")},
             "shapes": rows[kernel]})
     out["phase_s"] = time.monotonic() - t_phase
@@ -3081,12 +3122,17 @@ def registry_runs():
 def registry_scale(report, elapsed_s):
     """0.1, or 0.05 when the phase's predicted wall (its plain-pass steps
     at this card's theta greedy rate times the plain / fused step ratio)
-    would not end inside the time limit."""
+    and that of the phases after it at their least scales (experiment,
+    what-if with (d) at 0.05, dense, and scale at haswell's 0.25) would
+    not end inside the time limit."""
     rate = report.get("greedy_s_per_step")
     if rate is None:
         return 0.1
     left = 0.95 * TIME_LIMIT_S - elapsed_s
-    if REGISTRY_STEPS * REGISTRY_STEP_RATIO * rate <= left:
+    after = (EXPERIMENT_STEPS + WHATIF_ABC_STEPS
+             + 0.5 * WHATIF_D_STEPS * WHATIF_D_STEP_RATIO
+             + DENSE_GREEDY_STEPS + 0.25 * HASWELL_STEPS * HASWELL_STEP_RATIO)
+    if (REGISTRY_STEPS * REGISTRY_STEP_RATIO + after) * rate <= left:
         return 0.1
     return 0.05
 
@@ -3881,6 +3927,81 @@ def phase_profile(report):
             f"{e.self_device_time_total / 1e3:10.2f} ms device")
 
 
+def phase_bwd_ab(report, csrc):
+    """Opt-in (``--phases env,bwd-ab``): the attention backward of this
+    tree against another tree's (``--ab-csrc``: that tree's
+    ``src/repro_torch/kernels/csrc``, say the parent commit's, unpacked
+    with ``git archive`` into a directory that .gitignore lists; its
+    library is built beside it), in one process on one card, at
+    ``ATTN_BWD_SHAPES`` in bf16 and f32: device time (a CUDA graph of 20
+    calls) in turns other / this / this / other, both held to
+    ``attention_bwd_ref``, then each kernel's device time a call under
+    torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    other_dir = pathlib.Path(csrc).resolve()
+    if not (other_dir / "flash_attention_bwd.cu").is_file():
+        raise FileNotFoundError(f"--ab-csrc {csrc}: no flash_attention_bwd.cu")
+    mine = build.load_library()
+    saved = build.CSRC, build.SOURCES, build.HEADERS
+    build.CSRC = other_dir
+    build.SOURCES, build.HEADERS = (
+        tuple(f for f in names if (other_dir / f).is_file())
+        for names in saved[1:])
+    build._LIB = None
+    try:
+        t0 = time.monotonic()
+        other = build.load_library()
+        log(f"[bwd-ab] built {other_dir} in {time.monotonic() - t0:.1f}s")
+    finally:
+        build.CSRC, build.SOURCES, build.HEADERS = saved
+        build._LIB = mine
+    libs = {"other": other, "this": mine}
+    rows = []
+    gen = torch.Generator().manual_seed(25)
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        for label, shape in ATTN_BWD_SHAPES:
+            args, kw = bwd_case(gen, "flash_attention_bwd", shape, dtype)
+            want = ref.attention_bwd_ref(*args, **kw)
+            row = {"label": label, "dtype": dname, "device_ms": {},
+                   "by_kernel_ms": {}}
+            for name in ("other", "this", "this", "other"):
+                build._LIB = libs[name]
+                row["device_ms"].setdefault(name, []).append(graph_ms(
+                    lambda: flash_attention_bwd(*args, **kw)))
+            for name, lib in libs.items():
+                build._LIB = lib
+                for n, g, r in zip("qkv", flash_attention_bwd(*args, **kw),
+                                   want):
+                    max_rel_err(g, r, BWD_TOL[dname],
+                                f"bwd-ab {name} {label} {dname} d{n}")
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(10):
+                        flash_attention_bwd(*args, **kw)
+                    torch.cuda.synchronize()
+                row["by_kernel_ms"][name] = {
+                    e.key.split("<")[0].split("::")[-1]:
+                    e.self_device_time_total / 1e3 / max(e.count, 1)
+                    for e in device_events(prof)}
+            build._LIB = mine
+            t = row["device_ms"]
+            log(f"[bwd-ab] {label} {dname}: device ms other "
+                f"{t['other'][0]:.4f} / this {t['this'][0]:.4f} / this "
+                f"{t['this'][1]:.4f} / other {t['other'][1]:.4f} (this / "
+                f"other {sum(t['this']) / sum(t['other']):.3f}); by kernel "
+                + "; ".join(f"{n}: " + ", ".join(
+                    f"{k} {v:.4f}" for k, v in ks.items())
+                    for n, ks in row["by_kernel_ms"].items())
+                + f"; {report['gpu']}")
+            rows.append(row)
+            del args, want
+            torch.cuda.empty_cache()
+    report["bwd_ab"] = {"other_csrc": str(other_dir), "rows": rows}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
@@ -3890,7 +4011,11 @@ def main(argv=None) -> int:
                          "moe,encdec,train,registry,experiment,whatif,dense,"
                          "scale (the default) "
                          "and the opt-in waterfill, waterfill-plans, "
-                         "profile and paper-scale")
+                         "profile, paper-scale and bwd-ab")
+    ap.add_argument("--ab-csrc", default=str(
+        ROOT / "build" / "parent" / "src" / "repro_torch" / "kernels" /
+        "csrc"), metavar="DIR",
+                    help="bwd-ab: the other tree's kernel sources")
     ap.add_argument("--paper-scale-budget", type=float,
                     default=PAPER_SCALE_BUDGET_S, metavar="SECONDS",
                     help="the paper-scale phase cuts its strategies so "
@@ -3951,6 +4076,8 @@ def main(argv=None) -> int:
             time_waterfill_plans(report)
         if "profile" in phases:
             phase_profile(report)
+        if "bwd-ab" in phases:
+            phase_bwd_ab(report, args.ab_csrc)
         if "paper-scale" in phases:
             phase_paper_scale(report, time.monotonic() - t_start,
                               args.paper_scale_budget)

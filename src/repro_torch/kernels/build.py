@@ -46,10 +46,10 @@ import torch
 
 CSRC = pathlib.Path(__file__).resolve().with_name("csrc")
 SOURCES = ("schedule_tick.cu", "waterfill.cu", "rmsnorm.cu",
-           "flash_attention.cu", "flash_attention_bwd.cu", "ssd_scan.cu",
-           "bindings.cpp")
+           "flash_attention.cu", "flash_attention_bwd.cu",
+           "flash_attention_bwd_wgmma.cu", "ssd_scan.cu", "bindings.cpp")
 HEADERS = ("kernels.h", "block.cuh", "dtype.cuh", "mma.cuh", "atomics.cuh",
-           "attention.cuh")
+           "attention.cuh", "attention_bwd.cuh", "wgmma.cuh")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3",
               "--fmad=false", "-std=c++17", "-Xcompiler", "-fPIC",
               "-Xptxas=-v")

@@ -9,72 +9,62 @@
 // kernel, whose output carries no autograd graph, so its gradient is a
 // kernel of its own (kernels/flash_attention.py::_Attention).
 //
-// Bound on the card: operations.  Per visible (query, key) pair the
-// backward computes S = Q K^T again (2 D flops), dP = dO V^T (2 Dv),
-// dV += P^T dO (2 Dv), dK += dS^T Q (2 D) and, in the dQ kernel, S and dP
-// once more and dQ += dS K (2 D + 2 D + 2 Dv): 2 (4 D + 4 Dv) flops in all,
-// against the 2 (2 D + 2 Dv) that are the least (the dQ kernel recomputes
-// S and dP instead of sharing them through atomics).
+// Bound on the card: the larger of the bytes (q, k, v, o, dO and lse read
+// once, dq, dk and dv written once) at 3.35 TB/s and the least operations,
+// 2 (3 D + 2 Dv) a visible (query, key) pair, at the route's rate (bf16
+// 989 TFLOP/s, split TF32 495 / 3): bytes at internvl2's bf16 call,
+// operations at the others (PERF.md, row 4b).  The kernels compute S =
+// Q K^T again (2 D flops a pair), dP = dO V^T (2 Dv), dV += P^T dO (2 Dv),
+// dK += dS^T Q (2 D) and, in the dQ kernel, S and dP once more and dQ +=
+// dS K (2 D + 2 D + 2 Dv): 2 (4 D + 4 Dv) in all (the dQ kernel recomputes
+// S and dP instead of sharing dS through atomics, whose order, and so
+// whose bits, would change from run to run).
 //
-// Three kernels, each deterministic (no atomics: every output element is
-// written once, by one thread, after a fixed order of sums):
+// Three kernels a call, each deterministic (no atomics: every output
+// element is written once, by one thread, after a fixed order of sums):
 //   * delta_kernel: D_i = sum_c dO_ic O_ic for each row, a warp a row.
-//   * dkdv_kernel: a CTA of 4 warps takes 64 keys of one (batch, KV head),
-//     16 a warp, with K and V in shared memory, and walks tiles of 32
-//     queries of every query head of the KV head's group (GQA needs no
-//     atomics), only those the mask lets see a key of its tile.  With the
-//     scores held transposed (keys as rows), P^T = exp(scale S^T - lse) is
-//     the C fragment of qk_tile(K, Q), P^T dO is pv_tile(P^T, dO), dP^T is
-//     qk_tile(V, dO) and dS^T Q is pv_tile(dS^T, Q): the forward's tile
-//     helpers (attention.cuh) as they are.  At head dims above 128 the dK
-//     and dV accumulators do not both fit in registers, so each takes a
-//     pass of its own (WHICH).
-//   * dq_kernel: a CTA takes 64 queries of one (batch, head) and walks the
-//     32-key tiles they see, as the forward's prefill does: dQ += dS K is
-//     pv_tile(dS, K).
-// Products run as mma.sync with f32 accumulators: bf16 as m16n8k16, f32 in
-// split TF32 (mma.cuh).  Tiles are copied with cp.async into one buffer
-// each (no double buffering: a simple kernel first).  P is recomputed from
-// the saved log-sum-exp in exp2 (scores times scale * log2 e, lse times
-// log2 e); a row that saw no key has lse = +inf and gives P = 0.  dS is
-// scaled by the softmax scale once, when dQ and dK are written.
+//   * a dK / dV kernel: a CTA takes a tile of keys of one (batch, KV head)
+//     and walks the query tiles of every query head of the KV head's group
+//     (GQA needs no atomics), only those the mask lets see a key of it.
+//   * a dQ kernel: a CTA takes 64 queries of one (batch, head) and walks
+//     the key tiles they see, the last query blocks first (they see the
+//     most keys).
+// P is recomputed from the saved log-sum-exp in exp2 (scores times scale *
+// log2 e, lse times log2 e; bf16: ex2.approx, whose ~2^-22 relative error
+// sits far below the bf16 rounding of P that follows; f32: exp2f); a row
+// that saw no key has lse = +inf and gives P = 0.  dS is scaled by the
+// softmax scale once, when dQ and dK are written.
+//
+// bf16 runs on Hopper's warpgroup products: flash_attention_bwd_wgmma.cu
+// has its kernels and their design.
+// f32 runs on split TF32 mma.sync (mma.cuh; TF32 wgmma takes K-major
+// operands only, and dV += P^T dO would need dO transposed): 4 warps own
+// 64 keys (16 a warp) and walk 32-query tiles, and the dQ kernel 64
+// queries over 32-key tiles, with attention.cuh's tiles as the forward
+// uses them (keys as rows, P^T is the C fragment of qk_tile(K, Q)).  At
+// head dims above 128 the dK and dV accumulators do not both fit one
+// thread's registers, so the CTAs of one launch split: half accumulate dK,
+// half dV, each walking the tiles (the f32 route keeps the walk twice).
 //
 // Masks: causal, sliding window, non-causal, and Sq != Sk (cross
 // attention, non-causal).  Query i sits at position i (q_offset 0) and every
 // key is valid: the wrapper refuses q_offset and kv_valid_len for the
-// backward, which only decode uses.
+// backward, which only decode uses.  kernels/flash_attention.py::bwd_plan
+// mirrors the launch choices below (route, warpgroups, tiles, stages,
+// shared memory, launches).
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 #include <math.h>
 
 #include "attention.cuh"
+#include "attention_bwd.cuh"
 #include "dtype.cuh"
 #include "kernels.h"
 #include "mma.cuh"
 
 namespace repro {
 namespace {
-
-constexpr int kBwdBK = 32;          // queries (dK / dV) or keys (dQ) a tile
-constexpr float kLog2e = 1.4426950408889634f;
-enum Which : int { kDK = 1, kDV = 2 };
-
-__device__ __forceinline__ bool seen(const AttnBwdArgs& a, int qpos,
-                                     int kj) {
-  return qpos < a.Sq && kj < a.Sk && (!a.causal || kj <= qpos) &&
-         (a.window <= 0 || kj > qpos - a.window);
-}
-
-// 64 rows of the CTA's own operands and kBwdBK rows of the walked ones, at
-// the strides qk_tile reads (K and Q at D's, V and dO at Dv's), and the
-// walked queries' lse and delta
-template <typename T>
-size_t bwd_smem_bytes(int dp, int dvp) {
-  return sizeof(T) * static_cast<size_t>(kBQ + kBwdBK) *
-             (qk_stride<T>(dp) + qk_stride<T>(dvp)) +
-         2 * kBwdBK * sizeof(float);
-}
 
 // D_i = sum_c dO_ic O_ic, a warp a row; rows in O's order (b, q, h)
 template <typename T>
@@ -97,9 +87,23 @@ __global__ void __launch_bounds__(kThreads) delta_kernel(AttnBwdArgs a) {
   }
 }
 
+// ======================================================= f32: mma.sync
+constexpr int kBwdBK = 32;          // queries (dK / dV) or keys (dQ) a tile
+
+// 64 rows of the CTA's own operands and kBwdBK rows of the walked ones, at
+// the strides qk_tile reads (K and Q at D's, V and dO at Dv's), and the
+// walked queries' lse and delta
+template <typename T>
+size_t bwd_smem_bytes(int dp, int dvp) {
+  return sizeof(T) * static_cast<size_t>(kBQ + kBwdBK) *
+             (qk_stride<T>(dp) + qk_stride<T>(dvp)) +
+         2 * kBwdBK * sizeof(float);
+}
+
+// the dK (WHICH & kDK) and dV (WHICH & kDV) of key tile `kt` of batch `b`
 template <typename T, int DP, int DV, int WHICH>
-__global__ void __launch_bounds__(kThreads)
-    dkdv_kernel(AttnBwdArgs a, int vec) {
+__device__ __forceinline__ void dkdv_tile(const AttnBwdArgs& a, int vec,
+                                          int kt, int b) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const T* __restrict__ q = static_cast<const T*>(a.q);
   const T* __restrict__ k = static_cast<const T*>(a.k);
@@ -118,9 +122,8 @@ __global__ void __launch_bounds__(kThreads)
   float* lse2 = reinterpret_cast<float*>(dos + kBwdBK * VS);
   float* dlt = lse2 + kBwdBK;
 
-  const int k0 = blockIdx.x * kBQ;
+  const int k0 = kt * kBQ;
   const int hk = blockIdx.y;
-  const int b = blockIdx.z;
   const int G = a.H / a.Hkv;
   const int nk = min(kBQ, a.Sk - k0);
   const long long q_row = static_cast<long long>(a.H) * D;
@@ -277,6 +280,27 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// head dims up to 128: dK and dV of key tile blockIdx.x
+template <typename T, int DP, int DV>
+__global__ void __launch_bounds__(kThreads)
+    dkdv_kernel(AttnBwdArgs a, int vec) {
+  dkdv_tile<T, DP, DV, kDK | kDV>(a, vec, blockIdx.x, blockIdx.z);
+}
+
+// above: the CTAs of the grid's first B z-slices compute dK, those of the
+// next B dV, so every dK CTA starts before any dV one, in the order two
+// passes would run them (each branch holds one accumulator, so the
+// registers are the larger branch's)
+template <typename T, int DP, int DV>
+__global__ void __launch_bounds__(kThreads)
+    dkdv_split_kernel(AttnBwdArgs a, int vec) {
+  if (static_cast<int>(blockIdx.z) < a.B) {
+    dkdv_tile<T, DP, DV, kDK>(a, vec, blockIdx.x, blockIdx.z);
+  } else {
+    dkdv_tile<T, DP, DV, kDV>(a, vec, blockIdx.x, blockIdx.z - a.B);
+  }
+}
+
 template <typename T, int DP, int DV>
 __global__ void __launch_bounds__(kThreads)
     dq_kernel(AttnBwdArgs a, int vec) {
@@ -412,36 +436,34 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int DP, int DV, int WHICH>
-cudaError_t launch_dkdv(const AttnBwdArgs& a, int vec, size_t smem,
-                        cudaStream_t stream) {
-  cudaError_t err = allow_smem<dkdv_kernel<T, DP, DV, WHICH>>(smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((a.Sk + kBQ - 1) / kBQ, a.Hkv, a.B);
-  dkdv_kernel<T, DP, DV, WHICH><<<grid, kThreads, smem, stream>>>(a, vec);
-  return cudaGetLastError();
-}
-
-// dK / dV (one pass up to a head dim of 128, one each past it), then dQ
-template <typename T, int DP, int DV>
-cudaError_t launch_bwd(const AttnBwdArgs& a, int vec, cudaStream_t stream) {
-  const size_t smem = bwd_smem_bytes<T>(pad16(a.D), pad16(a.Dv));
+// dK / dV (one launch: a kernel for both up to a head dim of 128, half the
+// CTAs each past it), then dQ
+template <int DP, int DV>
+cudaError_t launch_bwd_f32(const AttnBwdArgs& a, int vec,
+                           cudaStream_t stream) {
+  const size_t smem = bwd_smem_bytes<float>(pad16(a.D), pad16(a.Dv));
   cudaError_t err = cudaSuccess;
   if (a.Sk > 0) {
+    const int tiles = (a.Sk + kBQ - 1) / kBQ;
     if constexpr (DP <= 128) {
-      err = launch_dkdv<T, DP, DV, kDK | kDV>(a, vec, smem, stream);
-    } else {
-      err = launch_dkdv<T, DP, DV, kDK>(a, vec, smem, stream);
+      err = allow_smem<dkdv_kernel<float, DP, DV>>(smem);
       if (err != cudaSuccess) return err;
-      err = launch_dkdv<T, DP, DV, kDV>(a, vec, smem, stream);
+      dkdv_kernel<float, DP, DV><<<dim3(tiles, a.Hkv, a.B), kThreads, smem,
+                                   stream>>>(a, vec);
+    } else {
+      err = allow_smem<dkdv_split_kernel<float, DP, DV>>(smem);
+      if (err != cudaSuccess) return err;
+      dkdv_split_kernel<float, DP, DV>
+          <<<dim3(tiles, a.Hkv, 2 * a.B), kThreads, smem, stream>>>(a, vec);
     }
+    err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
   if (a.Sq > 0) {
-    err = allow_smem<dq_kernel<T, DP, DV>>(smem);
+    err = allow_smem<dq_kernel<float, DP, DV>>(smem);
     if (err != cudaSuccess) return err;
     const dim3 grid((a.Sq + kBQ - 1) / kBQ, a.H, a.B);
-    dq_kernel<T, DP, DV><<<grid, kThreads, smem, stream>>>(a, vec);
+    dq_kernel<float, DP, DV><<<grid, kThreads, smem, stream>>>(a, vec);
     err = cudaGetLastError();
   }
   return err;
@@ -463,12 +485,16 @@ cudaError_t launch_bwd_typed(const AttnBwdArgs& a, cudaStream_t stream) {
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  const int dp = pad16(a.D);
-  if (dp <= 64) return launch_bwd<T, 64, 64>(a, vec, stream);
-  if (dp <= 96) return launch_bwd<T, 96, 96>(a, vec, stream);
-  if (dp <= 128) return launch_bwd<T, 128, 128>(a, vec, stream);
-  if (pad16(a.Dv) <= 128) return launch_bwd<T, 256, 128>(a, vec, stream);
-  return launch_bwd<T, 256, 256>(a, vec, stream);
+  if constexpr (sizeof(T) == 2) {
+    return launch_flash_attention_bwd_wgmma(a, vec, stream);
+  } else {
+    const int dp = pad16(a.D);
+    if (dp <= 64) return launch_bwd_f32<64, 64>(a, vec, stream);
+    if (dp <= 96) return launch_bwd_f32<96, 96>(a, vec, stream);
+    if (dp <= 128) return launch_bwd_f32<128, 128>(a, vec, stream);
+    if (pad16(a.Dv) <= 128) return launch_bwd_f32<256, 128>(a, vec, stream);
+    return launch_bwd_f32<256, 256>(a, vec, stream);
+  }
 }
 
 }  // namespace

@@ -14,9 +14,10 @@ width, so V is never padded to K's.
 Training: when q, k or v needs a gradient, :func:`flash_attention` runs as
 an autograd function.  Its forward is the prefill variant, asked to write
 each row's log-sum-exp as well; its backward is :func:`flash_attention_bwd`,
-the kernels of ``csrc/flash_attention_bwd.cu`` (plain
-:func:`repro_torch.kernels.ref.attention_bwd_ref` on the CPU).  A query
-offset and a valid length are decode's alone and are refused there.
+the kernels of ``csrc/flash_attention_bwd.cu`` (bf16 on Hopper's ``wgmma``,
+f32 on split-TF32 ``mma.sync``; :func:`bwd_plan` mirrors their launch;
+plain :func:`repro_torch.kernels.ref.attention_bwd_ref` on the CPU).  A
+query offset and a valid length are decode's alone and are refused there.
 """
 from __future__ import annotations
 
@@ -93,6 +94,139 @@ def plan(b: int, sq: int, sk: int, h: int, hkv: int, dh: int,
     block_k = 32 if f32 else 64
     smem = elem_bytes * (PREFILL_BLOCK_Q * qk + 2 * block_k * (qk + vv))
     return AttnPlan("prefill", d_pad, block_k, 0, smem, dv_pad)
+
+
+# the backward's constants (flash_attention_bwd.cu): the bf16 route's ring
+# slots, warpgroup rows and dQ key tile, the f32 route's tiles
+BWD_STAGES = 2
+BWD_WG_ROWS = 64
+BWD_DQ_KEYS = 32
+BWD_F32_KEYS = 64
+BWD_F32_TILE = 32
+
+
+@dataclass(frozen=True)
+class AttnBwdPlan:
+    """What the backward runs for one call (``launch_bwd_typed`` and the
+    ``*_smem_bytes`` functions of ``flash_attention_bwd.cu``): ``route``
+    "wgmma" (bf16) or "mma.sync" (f32, split TF32); the key and value head
+    dims as the kernels pad them; the dK / dV kernel's warpgroups, keys a
+    CTA, query tile, whether its CTA splits dK from dV (bf16: two groups
+    share the keys, one accumulating each; f32: half the CTAs each), CTAs
+    and shared memory; the dQ kernel's queries and key tile a CTA, CTAs
+    and shared memory; the ring's slots (1: a tile is waited for before
+    its products); the kernels a call launches (delta, dK / dV, dQ) and
+    the dK / dV launches among them."""
+    route: str
+    d_pad: int
+    dv_pad: int
+    kv_warpgroups: int
+    kv_keys: int
+    kv_query_tile: int
+    kv_split: bool
+    kv_ctas: int
+    kv_smem_bytes: int
+    dq_queries: int
+    dq_key_tile: int
+    dq_ctas: int
+    dq_smem_bytes: int
+    stages: int
+    kernels: int
+    kv_launches: int
+
+
+@functools.lru_cache(maxsize=1024)
+def bwd_plan(b: int, sq: int, sk: int, h: int, hkv: int, dh: int,
+             elem_bytes: int, *, dv: Optional[int] = None) -> AttnBwdPlan:
+    """The backward's kernels, tiles and shared memory for one call
+    (``dv``: V's head dim, ``dh`` when None)."""
+    dv = dh if dv is None else dv
+    kernels = int(sq > 0) + int(sk > 0) + int(sq > 0)
+    if elem_bytes == 2:
+        d_pad, dv_pad = -(-dh // 64) * 64, -(-dv // 64) * 64
+        if d_pad <= 128:
+            d_pad = dv_pad = d_pad
+        elif dv_pad > 128:
+            d_pad = dv_pad = 256
+        else:
+            dv_pad = 128
+        split = d_pad > 128
+        slot = 2 * BWD_WG_ROWS * (d_pad + dv_pad) + 1024
+        kv_smem = (1024 + 2 * BWD_WG_ROWS * (d_pad + dv_pad)
+                   + BWD_STAGES * slot
+                   + (2 * 2 * BWD_WG_ROWS ** 2 if split else 0))
+        dq_smem = (1024 + 2 * BWD_WG_ROWS * (d_pad + dv_pad)
+                   + BWD_STAGES * 2 * BWD_DQ_KEYS * (d_pad + dv_pad))
+        return AttnBwdPlan(
+            "wgmma", d_pad, dv_pad, 2 if split else 1, BWD_WG_ROWS,
+            BWD_WG_ROWS, split, -(-sk // BWD_WG_ROWS) * hkv * b, kv_smem,
+            BWD_WG_ROWS, BWD_DQ_KEYS, -(-sq // BWD_WG_ROWS) * h * b, dq_smem,
+            BWD_STAGES, kernels, 1)
+    dp, dvp = -(-dh // 16) * 16, -(-dv // 16) * 16
+    bucket = (64 if dp <= 64 else 96 if dp <= 96 else 128 if dp <= 128
+              else 256)
+    split = bucket > 128
+    # row strides as qk_stride<float>: 16 words mod 32
+    qk, vv = (x + (16 if x % 32 == 0 else 0) for x in (dp, dvp))
+    smem = (elem_bytes * (BWD_F32_KEYS + BWD_F32_TILE) * (qk + vv)
+            + 2 * BWD_F32_TILE * 4)
+    tiles = -(-sk // BWD_F32_KEYS)
+    return AttnBwdPlan(
+        "mma.sync", dp, dvp, 1, BWD_F32_KEYS, BWD_F32_TILE, split,
+        (2 if split else 1) * tiles * hkv * b, smem, PREFILL_BLOCK_Q,
+        BWD_F32_TILE, -(-sq // PREFILL_BLOCK_Q) * h * b, smem, 1, kernels, 1)
+
+
+def bwd_query_range(k0: int, nk: int, sq: int, causal: bool, window: int,
+                    tile: int) -> tuple:
+    """``[q_begin, q_end)``: the queries the dK / dV kernel walks for keys
+    ``[k0, k0 + nk)``, in tiles of ``tile`` from ``q_begin``."""
+    q_begin = (k0 if causal else 0) // tile * tile
+    q_end = min(sq, k0 + nk - 1 + window) if window > 0 else sq
+    return q_begin, q_end
+
+
+def bwd_key_range(q0: int, rows: int, sk: int, causal: bool, window: int,
+                  tile: int) -> tuple:
+    """``[k_begin, k_end)``: the keys the dQ kernel walks for queries
+    ``[q0, q0 + rows)``, in tiles of ``tile`` from ``k_begin``."""
+    k_end = min(sk, q0 + rows) if causal else sk
+    k_begin = max(0, q0 - window + 1) // tile * tile if window > 0 else 0
+    return k_begin, k_end
+
+
+def bwd_kv_block(q0: int, nq: int, kw_lo: int, w_rows: int, causal: bool,
+                 window: int) -> tuple:
+    """``(live, masked)`` of a bf16 dK / dV warpgroup for the query tile
+    at ``q0`` (``nq`` valid rows of 64) and its keys ``[kw_lo, kw_lo +
+    w_rows)``: whether it runs the tile's products, and whether it masks
+    each score (else every computed pair is seen: a query past the last
+    has lse = +inf, so none is masked for the ragged edge)."""
+    kw_hi = kw_lo + w_rows - 1
+    live = w_rows > 0 and nq > 0
+    if causal:
+        live = live and q0 + nq - 1 >= kw_lo
+    if window > 0:
+        live = live and q0 < kw_hi + window
+    masked = ((causal and q0 < kw_hi)
+              or (window > 0 and q0 + BWD_WG_ROWS - 1 - window >= kw_lo))
+    return live, masked
+
+
+def bwd_q_block(k0: int, tile: int, q0: int, rows: int, sk: int,
+                causal: bool, window: int) -> tuple:
+    """``(live, masked)`` of a bf16 dQ warpgroup (queries ``[q0, q0 +
+    rows)``) for the key tile ``[k0, k0 + tile)``; past the last key a
+    score is masked, since keys are summed over."""
+    q_hi = q0 + rows - 1
+    live = rows > 0
+    if causal:
+        live = live and k0 <= q_hi
+    if window > 0:
+        live = live and k0 + tile - 1 > q0 - window
+    masked = ((causal and k0 + tile - 1 > q0)
+              or (window > 0 and k0 <= q_hi - window) or k0 + tile > sk)
+    return live, masked
 
 
 def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:

@@ -563,8 +563,11 @@ def test_rmsnorm_backward_kernel_matches_plain(cuda_device, dtype, rows, d,
 @pytest.mark.parametrize("b,sq,sk,h,hkv,d,dv,kw", [
     # internvl2's training call (GQA 16 / 8 of 128, causal)
     (4, 512, 512, 16, 8, 128, 128, {}),
-    # gemma3's head dim with a window (dK and dV in passes of their own)
+    # gemma3's head dim with a window (bf16: two warpgroups share the
+    # keys, one accumulating dK, the other dV)
     (1, 300, 300, 8, 4, 256, 256, dict(window=100)),
+    # keys 256 wide, values 128
+    (1, 130, 130, 4, 2, 256, 128, {}),
     # DeepSeek's widths (keys 192, values 128) and reduced DeepSeek's
     (1, 200, 200, 16, 16, 192, 128, {}), (2, 37, 37, 4, 4, 48, 32, {}),
     # whisper: the encoder (non-causal) and the cross attention (Sq != Sk)
@@ -574,7 +577,13 @@ def test_rmsnorm_backward_kernel_matches_plain(cuda_device, dtype, rows, d,
     # 8:1 grouping with a window, one query
     (2, 77, 77, 8, 2, 80, 80, {}), (1, 50, 50, 4, 2, 20, 20, {}),
     (2, 40, 40, 8, 1, 32, 32, dict(window=16)),
-    (1, 1, 9, 2, 2, 64, 64, dict(causal=False))])
+    (1, 1, 9, 2, 2, 64, 64, dict(causal=False)),
+    # a ragged query tile over fewer keys than one tile; a window narrower
+    # than a tile; 8:1 GQA at 128 walking more query tiles than the ring
+    # has slots
+    (2, 100, 40, 4, 4, 64, 64, dict(causal=False)),
+    (1, 200, 200, 4, 4, 128, 128, dict(window=7)),
+    (1, 300, 300, 8, 1, 128, 128, {})])
 def test_flash_attention_backward_kernel_matches_plain(
         cuda_device, dtype, b, sq, sk, h, hkv, d, dv, kw):
     """The training forward's output and log-sum-exp, and dq / dk / dv

@@ -331,6 +331,9 @@ def test_chip_smoke_cuts_haswell_only_when_it_cannot_fit(elapsed_s, rate,
 @pytest.mark.parametrize("rule,elapsed_s,rate,scale", [
     ("registry_scale", 500.0, 5.34e-3, 0.1),
     ("registry_scale", 1050.0, 5.0e-3, 0.05),
+    # a slow host (6.80 ms a greedy step): the registry itself would fit,
+    # the phases after it at their least scales would not
+    ("registry_scale", 700.0, 6.80e-3, 0.05),
     ("registry_scale", 0.0, None, 0.1),
     ("whatif_scale", 600.0, 5.0e-3, 0.1),
     ("whatif_scale", 800.0, 3.84e-3, 0.1),
@@ -339,8 +342,9 @@ def test_chip_smoke_cuts_haswell_only_when_it_cannot_fit(elapsed_s, rate,
 def test_chip_smoke_cuts_theta_phases_only_when_they_cannot_fit(
         rule, elapsed_s, rate, scale):
     """The registry phase and what-if (d) run theta at 0.1 and cut to 0.05
-    only when the time left would not hold them (what-if (d) also leaves
-    room for the dense phase and haswell at its least scale)."""
+    only when the time left would not hold them and the phases after them
+    at their least scales (the registry: experiment, what-if, dense and
+    haswell; what-if (d): dense and haswell)."""
     report = {} if rate is None else {"greedy_s_per_step": rate}
     assert getattr(_load_chip_smoke(), rule)(report, elapsed_s) == scale
 
@@ -391,7 +395,8 @@ def test_chip_smoke_library_call_refuses_what_sdpa_cannot_mask():
 def test_chip_smoke_backward_library_call_is_the_gradient(case):
     """The smoke's timed forward + backward calls, the kernels' autograd
     and SDPA's with the call's mask and value width, give the gradients
-    the backward kernel computes (CPU tensors, within 2e-5)."""
+    the backward kernel computes, and its timed SDPA forward the output
+    (CPU tensors, within 2e-5)."""
     from repro_torch.kernels.ref import attention_bwd_ref, attention_ref
     gen = torch.Generator().manual_seed(5)
     b, sq, sk, h, hkv, d, dv = (case.pop(k) for k in
@@ -403,26 +408,31 @@ def test_chip_smoke_backward_library_call_is_the_gradient(case):
     o, lse = attention_ref(q, k, v, return_lse=True, **case)
     args = (q, k, v, o, lse, do)
     want = attention_bwd_ref(*args, **case)
-    _, _, both, lib = _load_chip_smoke().bwd_fns("flash_attention_bwd",
-                                                 args, case)
+    _, _, both, lib, lib_fwd = _load_chip_smoke().bwd_fns(
+        "flash_attention_bwd", args, case)
     for fn in (both, lib):
         for got, ref in zip(fn(), want):
             np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=2e-5,
                                        rtol=2e-5)
+    np.testing.assert_allclose(lib_fwd().transpose(1, 2).detach().numpy(),
+                               o.numpy(), atol=2e-5, rtol=2e-5)
 
 
 def test_chip_smoke_backward_library_call_of_rmsnorm_is_the_gradient():
-    from repro_torch.kernels.ref import rmsnorm_bwd_ref
+    from repro_torch.kernels.ref import rmsnorm_bwd_ref, rmsnorm_ref
     gen = torch.Generator().manual_seed(6)
     x, dy = (torch.randn((7, 33), generator=gen) for _ in "xy")
     w = torch.randn((33,), generator=gen)
     want = rmsnorm_bwd_ref(x, w, dy)
-    _, _, both, lib = _load_chip_smoke().bwd_fns("rmsnorm_bwd", (x, w, dy),
-                                                 {})
+    _, _, both, lib, lib_fwd = _load_chip_smoke().bwd_fns(
+        "rmsnorm_bwd", (x, w, dy), {})
     for fn in (both, lib):
         for got, ref in zip(fn(), want):
             np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=2e-5,
                                        rtol=2e-5)
+    np.testing.assert_allclose(lib_fwd().detach().numpy(),
+                               rmsnorm_ref(x, w).numpy(), atol=2e-5,
+                               rtol=2e-5)
 
 
 @pytest.mark.parametrize("fault", [None, "gradient", "step", "scale",

@@ -15,6 +15,11 @@ functions around the kernels, on the CPU.
   the CPU (the card refuses it: ``tests/test_torch_cuda.py``).
 * ``check_trainable``: a Mamba-2 config is refused on a CUDA device, a
   dense one is not (no card needed: the device's type decides).
+* ``bwd_plan``, the Python mirror of the backward's launch choices, at
+  every head-dim bucket in f32 and bf16 (shared memory within the card's,
+  bf16 on wgmma, f32 on mma.sync, one dK / dV launch), and the kernels'
+  walks (``bwd_query_range`` / ``bwd_key_range``) and block predicates
+  (``bwd_kv_block`` / ``bwd_q_block``) against a brute-force mask.
 """
 import math
 
@@ -24,6 +29,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_bwd, flash_attention_with_lse)
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd  # noqa: E402
@@ -155,3 +161,102 @@ def test_check_trainable_refuses_mamba_blocks_on_the_card(arch, refused):
             check_trainable(cfg, "cuda")
     else:
         check_trainable(cfg, torch.device("cuda"))
+
+
+BWD_DIMS = [(dk, dv) for dk in (20, 48, 64, 80, 128, 192, 256)
+            for dv in sorted({dk, min(dk, 128), min(dk, 64), 16})]
+
+
+@pytest.mark.parametrize("elem_bytes", [4, 2], ids=["f32", "bf16"])
+@pytest.mark.parametrize("dk,dv", BWD_DIMS)
+def test_bwd_plan_fits_the_card(elem_bytes, dk, dv):
+    """Every head-dim bucket: both kernels' shared memory within a CTA's
+    232,448 bytes, bf16 on wgmma (head dims padded to the 64-column
+    swizzle atom; dK and dV split across the two warpgroups above 128) and
+    f32 on mma.sync, one dK / dV launch and three kernels a call."""
+    p = fa.bwd_plan(4, 512, 512, 16, 8, dk, elem_bytes, dv=dv)
+    assert max(p.kv_smem_bytes, p.dq_smem_bytes) <= fa.MAX_SMEM_BYTES
+    assert p.d_pad >= dk and p.dv_pad >= dv and p.dv_pad <= p.d_pad
+    assert p.kv_launches == 1 and p.kernels == 3
+    if elem_bytes == 2:
+        assert p.route == "wgmma" and p.stages >= 2
+        assert p.d_pad % 64 == 0 and p.dv_pad % 64 == 0
+        assert p.kv_split == (p.d_pad > 128)
+        assert p.kv_warpgroups == (2 if p.kv_split else 1)
+        assert p.kv_keys == 64 and p.kv_ctas == 8 * 8 * 4
+        # the dQ accumulator and its two score tiles in one thread's 255
+        # registers
+        assert p.d_pad // 2 + p.dq_key_tile <= 160
+    else:
+        assert p.route == "mma.sync" and p.stages == 1
+        assert p.kv_split == (p.d_pad > 128)
+        assert p.kv_ctas == (2 if p.kv_split else 1) * 8 * 8 * 4
+    assert p.dq_ctas == 8 * 16 * 4
+
+
+WALKS = [(40, 40, dict(causal=True)), (130, 130, dict(causal=True)),
+         (200, 200, dict(causal=True, window=7)),
+         (300, 300, dict(causal=True, window=100)),
+         (129, 129, dict(causal=False, window=70)),
+         (100, 40, dict(causal=False)), (45, 150, dict(causal=False)),
+         (1, 9, dict(causal=False)), (77, 77, dict(causal=True)),
+         (129, 129, dict(causal=True)), (65, 65, dict(causal=True,
+                                                     window=64)),
+         (200, 200, dict(causal=True, window=66)),
+         (260, 260, dict(causal=True, window=127))]
+
+
+def _seen(sq, sk, causal, window=0):
+    q = torch.arange(sq)[:, None]
+    k = torch.arange(sk)[None, :]
+    m = torch.ones(sq, sk, dtype=torch.bool)
+    if causal:
+        m &= k <= q
+    if window > 0:
+        m &= k > q - window
+    return m
+
+
+@pytest.mark.parametrize("sq,sk,kw", WALKS)
+def test_bwd_walks_cover_every_seen_pair(sq, sk, kw):
+    """Every seen (query, key) pair lies in a tile the dK / dV kernel walks
+    for its key tile and the dQ kernel walks for its query block, at both
+    routes' tiles; a live-false block holds no seen pair, a mask-free one
+    no unseen pair the kernel would sum."""
+    causal, window = kw["causal"], kw.get("window", 0)
+    seen = _seen(sq, sk, causal, window)
+    for keys, tile in ((128, 64), (64, 64), (64, 32)):
+        for k0 in range(0, sk, keys):
+            nk = min(keys, sk - k0)
+            lo, hi = fa.bwd_query_range(k0, nk, sq, causal, window, tile)
+            assert lo % tile == 0
+            rows = seen[:, k0:k0 + nk].any(dim=1).nonzero().flatten()
+            if len(rows):
+                assert lo <= int(rows.min()) and int(rows.max()) < hi
+    for tile in (64, 32):
+        for q0 in range(0, sq, 64):
+            rows = min(64, sq - q0)
+            lo, hi = fa.bwd_key_range(q0, rows, sk, causal, window, tile)
+            assert lo % tile == 0
+            cols = seen[q0:q0 + rows].any(dim=0).nonzero().flatten()
+            if len(cols):
+                assert lo <= int(cols.min()) and int(cols.max()) < hi
+            for k0 in range(lo, hi, tile):
+                live, masked = fa.bwd_q_block(k0, tile, q0, rows, sk,
+                                              causal, window)
+                block = seen[q0:q0 + rows, k0:k0 + tile]
+                if not live:
+                    assert not block.any()
+                if not masked:
+                    assert block.shape[1] == tile and block.all()
+    for kw_lo in range(0, sk, 64):
+        w_rows = min(64, sk - kw_lo)
+        for q0 in range(0, sq, 64):
+            nq = min(64, sq - q0)
+            live, masked = fa.bwd_kv_block(q0, nq, kw_lo, w_rows, causal,
+                                           window)
+            block = seen[q0:q0 + nq, kw_lo:kw_lo + w_rows]
+            if not live:
+                assert not block.any()
+            if not masked:
+                assert block.all()
