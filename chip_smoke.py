@@ -43,8 +43,16 @@ Phases:
    KEEPPREF: 31 cells) under waterfill and bisect (AVG's balanced lanes
    run the same plain pass under every backend and launch nothing); the
    31 cells' metrics must be identical across the three and every lane
-   must finish.  Kernel launches are counted per
-   run, from 0 just before it.  A small theta grid on the card must also
+   must finish.  The fused run takes the greedy lanes first; then the
+   card runs waterfill while two worker processes run the fused run's
+   balanced lanes on the card and bisect on the CPU.  Where the time left
+   would not hold a waterfill run of all 31 lanes that ends after the
+   balanced lanes, and the phases after it at their least scales
+   (predicted at the fused run's greedy rate), waterfill and bisect take
+   seed 0's 16 lanes (EASY, MIN, PREF and KEEPPREF; KEEPPREF at 0.4
+   reaches the 256-slot window: both warp tiers), with the whole batch's
+   lane statics; the rule's choice is printed, a cut as CUT.  Kernel launches are counted per run and process, from 0
+   just before the run.  A small theta grid on the card must also
    equal the plain path on the CPU bit for bit.  The tick and waterfill
    kernels are then held to their plain versions on a captured call of
    the run and timed there: single calls (CUDA events) and device time
@@ -110,7 +118,9 @@ Phases:
    backward kernels of RMSNorm and flash attention: (a) each backward
    kernel against its plain version (``rmsnorm_bwd_ref``,
    ``attention_bwd_ref``) in f32 and bf16 -- rmsnorm at 2,048 x 2,048
-   (internvl2's training rows), 996 x 2,560 and d = 2,561; attention at
+   (internvl2's training rows), 996 x 2,560, d = 2,561, 2,048 x 8,192
+   (qwen2-72b's width) and 256 x 32,768 (past the registers: each row
+   walked twice), with its launch plan printed; attention at
    internvl2's training call (4 x 512, 16 / 8 heads of 128, causal),
    gemma3's (head 256, window 1,024), DeepSeek-V2's widths (192 / 128),
    whisper's encoder (4 x 1,500 x 20 x 64, non-causal) and its cross
@@ -218,6 +228,13 @@ Phases:
    ran the theta greedy batch, the scale is cut to
    the largest of 0.5 and 0.25 that fits, and the cut is printed.
 
+Opt-in, ``--phases env,bwd-ab`` (``--ab-csrc`` another tree's kernel
+sources): the backward kernels of this tree against another's in one
+process, device time in turns other / this / this / other and each
+kernel's time a launch; ``--phases
+env,rmsnorm-plans``: device times of hand-made plans of the RMSNorm
+backward at ``RMS_BWD_SHAPES``.
+
 Opt-in, ``--phases env,paper-scale`` (give the call ``--timeout`` a few
 minutes above ``--paper-scale-budget``, 2,700 s by default): knl at scale
 1.0 (41,524 jobs on 9,688 nodes), 1 seed, EASY, MIN, PREF and KEEPPREF
@@ -262,9 +279,10 @@ HASWELL_STEPS = 52_160
 HASWELL_STEP_RATIO = 1.75
 # the registry phase at theta scale 0.1: scan steps of its batches that run
 # the plain pass, and the plain pass's wall per step over the theta fused
-# greedy batch's (PERF.md section 5)
+# greedy batch's (PERF.md section 5; 4.4 on an H100 run at 6.53 ms a greedy
+# step, whose phase at 0.1 took ~230 s and ended the smoke at 1,183.7 s)
 REGISTRY_STEPS = 8_000
-REGISTRY_STEP_RATIO = 3.3
+REGISTRY_STEP_RATIO = 4.4
 # what-if (d) at theta scale 0.1: scan steps of its six runs, and their
 # wall per step over the theta fused greedy batch's (4.2 on H100 runs at
 # 3.84 and 5.34 ms a greedy step); the dense phase's wall in theta fused
@@ -272,6 +290,21 @@ REGISTRY_STEP_RATIO = 3.3
 WHATIF_D_STEPS = 4_320
 WHATIF_D_STEP_RATIO = 4.2
 DENSE_GREEDY_STEPS = 15_000
+# the main phase's waterfill run (D8), beside which run the fused run's
+# balanced lanes (a worker process on the card) and bisect (a worker
+# process on the CPU): the waterfill run's wall per step over the fused
+# greedy step (2.80-3.06 on H100 runs at 4.16-6.57 ms a greedy step, alone
+# or beside the workers: the largest); the balanced lanes' steps and their
+# wall per step over the same (4.01-4.85, alone or in the worker: the
+# least, so that the rule does not count on a longer shadow than it gets);
+# and what the phases after the main one take at their least scales, in
+# fused greedy steps (smokes took ~600 s after the main phase on a host at
+# 5.15 ms a step, ~690 s on one at 4.16 ms, both with the registry at
+# scale 0.1: the wall of those phases follows the host only in part)
+MAIN_WATERFILL_RATIO = 3.1
+MAIN_BALANCED_STEPS = 5_280
+MAIN_BALANCED_RATIO = 4.0
+MAIN_AFTER_STEPS = 120_000
 # the experiment phase's wall and what-if (a)-(c)'s, in theta fused greedy
 # steps (two H100 runs at 6.80-6.88 ms a greedy step took 125-130 s and
 # 56-61 s: ~19,000 and ~8,300 steps)
@@ -809,14 +842,18 @@ class Capture(Patch):
         return self.inner(*args, **kwargs)
 
 
-def run_grid(workloads, scale, seeds, backend, device, **spec_kw):
+def run_grid(workloads, scale, seeds, backend, device, keep=None,
+             **spec_kw):
     """``run_cells`` over a spec of ``workloads`` at ``scale`` (``spec_kw``:
-    strategies, proportions, scenario); returns (todo, metrics, info)."""
+    strategies, proportions, scenario; ``keep``: only these cells, or
+    "seed 0" for seed 0's); returns (todo, metrics, info)."""
     from repro_torch.experiments.backend_torch import run_cells
     from repro_torch.experiments.spec import ExperimentSpec
     spec = ExperimentSpec(workloads=workloads, scale=scale, seeds=seeds,
                           **spec_kw)
-    todo = [(w, c) for w in spec.workloads for c in spec.cells()]
+    todo = [(w, c) for w in spec.workloads for c in spec.cells()
+            if keep is None or (c[2] == 0 if keep == "seed 0" else
+                                c in keep)]
     t0 = time.monotonic()
     metrics, info = run_cells(
         spec, todo, None, {}, options={"device": device,
@@ -905,46 +942,199 @@ def theta_on_both_devices(tag, scale, **spec_kw):
 # differently; AVG's balanced lanes run the same plain pass under every
 # backend and launch nothing, so the fused run alone takes them
 GREEDY_STRATEGIES = ("min", "pref", "keeppref")
+# the lane sets of those runs, largest first: (name, the cells kept or None
+# for all 31, the batch's steps).  Each keeps EASY, MIN, PREF and KEEPPREF
+# and both warp tiers of the two kernels (windows of 128 and 256 slots:
+# KEEPPREF at proportion 0.4 grows to 256).  Seed 0's run ends before the
+# balanced lanes beside it (6,720 steps x MAIN_WATERFILL_RATIO against
+# MAIN_BALANCED_STEPS x MAIN_BALANCED_RATIO), so no smaller set would end
+# the phase sooner
+MAIN_LANE_SETS = (
+    ("every greedy lane", None, 7_200),
+    ("seed 0's lanes", "seed 0", 6_720))
 
 
-def phase_main(report):
+def main_lanes(report, elapsed_s):
+    """The largest of ``MAIN_LANE_SETS`` whose waterfill run (its steps at
+    this card's theta greedy rate times ``MAIN_WATERFILL_RATIO``) ends no
+    later than the fused run's balanced lanes beside it or, where it would,
+    still leaves the phases after the main one at their least scales
+    (``MAIN_AFTER_STEPS``) inside the time limit; the smallest when none
+    does (it ends before the balanced lanes)."""
+    rate = report.get("greedy_s_per_step")
+    if rate is None:
+        return MAIN_LANE_SETS[0]
+    left = 0.95 * TIME_LIMIT_S - elapsed_s - MAIN_AFTER_STEPS * rate
+    room = max(left, MAIN_BALANCED_STEPS * MAIN_BALANCED_RATIO * rate)
+    for lanes in MAIN_LANE_SETS:
+        if lanes[2] * MAIN_WATERFILL_RATIO * rate <= room:
+            return lanes
+    return MAIN_LANE_SETS[-1]
+
+
+class FullStatics(Patch):
+    """Hands every batch the statics of the main phase's whole greedy batch
+    (``lane_statics``): a cut lane set runs its lanes as the whole batch
+    runs them (the bisection bounds, the starting window; C7)."""
+
+    def __init__(self, statics):
+        from repro_torch.sweep import shard
+        super().__init__(shard, "lane_statics")
+        self.statics = statics
+
+    def __call__(self, batch):
+        return self.statics
+
+
+def greedy_statics(device="cuda"):
+    """``lane_statics`` of the main phase's theta greedy batch (31 lanes)
+    on ``device``."""
+    from repro_torch.core import get_strategy
+    from repro_torch.experiments.spec import ExperimentSpec, prepare_workload
+    from repro_torch.sweep.batch import build_lanes, lane_statics
+    spec = ExperimentSpec(workloads=("theta",), scale=1.0, seeds=2,
+                          strategies=GREEDY_STRATEGIES)
+    cl, w, _ = prepare_workload(spec, "theta")
+    lanes = [(get_strategy(st), p, sd) for st, p, sd in spec.cells()]
+    batch, _ = build_lanes(w, cl.nodes, lanes, config=spec.transform,
+                           tick=cl.tick,
+                           backfill_depth=spec.scenario.backfill_depth,
+                           queue_order=spec.scenario.queue_order,
+                           device=device)
+    return lane_statics(batch)
+
+
+def balanced_cells():
+    """The main grid's cells outside the greedy runs: AVG's balanced
+    lanes."""
+    from repro_torch.experiments.spec import ExperimentSpec
+    greedy = set(ExperimentSpec(workloads=("theta",), scale=1.0, seeds=2,
+                                strategies=GREEDY_STRATEGIES).cells())
+    return tuple(c for c in ExperimentSpec(workloads=("theta",), scale=1.0,
+                                           seeds=2).cells()
+                 if c not in greedy)
+
+
+def main_worker(backend, device, keep, cut):
+    """One of the main phase's runs in a worker process, beside the card's
+    waterfill run: the fused run's balanced lanes on the card, or the
+    bisect run on the CPU.  ``keep``: the cells (None: the 31 greedy
+    ones); ``cut``: run them with the whole greedy batch's lane statics.
+    Returns ``(todo, metrics, info, launches)``, the launches this
+    process's wrappers counted from 0 just before the run."""
+    import contextlib
+    import torch
+    from repro_torch.kernels import build
+    torch.set_num_threads(2)
+    statics = (FullStatics(greedy_statics(device)) if cut
+               else contextlib.nullcontext())
+    spec_kw = {} if backend == "fused" else {"strategies": GREEDY_STRATEGIES}
+    with statics:
+        if device == "cuda":
+            torch.cuda.synchronize()
+        build.LAUNCH_COUNTS.clear()  # this run's launches start here
+        todo, metrics, info = run_grid(("theta",), 1.0, 2, backend, device,
+                                       keep=keep, **spec_kw)
+        if device == "cuda":
+            torch.cuda.synchronize()
+    launches = {k: build.LAUNCH_COUNTS[k]
+                for k in ("schedule_tick", "waterfill")}
+    check_cells(todo, metrics, info, f"theta/{backend} on the {device}")
+    return todo, metrics, {k: info[k] for k in ("wall_s", "chunks")}, \
+        launches
+
+
+def phase_main(report, elapsed_s=0.0):
+    import concurrent.futures
+    import contextlib
+    import multiprocessing
     import torch
     from repro_torch.kernels import build, schedule_tick, waterfill
+    t_phase = time.monotonic()
     theta_on_both_devices("main", 0.05)
+
+    def log_run(backend, todo, info, delta, where=""):
+        batches = "; ".join(
+            f"{c['structure']} {c['lanes']} lanes {c['steps']} steps "
+            f"window {c['window']} {c['wall_s']:.2f}s"
+            for c in info["chunks"])
+        log(f"[main] theta scale 1.0 {backend}{where}: {len(todo)} cells in "
+            f"{info['wall_s']:.2f}s ({len(todo) / info['wall_s']:.3f} "
+            f"cells/s); {batches}; launches {delta}")
+
+    def card_run(backend, **spec_kw):
+        torch.cuda.synchronize()
+        build.LAUNCH_COUNTS.clear()  # this path's launches start here
+        todo, metrics, info = run_grid(("theta",), 1.0, 2, backend, "cuda",
+                                       strategies=GREEDY_STRATEGIES,
+                                       **spec_kw)
+        torch.cuda.synchronize()
+        delta = {k: build.LAUNCH_COUNTS[k]
+                 for k in ("schedule_tick", "waterfill")}
+        check_cells(todo, metrics, info, f"theta/{backend}")
+        log_run(backend, todo, info, delta,
+                " (greedy lanes)" if backend == "fused" else "")
+        return todo, metrics, info, delta
 
     runs = {}
     tick_cap = Capture(schedule_tick, "fused_schedule_tick")
     wf_cap = Capture(waterfill, "waterfill")
-    with tick_cap, wf_cap:
-        for backend in ("fused", "waterfill", "bisect"):
-            spec_kw = {} if backend == "fused" else {
-                "strategies": GREEDY_STRATEGIES}
-            torch.cuda.synchronize()
-            build.LAUNCH_COUNTS.clear()  # this path's launches start here
-            todo, metrics, info = run_grid(("theta",), 1.0, 2, backend,
-                                           "cuda", **spec_kw)
-            torch.cuda.synchronize()
-            delta = {k: build.LAUNCH_COUNTS[k]
-                     for k in ("schedule_tick", "waterfill")}
-            check_cells(todo, metrics, info, f"theta/{backend}")
-            runs[backend] = (metrics, info, delta)
-            batches = "; ".join(
-                f"{c['structure']} {c['lanes']} lanes {c['steps']} steps "
-                f"window {c['window']} {c['wall_s']:.2f}s"
-                for c in info["chunks"])
-            log(f"[main] theta scale 1.0 {backend}: {len(todo)} cells in "
-                f"{info['wall_s']:.2f}s ({len(todo) / info['wall_s']:.3f} "
-                f"cells/s); {batches}; launches {delta}")
+    with tick_cap, wf_cap, concurrent.futures.ProcessPoolExecutor(
+            max_workers=2,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        _todo, metrics, info, delta = card_run("fused")
+        runs["fused"] = (metrics, info, delta)
+        rate = report["greedy_s_per_step"] = (
+            next(c["wall_s"] for c in info["chunks"]
+                 if c["structure"] == "greedy") / info["greedy_steps"])
+        at = elapsed_s + time.monotonic() - t_phase
+        name, keep, steps = main_lanes(report, at)
+        end = at + (max(steps * MAIN_WATERFILL_RATIO,
+                        MAIN_BALANCED_STEPS * MAIN_BALANCED_RATIO)
+                    + MAIN_AFTER_STEPS) * rate
+        log(f"[main] time left: {at:.0f}s spent, {rate * 1e3:.2f} ms a "
+            "theta greedy step; the fused run's balanced lanes (a worker "
+            "process on the card) and bisect (a worker process on the CPU) "
+            f"run beside waterfill, which takes {name} with bisect (~{steps} "
+            "steps; with the later phases at their least scales the smoke "
+            f"would end at {end:.0f}s)" + (
+                "" if keep is None else
+                " (CUT from every greedy lane: those runs and the phases "
+                f"after them would not end inside "
+                f"{0.95 * TIME_LIMIT_S:.0f}s; the whole batch's lane "
+                "statics)"))
+        balanced = pool.submit(main_worker, "fused", "cuda",
+                               balanced_cells(), False)
+        bisect = pool.submit(main_worker, "bisect", "cpu", keep,
+                             keep is not None)
+        with (contextlib.nullcontext() if keep is None
+              else FullStatics(greedy_statics())):
+            _todo, metrics, info, delta = card_run(
+                "waterfill", **({} if keep is None else {"keep": keep}))
+        runs["waterfill"] = (metrics, info, delta)
+        todo, metrics, info, delta = balanced.result()
+        log_run("fused", todo, info, delta,
+                " (balanced lanes, a worker process on the card beside the "
+                "waterfill run)")
+        fused, finfo, fdelta = runs["fused"]
+        runs["fused"] = ({**fused, **metrics},
+                         {**finfo, "chunks": finfo["chunks"] + info["chunks"]},
+                         {k: fdelta[k] + delta[k] for k in fdelta})
+        if any(delta.values()):
+            raise AssertionError(f"fused run's balanced lanes launch {delta}")
+        todo, metrics, info, delta = bisect.result()
+        runs["bisect on the CPU"] = (metrics, info, delta)
+        log_run("bisect", todo, info, delta,
+                " on the CPU (a worker process, beside the waterfill run)")
     report["launches"] = {b: runs[b][2] for b in runs}
-    greedy = runs["fused"][1]
-    report["greedy_s_per_step"] = (
-        next(c["wall_s"] for c in greedy["chunks"]
-             if c["structure"] == "greedy") / greedy["greedy_steps"])
     fused, wfill, bisect = (runs[b][0] for b in ("fused", "waterfill",
-                                                 "bisect"))
-    if len(fused) != 41 or len(wfill) != 31 or len(bisect) != 31:
-        raise AssertionError(f"expected 41 / 31 / 31 theta cells, got "
-                             f"{len(fused)} / {len(wfill)} / {len(bisect)}")
+                                                 "bisect on the CPU"))
+    n_kept = 31 if keep is None else len(wfill)
+    if len(fused) != 41 or len(wfill) != n_kept or len(bisect) != n_kept \
+            or n_kept < 4:
+        raise AssertionError(f"expected 41 / 31 / 31 theta cells (or the "
+                             f"cut's), got {len(fused)} / {len(wfill)} / "
+                             f"{len(bisect)}")
     greedy_cells = {k: fused[k] for k in wfill}
     if not (same_metrics(greedy_cells, wfill)
             and same_metrics(greedy_cells, bisect)):
@@ -955,10 +1145,13 @@ def phase_main(report):
     if runs["waterfill"][2]["waterfill"] == 0 or \
             runs["waterfill"][2]["schedule_tick"] != 0:
         raise AssertionError(f"waterfill run launches {runs['waterfill'][2]}")
-    if any(runs["bisect"][2].values()):
-        raise AssertionError(f"bisect run launches {runs['bisect'][2]}")
-    log("[main] per-cell metrics of the 31 greedy cells identical under "
-        "fused / waterfill / bisect")
+    if any(runs["bisect on the CPU"][2].values()):
+        raise AssertionError(f"bisect run launches "
+                             f"{runs['bisect on the CPU'][2]}")
+    log(f"[main] per-cell metrics of the {n_kept} greedy cells identical "
+        "under fused / waterfill on the card and bisect on the CPU; main "
+        f"phase {time.monotonic() - t_phase:.1f}s")
+    report["main_lanes"] = n_kept
     by = {}
     for (_w, (s, prop, _sd)), m in fused.items():
         if prop in (0.0, 1.0):
@@ -2107,7 +2300,7 @@ def phase_encdec(report):
 # they differentiate (the Pallas kernels have no backward: JAX trains
 # through XLA autodiff of plain ops)
 BWD_KERNELS = {
-    "rmsnorm_bwd": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
+    "rmsnorm_bwd": ("src/repro_torch/kernels/csrc/rmsnorm_bwd.cu",
                     "src/repro/kernels/rmsnorm.py:19"),
     "flash_attention_bwd": (
         "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
@@ -2118,11 +2311,16 @@ BWD_KERNELS = {
 # so the error grows with that length as |ref| does)
 BWD_TOL = {"float32": 2e-4, "bfloat16": 5e-2}
 # (a): internvl2's training rows and call, zamba2's prefill rows, the
-# forward's scalar-access width; gemma3's head dim with its window,
-# DeepSeek-V2's key / value widths, whisper's encoder and cross attention
+# forward's scalar-access width, qwen2-72b's width (2,048 rows of 8,192),
+# rows too wide for the registers (the forward's widest f32 rows, walked
+# twice);
+# gemma3's head dim with its window, DeepSeek-V2's key / value widths,
+# whisper's encoder and cross attention
 RMS_BWD_SHAPES = [("internvl2 train rows", dict(rows=2048, d=2048)),
                   ("zamba2 prefill rows", dict(rows=996, d=2560)),
-                  ("odd width", dict(rows=7, d=2561))]
+                  ("odd width", dict(rows=7, d=2561)),
+                  ("qwen2-72b rows", dict(rows=2048, d=8192)),
+                  ("past the registers", dict(rows=256, d=32768))]
 ATTN_BWD_SHAPES = [
     ("internvl2 train", dict(B=4, Sq=512, Sk=512, H=16, Hkv=8, D=128,
                              Dv=128)),
@@ -2282,6 +2480,25 @@ def bwd_plan_text(args):
             f"{p.kv_launches} dK / dV launch"), p
 
 
+def rms_bwd_plan_text(args):
+    """The RMSNorm backward's launch plan for one call's inputs
+    (``rmsnorm.bwd_plan``), as the [train:a] line prints it."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.rmsnorm import bwd_plan
+    x, w, dy = args[:3]
+    d = x.shape[-1]
+    aligned = (x.data_ptr() | dy.data_ptr() | w.data_ptr()) % 16 == 0
+    p = bwd_plan(x.numel() // d, d, x.dtype, w.dtype,
+                 build.sm_count(x.get_device()), aligned)
+    rows = (f"a warp a row, {p.threads // 32} a CTA" if p.row_threads == 32
+            else f"{p.threads} threads a row")
+    return (f"plan {p.vec}-element loads x {p.per_thread} a thread, {rows}, "
+            f"{p.ctas} CTAs in clusters of {p.cluster}, {p.partials} partial "
+            f"rows, {p.smem_bytes} B shared, "
+            + (f"{p.depth} rows deep ({p.held_registers} held registers)"
+               if p.depth else "each row walked twice")), p
+
+
 def bwd_row(kernel, label, args, kw, report, dname):
     """One backward kernel on one call's inputs: held to its plain
     version, then single-call (CUDA events, median of 20) and device (a
@@ -2316,13 +2533,15 @@ def bwd_row(kernel, label, args, kw, report, dname):
          "library_fwd_device_ms": graph_ms(lib_fwd)}
     r["library_bwd_device_ms"] = (r["library_device_ms"]
                                   - r["library_fwd_device_ms"])
-    plan = ""
     if kernel == "flash_attention_bwd":
         if args[2].shape[-1] != args[0].shape[-1]:
             r["value_dim"] = args[2].shape[-1]
         plan, p = bwd_plan_text(args)
         r["plan"] = dict(vars(p))
-        plan = f"; {plan}"
+    else:
+        plan, p = rms_bwd_plan_text(args)
+        r["plan"] = p._asdict()
+    plan = f"; {plan}"
     log(f"[train:a] {kernel} {label} {dname} {r['shape']} {kw}: "
         f"{r['ms']:.4f} ms, device {r['device_ms']:.4f} ms (plain "
         f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms by "
@@ -3927,23 +4146,122 @@ def phase_profile(report):
             f"{e.self_device_time_total / 1e3:10.2f} ms device")
 
 
+def time_rmsnorm_bwd_plans(report):
+    """Device ms (CUDA graph of 20 calls) of hand-made RMSNorm backward
+    plans at ``RMS_BWD_SHAPES`` in bf16 and f32, each held to the plain
+    backward (``--phases env,rmsnorm-plans``: how ``rmsnorm.bwd_plan``'s
+    choices were set): every vectors-a-thread the kernel has that holds
+    the row in at most 512 threads, 1-4 CTAs an SM, clusters of 2, 4 and
+    8, each shaped by ``bwd_plan``'s own helpers (``bwd_row_shape``,
+    ``bwd_grid``)."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels.ref import rmsnorm_bwd_ref
+    gen = torch.Generator().manual_seed(26)
+    sms = build.sm_count(0)
+    out = report.setdefault("rmsnorm_bwd_plans", [])
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        for label, shape in RMS_BWD_SHAPES:
+            args, _kw = bwd_case(gen, "rmsnorm_bwd", shape, dtype)
+            x, w, dy = args
+            rows, d = shape["rows"], shape["d"]
+            want = rmsnorm_bwd_ref(x, w, dy)
+            picked = rn.bwd_plan(rows, d, dtype, w.dtype, sms)
+            vec = picked.vec
+            nv = d // vec
+            times = []
+            for k in rn.BWD_VECTORS[vec]:
+                threads, warp_rows, groups = rn.bwd_row_shape(rows, nv, k)
+                if threads > rn.BWD_MAX_THREADS:
+                    continue
+                for per_sm in (1, 2, 3, 4):
+                    if per_sm * threads > 2048:
+                        continue
+                    for cl in (2, 4, 8):
+                        ctas, cluster = rn.bwd_grid(rows, groups, per_sm, sms,
+                                                    cl)
+                        pl = rn.make_bwd_plan(rows, d, dtype, w.dtype, vec, k,
+                                              threads, warp_rows, ctas,
+                                              cluster)
+
+                        def call(pl=pl):
+                            dx, dw = torch.empty_like(x), torch.empty_like(w)
+                            part = torch.empty((pl.partials, d),
+                                               dtype=torch.float32,
+                                               device=x.device)
+                            build.launch("rmsnorm_bwd", x,
+                                         "repro_rmsnorm_bwd",
+                                         *rn.bwd_kernel_args(
+                                             x, w, dy, dx, dw, part, pl,
+                                             1e-6))
+                            return dx, dw
+                        for n, g, r in zip(("dx", "dscale"), call(), want):
+                            max_rel_err(g, r, BWD_TOL[dname],
+                                        f"plans {label} {dname} {n}")
+                        times.append((graph_ms(call), k, threads, per_sm,
+                                      cluster, ctas, pl == picked))
+            times.sort()
+            out.append({"label": label, "dtype": dname, "times": times})
+            log(f"[rms-plans] {label} {dname} {rows} x {d}: bwd_plan picks "
+                f"{picked.per_thread} x {vec} a thread, {picked.threads} "
+                f"threads, {picked.ctas} CTAs, cluster {picked.cluster}; "
+                "device ms (vectors a thread, threads, CTAs an SM, cluster, "
+                "CTAs): " + "; ".join(
+                    f"{t:.4f} ({k}, {th}, {ps}, {c}, {n}{' *' if mine else ''})"
+                    for t, k, th, ps, c, n, mine in times[:12])
+                + f"; {report['gpu']}")
+            del args, want
+            torch.cuda.empty_cache()
+
+
+def rmsnorm_bwd_per_cta(x, scale, dy, eps=1e-6):
+    """``repro_rmsnorm_bwd`` called as the per-CTA backward's wrapper
+    called it, for an ``--ab-csrc`` tree whose ``rmsnorm.cu`` holds the
+    backward: 2 CTAs an SM each sum their rows' dscale terms into an f32
+    partial row, which a second kernel adds up (the same C parameter
+    kinds, other meanings)."""
+    import torch
+    from repro_torch.kernels.build import dtype_code, launch, sm_count
+    d = x.shape[-1]
+    rows = x.numel() // d
+    dx, dw = torch.empty_like(x), torch.empty_like(scale)
+    parts = min(rows, 2 * sm_count(x.get_device()))
+    partial = torch.empty((parts, d), dtype=torch.float32, device=x.device)
+    launch("rmsnorm_bwd", x, "repro_rmsnorm_bwd", x.data_ptr(),
+           scale.data_ptr(), dy.data_ptr(), dx.data_ptr(), dw.data_ptr(),
+           partial.data_ptr(), rows, d, parts, eps,
+           dtype_code(x.dtype) | dtype_code(scale.dtype) << 1)
+    return dx, dw
+
+
 def phase_bwd_ab(report, csrc):
-    """Opt-in (``--phases env,bwd-ab``): the attention backward of this
-    tree against another tree's (``--ab-csrc``: that tree's
+    """Opt-in (``--phases env,bwd-ab``): the backward kernels of this tree
+    against another tree's (``--ab-csrc``: that tree's
     ``src/repro_torch/kernels/csrc``, say the parent commit's, unpacked
     with ``git archive`` into a directory that .gitignore lists; its
-    library is built beside it), in one process on one card, at
-    ``ATTN_BWD_SHAPES`` in bf16 and f32: device time (a CUDA graph of 20
-    calls) in turns other / this / this / other, both held to
-    ``attention_bwd_ref``, then each kernel's device time a call under
-    torch.profiler."""
+    library is built beside it), in one process on one card: the backward
+    kernels the other tree has, the RMSNorm backward at
+    ``RMS_BWD_SHAPES`` and the attention backward at ``ATTN_BWD_SHAPES``,
+    in bf16 and f32: device time (a CUDA graph of 20 calls) in turns other
+    / this / this / other, both held to the plain backward, then each
+    kernel's device time a launch under torch.profiler (10 eager calls,
+    memsets included).
+    A tree whose RMSNorm backward lives in ``rmsnorm.cu`` is called as its
+    wrapper called it (:func:`rmsnorm_bwd_per_cta`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import build, ref
     from repro_torch.kernels.flash_attention import flash_attention_bwd
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd
     other_dir = pathlib.Path(csrc).resolve()
-    if not (other_dir / "flash_attention_bwd.cu").is_file():
-        raise FileNotFoundError(f"--ab-csrc {csrc}: no flash_attention_bwd.cu")
+    has = {"rmsnorm_bwd": (other_dir / "rmsnorm.cu").is_file(),
+           "flash_attention_bwd": (other_dir /
+                                   "flash_attention_bwd.cu").is_file()}
+    if not any(has.values()):
+        raise FileNotFoundError(f"--ab-csrc {csrc}: no rmsnorm.cu or "
+                                "flash_attention_bwd.cu")
     mine = build.load_library()
     saved = build.CSRC, build.SOURCES, build.HEADERS
     build.CSRC = other_dir
@@ -3959,46 +4277,64 @@ def phase_bwd_ab(report, csrc):
         build.CSRC, build.SOURCES, build.HEADERS = saved
         build._LIB = mine
     libs = {"other": other, "this": mine}
+    per_cta = not (other_dir / "rmsnorm_bwd.cu").is_file()
+    calls = {
+        "rmsnorm_bwd": {"this": lambda a, kw: rmsnorm_bwd(*a),
+                        "other": (lambda a, kw: rmsnorm_bwd_per_cta(*a))
+                        if per_cta else (lambda a, kw: rmsnorm_bwd(*a))},
+        "flash_attention_bwd": dict.fromkeys(
+            libs, lambda a, kw: flash_attention_bwd(*a, **kw))}
+    plains = {"rmsnorm_bwd": lambda a, kw: ref.rmsnorm_bwd_ref(*a),
+              "flash_attention_bwd": lambda a, kw: ref.attention_bwd_ref(
+                  *a, **kw)}
+    names = {"rmsnorm_bwd": ("dx", "dscale"),
+             "flash_attention_bwd": ("dq", "dk", "dv")}
     rows = []
     gen = torch.Generator().manual_seed(25)
-    for dtype in (torch.bfloat16, torch.float32):
-        dname = str(dtype).split(".")[-1]
-        for label, shape in ATTN_BWD_SHAPES:
-            args, kw = bwd_case(gen, "flash_attention_bwd", shape, dtype)
-            want = ref.attention_bwd_ref(*args, **kw)
-            row = {"label": label, "dtype": dname, "device_ms": {},
-                   "by_kernel_ms": {}}
-            for name in ("other", "this", "this", "other"):
-                build._LIB = libs[name]
-                row["device_ms"].setdefault(name, []).append(graph_ms(
-                    lambda: flash_attention_bwd(*args, **kw)))
-            for name, lib in libs.items():
-                build._LIB = lib
-                for n, g, r in zip("qkv", flash_attention_bwd(*args, **kw),
-                                   want):
-                    max_rel_err(g, r, BWD_TOL[dname],
-                                f"bwd-ab {name} {label} {dname} d{n}")
-                with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                    for _ in range(10):
-                        flash_attention_bwd(*args, **kw)
-                    torch.cuda.synchronize()
-                row["by_kernel_ms"][name] = {
-                    e.key.split("<")[0].split("::")[-1]:
-                    e.self_device_time_total / 1e3 / max(e.count, 1)
-                    for e in device_events(prof)}
-            build._LIB = mine
-            t = row["device_ms"]
-            log(f"[bwd-ab] {label} {dname}: device ms other "
-                f"{t['other'][0]:.4f} / this {t['this'][0]:.4f} / this "
-                f"{t['this'][1]:.4f} / other {t['other'][1]:.4f} (this / "
-                f"other {sum(t['this']) / sum(t['other']):.3f}); by kernel "
-                + "; ".join(f"{n}: " + ", ".join(
-                    f"{k} {v:.4f}" for k, v in ks.items())
-                    for n, ks in row["by_kernel_ms"].items())
-                + f"; {report['gpu']}")
-            rows.append(row)
-            del args, want
-            torch.cuda.empty_cache()
+    for kernel, shapes in (("rmsnorm_bwd", RMS_BWD_SHAPES),
+                           ("flash_attention_bwd", ATTN_BWD_SHAPES)):
+        if not has[kernel]:
+            continue
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).split(".")[-1]
+            for label, shape in shapes:
+                args, kw = bwd_case(gen, kernel, shape, dtype)
+                want = plains[kernel](args, kw)
+                row = {"kernel": kernel, "label": label, "dtype": dname,
+                       "device_ms": {}, "by_kernel_ms": {}}
+                for name in ("other", "this", "this", "other"):
+                    build._LIB = libs[name]
+                    fn = calls[kernel][name]
+                    row["device_ms"].setdefault(name, []).append(graph_ms(
+                        lambda: fn(args, kw)))
+                for name, lib in libs.items():
+                    build._LIB = lib
+                    fn = calls[kernel][name]
+                    for n, g, r in zip(names[kernel], fn(args, kw), want):
+                        max_rel_err(g, r, BWD_TOL[dname],
+                                    f"bwd-ab {name} {label} {dname} {n}")
+                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                        for _ in range(10):
+                            fn(args, kw)
+                        torch.cuda.synchronize()
+                    row["by_kernel_ms"][name] = {
+                        e.key.split("<")[0].split("::")[-1]:
+                        e.self_device_time_total / 1e3 / max(e.count, 1)
+                        for e in device_events(prof)}
+                build._LIB = mine
+                t = row["device_ms"]
+                log(f"[bwd-ab] {kernel} {label} {dname}: device ms other "
+                    f"{t['other'][0]:.4f} / this {t['this'][0]:.4f} / this "
+                    f"{t['this'][1]:.4f} / other {t['other'][1]:.4f} (this "
+                    f"/ other {sum(t['this']) / sum(t['other']):.3f}); by "
+                    "kernel (10 eager calls), ms a launch: "
+                    + "; ".join(f"{n}: " + ", ".join(
+                        f"{k} {v:.4f}" for k, v in ks.items())
+                        for n, ks in row["by_kernel_ms"].items())
+                    + f"; {report['gpu']}")
+                rows.append(row)
+                del args, want
+                torch.cuda.empty_cache()
     report["bwd_ab"] = {"other_csrc": str(other_dir), "rows": rows}
 
 
@@ -4011,7 +4347,7 @@ def main(argv=None) -> int:
                          "moe,encdec,train,registry,experiment,whatif,dense,"
                          "scale (the default) "
                          "and the opt-in waterfill, waterfill-plans, "
-                         "profile, paper-scale and bwd-ab")
+                         "rmsnorm-plans, profile, paper-scale and bwd-ab")
     ap.add_argument("--ab-csrc", default=str(
         ROOT / "build" / "parent" / "src" / "repro_torch" / "kernels" /
         "csrc"), metavar="DIR",
@@ -4049,7 +4385,7 @@ def main(argv=None) -> int:
             phase_parity(report)
             phase_llm_parity(report)
         if "main" in phases:
-            phase_main(report)
+            phase_main(report, time.monotonic() - t_start)
             phase_kernels_at_main_shape(report)
         if "serve" in phases:
             phase_serve(report)
@@ -4074,6 +4410,8 @@ def main(argv=None) -> int:
             time_waterfill_shapes(report)
         if "waterfill-plans" in phases:
             time_waterfill_plans(report)
+        if "rmsnorm-plans" in phases:
+            time_rmsnorm_bwd_plans(report)
         if "profile" in phases:
             phase_profile(report)
         if "bwd-ab" in phases:

@@ -299,12 +299,25 @@ def bisect_rounds(lo0: int, hi0: int) -> int:
     return int(math.ceil(math.log2(max(hi0 - lo0, 1)))) + 1
 
 
+def _amdahl_den(n, p):
+    """``1 / S(n)`` of Amdahl's law in float32 (``n`` at least 1)."""
+    return (1.0 - p) + p / torch.clamp(n.to(F32), min=1.0)
+
+
 def speedup_f32(n, p):
     """Amdahl S(n) in float32; divisions are tensor/tensor so CUDA keeps
     IEEE division (a Python-scalar divisor becomes a reciprocal multiply)."""
-    n = torch.clamp(n.to(F32), min=1.0)
-    den = (1.0 - p) + p / n
+    den = _amdahl_den(n, p)
     return torch.ones_like(den) / den
+
+
+def rate_f32(n, p, ref):
+    """``speedup_f32(n, p) / ref`` as XLA computes it for the JAX
+    simulator: its algebraic simplifier turns ``(1 / den) / ref`` into
+    ``1 / (den * ref)``, which otherwise rounds differently in the last
+    bit."""
+    den = _amdahl_den(n, p)
+    return torch.ones_like(den) / (den * ref)
 
 
 def _clip(x, lo, hi):

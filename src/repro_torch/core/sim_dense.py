@@ -38,7 +38,7 @@ import torch
 from repro_torch import resolve_device
 
 from .jobs import DONE, PENDING, QUEUED, RUNNING, Workload
-from .passes import (PassParams, resolve_backend, schedule_tick,
+from .passes import (PassParams, rate_f32, resolve_backend, schedule_tick,
                      speedup_f32, start_policies)
 from .scenario import DEFAULT_BACKFILL_DEPTH
 from .strategies import Strategy, effective_queue_order
@@ -170,7 +170,7 @@ def _simulate_rows(jobs: JobArrays, strategy: Strategy, capacity: int,
         t = times[k]
         # 1. progress running jobs over this tick
         running = state == RUNNING
-        rate = speedup_f32(alloc, sj.pfrac) / ref_time
+        rate = rate_f32(alloc, sj.pfrac, ref_time)
         remaining = torch.where(running, remaining - tick_t * rate,
                                 remaining)
         # 2. completions (quantized to tick end)

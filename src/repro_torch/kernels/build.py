@@ -46,7 +46,7 @@ import torch
 
 CSRC = pathlib.Path(__file__).resolve().with_name("csrc")
 SOURCES = ("schedule_tick.cu", "waterfill.cu", "rmsnorm.cu",
-           "flash_attention.cu", "flash_attention_bwd.cu",
+           "rmsnorm_bwd.cu", "flash_attention.cu", "flash_attention_bwd.cu",
            "flash_attention_bwd_wgmma.cu", "ssd_scan.cu", "bindings.cpp")
 HEADERS = ("kernels.h", "block.cuh", "dtype.cuh", "mma.cuh", "atomics.cuh",
            "attention.cuh", "attention_bwd.cuh", "wgmma.cuh")

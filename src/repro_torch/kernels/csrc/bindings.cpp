@@ -111,7 +111,7 @@ int repro_rmsnorm(const void* x, const void* w, void* out, int rows, int d,
 
 int repro_rmsnorm_bwd(const void* x, const void* w, const void* dy,
                       void* dx, void* dw, void* partial, int rows, int d,
-                      int parts, float eps, int types, void* stream) {
+                      int ctas, float eps, int plan, void* stream) {
   repro::NormBwdArgs a;
   a.x = x;
   a.w = w;
@@ -121,11 +121,16 @@ int repro_rmsnorm_bwd(const void* x, const void* w, const void* dy,
   a.partial = static_cast<float*>(partial);
   a.rows = rows;
   a.d = d;
-  a.parts = parts;
+  a.ctas = ctas;
   a.eps = eps;
-  // bit 0: x's (and dy's) DType, bit 1: w's
-  a.dtype = types & 1;
-  a.wdtype = (types >> 1) & 1;
+  a.dtype = plan & 1;
+  a.wdtype = (plan >> 1) & 1;
+  a.vec = (plan >> 2) & 15;
+  a.k = (plan >> 6) & 63;
+  a.cluster = (plan >> 12) & 15;
+  a.threads = (plan >> 16) & 2047;
+  a.warp_rows = (plan >> 27) & 1;
+  a.depth = (plan >> 28) & 3;
   return static_cast<int>(
       repro::launch_rmsnorm_bwd(a, static_cast<cudaStream_t>(stream)));
 }

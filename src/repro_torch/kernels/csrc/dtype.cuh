@@ -1,5 +1,6 @@
 // Loads and stores of the LLM kernels' activation types, converted to and
-// from f32 (the kernels compute in f32 whatever they read).
+// from f32 (the kernels compute in f32 whatever they read), and the packs
+// of N values that move as one access.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -23,5 +24,11 @@ template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
+
+// N values moved as one access (two 16-byte ones for 8 f32 weights)
+template <typename T, int N>
+struct alignas(sizeof(T) * N < 16 ? sizeof(T) * N : 16) Pack {
+  T v[N];
+};
 
 }  // namespace repro

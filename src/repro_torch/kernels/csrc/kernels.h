@@ -105,9 +105,17 @@ cudaError_t launch_rmsnorm(const NormArgs& args, cudaStream_t stream);
 // RMSNorm's gradient over `rows` contiguous rows of width d, given the
 // output's gradient dy (x's type): dx = r (w dy) - x r^3 mean(x w dy) with
 // r = rsqrt(mean(x^2) + eps), written in x's type; dw = sum over rows of
-// dy x r, in w's type.  `parts` CTAs each take every parts-th row and write
-// their columns' sums to `partial` (f32, parts x d); a second kernel adds
-// the parts up in order, so dw has the same bits on every run.
+// dy x r, in w's type (csrc/rmsnorm_bwd.cu).  The launch plan
+// (kernels/rmsnorm.py::bwd_plan, packed by bwd_pack) bits 0-1: x's and w's
+// DType; 2-5: vec, the elements a load moves; 6-11: k, the vectors of a row
+// a thread takes; 12-15: cluster, the CTAs of a thread block cluster; 16-26:
+// threads a CTA; 27: a warp a row (else the CTA takes one row at a time);
+// 28-29: depth, the rows of x and dy a thread holds in registers (2: the
+// next row loads while one is reduced; 0: the row is walked twice, a CTA a
+// row, one CTA a cluster).  `ctas` CTAs walk the rows; each cluster writes
+// its column sums to a row of `partial` (f32, ctas / cluster x d; unused,
+// and may be null, for one cluster of depth 1 or 2), which a second kernel
+// adds up in a fixed order, so dw has the same bits on every run.
 struct NormBwdArgs {
   const void* x;
   const void* w;
@@ -115,9 +123,9 @@ struct NormBwdArgs {
   void* dx;
   void* dw;
   float* partial;
-  int rows, d, parts;
+  int rows, d, ctas;
   float eps;
-  int dtype, wdtype;
+  int dtype, wdtype, vec, k, cluster, threads, warp_rows, depth;
 };
 cudaError_t launch_rmsnorm_bwd(const NormBwdArgs& args, cudaStream_t stream);
 

@@ -25,34 +25,18 @@
 // shapes (d = 2560 or 5120, 8 to ~1,000 rows) the wrapper's host work is a
 // large part of a call, so the wrapper does little besides the launch.
 //
-// Backward (training; the Pallas kernel has none: JAX differentiates the
-// plain ops).  Also bound by bytes: x, dy and w read, dx written, dw's
-// partial sums written and read once more.  bwd_kernel gives each of
-// `parts` CTAs every parts-th row: a row's two sums (x^2 and x w dy) are
-// reduced over the CTA, then dx is written and dy x r added to the CTA's
-// column sums, kept in shared memory (a thread owns its columns, so they
-// need no synchronisation); each CTA writes its sums to an f32 partial row.
-// dw_kernel adds the parts up, column by column in part order.  Nothing is
-// added with atomics, so dw has the same bits on every run.  The second
-// read of a row (for dx) finds it in L1 / L2.
+// The backward is csrc/rmsnorm_bwd.cu.
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 #include "block.cuh"
 #include "dtype.cuh"
 #include "kernels.h"
-#include "mma.cuh"
 
 namespace repro {
 namespace {
 
 constexpr int kMaxThreads = 512;
-
-// N values moved as one access (two 16-byte ones for 8 f32 weights)
-template <typename T, int N>
-struct alignas(sizeof(T) * N < 16 ? sizeof(T) * N : 16) Pack {
-  T v[N];
-};
 
 // K <= 8: at most 256 threads, and a thread held to 51 registers so that
 // 5 CTAs of 256 threads (8 of 160) share an SM: the ~1,000 rows of 5,120
@@ -156,71 +140,6 @@ cudaError_t launch_typed(const NormArgs& a, cudaStream_t stream) {
   return launch_vec<T, W, kVec>(a, stream);
 }
 
-constexpr int kBwdThreads = 256;
-
-template <typename T, typename W>
-__global__ void __launch_bounds__(kBwdThreads)
-    rmsnorm_bwd_kernel(const T* __restrict__ x, const W* __restrict__ w,
-                       const T* __restrict__ dy, T* __restrict__ dx,
-                       float* __restrict__ partial, int rows, int d,
-                       float eps) {
-  extern __shared__ float col_sum[];   // d: this CTA's sum of dy x r
-  __shared__ float sh[32];
-  const int tid = threadIdx.x;
-  for (int c = tid; c < d; c += blockDim.x) col_sum[c] = 0.f;
-  for (int row = blockIdx.x; row < rows; row += gridDim.x) {
-    const long long off = static_cast<long long>(row) * d;
-    float ss = 0.f, sg = 0.f;
-    for (int c = tid; c < d; c += blockDim.x) {
-      const float xv = to_f32(x[off + c]);
-      ss += xv * xv;
-      sg += xv * (to_f32(w[c]) * to_f32(dy[off + c]));
-    }
-    ss = block_reduce(ss, SumFloatOp(), sh);
-    sg = block_reduce(sg, SumFloatOp(), sh);
-    const float r = rsqrtf(ss / static_cast<float>(d) + eps);
-    const float coef = sg / static_cast<float>(d) * (r * r * r);
-    for (int c = tid; c < d; c += blockDim.x) {
-      const float xv = to_f32(x[off + c]);
-      const float g = to_f32(dy[off + c]);
-      dx[off + c] = from_f32<T>(r * (to_f32(w[c]) * g) - xv * coef);
-      col_sum[c] += g * xv * r;
-    }
-  }
-  float* out = partial + static_cast<long long>(blockIdx.x) * d;
-  for (int c = tid; c < d; c += blockDim.x) out[c] = col_sum[c];
-}
-
-template <typename W>
-__global__ void __launch_bounds__(128)
-    rmsnorm_dw_kernel(const float* __restrict__ partial, W* __restrict__ dw,
-                      int parts, int d) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= d) return;
-  float s = 0.f;
-#pragma unroll 8
-  for (int p = 0; p < parts; ++p) {
-    s += partial[static_cast<long long>(p) * d + c];
-  }
-  dw[c] = from_f32<W>(s);
-}
-
-template <typename T, typename W>
-cudaError_t launch_bwd_typed(const NormBwdArgs& a, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * static_cast<size_t>(a.d);
-  cudaError_t err = allow_smem<rmsnorm_bwd_kernel<T, W>>(smem);
-  if (err != cudaSuccess) return err;
-  rmsnorm_bwd_kernel<T, W><<<a.parts, kBwdThreads, smem, stream>>>(
-      static_cast<const T*>(a.x), static_cast<const W*>(a.w),
-      static_cast<const T*>(a.dy), static_cast<T*>(a.dx), a.partial, a.rows,
-      a.d, a.eps);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  rmsnorm_dw_kernel<W><<<(a.d + 127) / 128, 128, 0, stream>>>(
-      a.partial, static_cast<W*>(a.dw), a.parts, a.d);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 cudaError_t launch_rmsnorm(const NormArgs& a, cudaStream_t stream) {
@@ -242,28 +161,6 @@ cudaError_t launch_rmsnorm(const NormArgs& a, cudaStream_t stream) {
   }
   if (a.dtype == kBF16 && a.wdtype == kBF16) {
     return launch_typed<__nv_bfloat16, __nv_bfloat16>(a, stream);
-  }
-  return cudaErrorInvalidValue;
-}
-
-cudaError_t launch_rmsnorm_bwd(const NormBwdArgs& a, cudaStream_t stream) {
-  if (a.rows <= 0 || a.d <= 0) return cudaSuccess;
-  // the column sums live in shared memory: at most 227 KB
-  if (a.parts <= 0 || a.parts > a.rows || a.partial == nullptr ||
-      static_cast<size_t>(a.d) * sizeof(float) > 227 * 1024) {
-    return cudaErrorInvalidValue;
-  }
-  if (a.dtype == kF32 && a.wdtype == kF32) {
-    return launch_bwd_typed<float, float>(a, stream);
-  }
-  if (a.dtype == kF32 && a.wdtype == kBF16) {
-    return launch_bwd_typed<float, __nv_bfloat16>(a, stream);
-  }
-  if (a.dtype == kBF16 && a.wdtype == kF32) {
-    return launch_bwd_typed<__nv_bfloat16, float>(a, stream);
-  }
-  if (a.dtype == kBF16 && a.wdtype == kBF16) {
-    return launch_bwd_typed<__nv_bfloat16, __nv_bfloat16>(a, stream);
   }
   return cudaErrorInvalidValue;
 }

@@ -1,13 +1,15 @@
-// Host emulation of the CUDA subset that csrc/schedule_tick.cu and
-// csrc/waterfill.cu use, so tests/test_torch_{tick,waterfill}_host.py can
-// run the kernels' own source on a CPU: every CUDA thread is a std::thread,
-// and warps, CTAs and clusters synchronise through std::barrier (C++20).
+// Host emulation of the CUDA subset that csrc/schedule_tick.cu,
+// csrc/waterfill.cu and csrc/rmsnorm_bwd.cu use, so
+// tests/test_torch_{tick,waterfill,rmsnorm}_host.py can run the kernels' own
+// source on a CPU: every CUDA thread of a step is a std::thread, and
+// warps, CTAs and clusters synchronise through std::barrier (C++20).
 // Warp shuffles, votes and reductions exchange values through the warp's
 // array between two barrier phases; a cluster's CTAs run together, and
 // map_shared_rank() points into a sibling CTA's dynamic shared memory.
 // Atomics go through std::atomic_ref.  The grid runs one cluster at a time
 // in blockIdx order, or (emu::config, from the test) every CTA at once,
-// released together.  An acquire load that spins past the launch's time
+// released together (up to emu::kMaxThreadsAtOnce threads a step).  An
+// acquire load that spins past the launch's time
 // limit reads all ones from then on and the launch returns
 // cudaErrorLaunchTimeout, so a wait that can never end fails the test
 // instead of hanging it.  It checks the kernels' logic (indices,
@@ -17,6 +19,7 @@
 #pragma once
 #include <math.h>
 
+#include <algorithm>
 #include <atomic>
 #include <barrier>
 #include <chrono>
@@ -25,7 +28,6 @@
 #include <cmath>
 #include <cstddef>
 #include <cstring>
-#include <latch>
 #include <memory>
 #include <thread>
 #include <vector>
@@ -52,6 +54,11 @@ inline int3 make_int3(int a, int b, int c) { return {a, b, c}; }
 inline int4 make_int4(int a, int b, int c, int d) { return {a, b, c, d}; }
 inline int min(int a, int b) { return a < b ? a : b; }
 inline int max(int a, int b) { return a > b ? a : b; }
+inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
+template <class T>
+T __ldcg(const T* p) {
+  return *p;
+}
 inline int __float_as_int(float f) {
   int i;
   std::memcpy(&i, &f, 4);
@@ -125,6 +132,10 @@ struct Thread {
 };
 inline thread_local Thread cur;
 
+// The most threads a launch "all at once" starts together (a grid of more
+// runs in steps of whole clusters, in blockIdx order): a host makes only so
+// many threads.
+constexpr unsigned kMaxThreadsAtOnce = 8192;
 // Set by the test between launches (others.cpp: repro_emu_config).
 struct Config {
   bool all_at_once = false;   // run every CTA of the grid together
@@ -228,7 +239,7 @@ inline int __reduce_min_sync(unsigned, int v) {
 }
 
 // Runs the grid one cluster at a time (or all at once, emu::config), each
-// CTA thread a std::thread.
+// CTA thread of a step a std::thread.
 template <class... Exp, class... Act>
 cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg,
                                void (*kernel)(Exp...), Act&&... args) {
@@ -245,40 +256,48 @@ cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg,
   emu::deadline = Clock::now() + std::chrono::duration_cast<Clock::duration>(
                                      std::chrono::duration<double>(
                                          emu::config.time_limit_s));
-  const unsigned step = emu::config.all_at_once ? grid : c;
-  for (unsigned first = 0; first < grid; first += step) {
-    std::vector<std::unique_ptr<emu::Cluster>> clusters;
-    std::vector<std::unique_ptr<emu::Block>> blocks;
-    for (unsigned b = 0; b < step; ++b) {
-      if (b % c == 0) {
-        clusters.push_back(std::make_unique<emu::Cluster>());
-        clusters.back()->bar = std::make_unique<std::barrier<>>(c * nt);
-      }
-      auto blk = std::make_unique<emu::Block>();
-      blk->bar = std::make_unique<std::barrier<>>(nt);
-      blk->smem.assign(cfg->dynamicSmemBytes + 16, 0xcd);  // not zeroed
-      for (unsigned w = 0; w < nt / 32; ++w)
-        blk->warps.push_back(std::make_unique<emu::Warp>());
-      clusters.back()->blocks.push_back(blk.get());
-      blocks.push_back(std::move(blk));
+  // all at once: up to kMaxThreadsAtOnce threads' worth of whole clusters
+  // a step, in blockIdx order
+  const unsigned wide = std::max(c, emu::kMaxThreadsAtOnce / nt / c * c);
+  const unsigned most = emu::config.all_at_once ? std::min(grid, wide) : c;
+  std::vector<std::unique_ptr<emu::Cluster>> clusters;
+  std::vector<std::unique_ptr<emu::Block>> blocks;
+  for (unsigned b = 0; b < grid; ++b) {
+    if (b % c == 0) {
+      clusters.push_back(std::make_unique<emu::Cluster>());
+      clusters.back()->bar = std::make_unique<std::barrier<>>(c * nt);
     }
-    std::latch start(static_cast<std::ptrdiff_t>(step) * nt);
-    std::vector<std::thread> threads;
-    for (unsigned b = 0; b < step; ++b)
-      for (unsigned t = 0; t < nt; ++t)
-        threads.emplace_back([&, b, t] {
-          emu::Cluster* cl = clusters[b / c].get();
-          threadIdx = dim3(t);
-          blockIdx = dim3(first + b);
-          blockDim = dim3(nt);
-          gridDim = dim3(grid);
-          emu::cur = {cl->blocks[b % c], cl, b % c,
-                      cl->blocks[b % c]->warps[t / 32].get(),
-                      static_cast<int>(t % 32)};
-          start.arrive_and_wait();  // every thread of the step starts at once
-          kernel(args...);
-        });
-    for (auto& th : threads) th.join();
+    auto blk = std::make_unique<emu::Block>();
+    blk->bar = std::make_unique<std::barrier<>>(nt);
+    blk->smem.assign(cfg->dynamicSmemBytes + 16, 0xcd);  // not zeroed
+    for (unsigned w = 0; w < nt / 32; ++w)
+      blk->warps.push_back(std::make_unique<emu::Warp>());
+    clusters.back()->blocks.push_back(blk.get());
+    blocks.push_back(std::move(blk));
   }
+  // a thread for each CTA thread of a step, reused step after step (a
+  // grid of thousands of CTAs would otherwise start millions of threads)
+  const unsigned pool = most * nt;
+  std::barrier<> gate(static_cast<std::ptrdiff_t>(pool));
+  std::vector<std::thread> threads;
+  for (unsigned s = 0; s < pool; ++s)
+    threads.emplace_back([&, s] {
+      const unsigned t = s % nt;
+      for (unsigned first = 0; first < grid; first += most) {
+        gate.arrive_and_wait();  // every thread of the step starts at once
+        const unsigned b = first + s / nt;
+        if (b >= grid) continue;
+        emu::Cluster* cl = clusters[b / c].get();
+        threadIdx = dim3(t);
+        blockIdx = dim3(b);
+        blockDim = dim3(nt);
+        gridDim = dim3(grid);
+        emu::cur = {cl->blocks[b % c], cl, b % c,
+                    cl->blocks[b % c]->warps[t / 32].get(),
+                    static_cast<int>(t % 32)};
+        kernel(args...);
+      }
+    });
+  for (auto& th : threads) th.join();
   return emu::timed_out ? cudaErrorLaunchTimeout : cudaSuccess;
 }

@@ -1,16 +1,11 @@
-// The LLM kernels' launchers, which bindings.cpp names: refused under the
-// host emulation, which runs the grid kernels alone (each test links one
-// of them and the other's stub: no_schedule_tick.cpp, no_waterfill.cpp).
+// The LLM kernels' launchers, which bindings.cpp names, but RMSNorm's:
+// refused under the host emulation, which runs one kernel's source at a
+// time (each test links it and the others' stubs: no_schedule_tick.cpp,
+// no_waterfill.cpp, no_rmsnorm.cpp, no_rmsnorm_bwd.cpp).
 // repro_emu_config sets how the emulation runs the next launches.
 #include "kernels.h"
 
 namespace repro {
-cudaError_t launch_rmsnorm(const NormArgs&, cudaStream_t) {
-  return cudaErrorNotSupported;
-}
-cudaError_t launch_rmsnorm_bwd(const NormBwdArgs&, cudaStream_t) {
-  return cudaErrorNotSupported;
-}
 cudaError_t launch_flash_attention(const AttnArgs&, int, cudaStream_t) {
   return cudaErrorNotSupported;
 }

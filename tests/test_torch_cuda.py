@@ -531,12 +531,39 @@ def _close_to_max(got, ref, tol, label):
     # forward's scalar accesses), a narrow one, a bf16 weight, one row
     (2048, 2048, torch.float32), (996, 2560, torch.float32),
     (7, 2561, torch.float32), (3, 20, torch.float32),
-    (33, 512, torch.bfloat16), (1, 5120, torch.float32)])
+    (33, 512, torch.bfloat16), (1, 5120, torch.float32),
+    # qwen2-72b's width (512 threads a row) and DeepSeek-V2's (320), rows
+    # fewer than a cluster's CTAs, and past 8,192 (32 values a thread)
+    (600, 8192, torch.float32), (300, 5120, torch.float32),
+    (5, 2048, torch.float32), (3, 8192, torch.bfloat16),
+    (40, 12288, torch.float32)])
 def test_rmsnorm_backward_kernel_matches_plain(cuda_device, dtype, rows, d,
                                                wdtype):
     """dx and dscale within tolerance of ``rmsnorm_bwd_ref``, the same bits
     on a second call (no atomics), and the autograd function's gradients
     are the kernel's."""
+    _check_rmsnorm_backward(cuda_device, dtype, rows, d, wdtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rows,d", [
+    # past the registers (the row walked twice): just past 16,384, and the
+    # widest rows the forward takes, f32 and bf16
+    (torch.float32, 40, 16388), (torch.float32, 300, 32768),
+    (torch.bfloat16, 300, 32768), (torch.bfloat16, 200, 65536),
+    (torch.bfloat16, 3, 65536)])
+def test_rmsnorm_backward_kernel_walks_rows_past_the_registers(
+        cuda_device, dtype, rows, d):
+    """As :func:`test_rmsnorm_backward_kernel_matches_plain`, for rows too
+    wide for a thread's registers."""
+    from repro_torch.kernels.rmsnorm import bwd_plan
+    from repro_torch.kernels.build import sm_count
+    assert bwd_plan(rows, d, dtype, torch.float32,
+                    sm_count(cuda_device.index or 0)).depth == 0
+    _check_rmsnorm_backward(cuda_device, dtype, rows, d, torch.float32)
+
+
+def _check_rmsnorm_backward(cuda_device, dtype, rows, d, wdtype):
     from repro_torch.kernels import build
     from repro_torch.kernels.ref import rmsnorm_bwd_ref
     from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd
@@ -556,6 +583,29 @@ def test_rmsnorm_backward_kernel_matches_plain(cuda_device, dtype, rows, d,
     rmsnorm(xg, wg).backward(dy)
     assert build.LAUNCH_COUNTS["rmsnorm_bwd"] == before + 1
     assert torch.equal(xg.grad, dx) and torch.equal(wg.grad, dw)
+
+
+@pytest.mark.cuda
+def test_rmsnorm_backward_gives_the_same_bits_on_two_streams(cuda_device):
+    """Calls on a side stream and on the default stream, in turns and
+    while the other's may still run, each give the first call's bits (each
+    call its own partial rows, no state kept between launches)."""
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd
+    gen = torch.Generator().manual_seed(17)
+    x = _rand(gen, 1024, 2048, dev=cuda_device, dtype=torch.bfloat16)
+    w = _rand(gen, 2048, dev=cuda_device)
+    dy = _rand(gen, 1024, 2048, dev=cuda_device, dtype=torch.bfloat16)
+    want = rmsnorm_bwd(x, w, dy)
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    outs = []
+    for _ in range(3):
+        with torch.cuda.stream(side):
+            outs.append(rmsnorm_bwd(x, w, dy))
+        outs.append(rmsnorm_bwd(x, w, dy))
+    torch.cuda.synchronize(cuda_device)
+    for got in outs:
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.cuda

@@ -321,11 +321,54 @@ def _load_chip_smoke():
     # an H100 run whose haswell batch at 1.0 took 338.75 s from here and
     # ended the smoke past the limit: it cuts now
     (861.0, 3.763e-3, 0.5),
+    (1000.0, 6.0e-3, 0.25),
     (1100.0, 6.0e-3, 0.25), (0.0, None, 1.0)])
 def test_chip_smoke_cuts_haswell_only_when_it_cannot_fit(elapsed_s, rate,
                                                          scale):
     report = {} if rate is None else {"greedy_s_per_step": rate}
     assert _load_chip_smoke().haswell_scale(report, elapsed_s) == scale
+
+
+@pytest.mark.parametrize("elapsed_s,rate,lanes", [
+    # an H100 smoke at 4.90 ms a greedy step (the fused run's greedy lanes
+    # ended at 94 s): every greedy lane
+    (94.0, 4.90e-3, 31), (300.0, 4.16e-3, 31),
+    # slow hosts (6.80 / 6.88 ms a step; their greedy lanes end near
+    # 120-130 s): every lane, its run ending inside the balanced lanes'
+    # beside it and the phases after at their least scales in the limit
+    (125.0, 6.80e-3, 31), (130.0, 6.88e-3, 31),
+    # later: the whole batch's run would end the smoke past the limit,
+    # seed 0's ends before the balanced lanes
+    (170.0, 6.88e-3, 16), (400.0, 6.88e-3, 16), (600.0, 5.15e-3, 16),
+    (0.0, None, 31)])
+def test_chip_smoke_cuts_the_main_comparisons_only_when_they_cannot_fit(
+        elapsed_s, rate, lanes):
+    """The main phase's waterfill run (and bisect on the CPU beside it)
+    keep every greedy lane or seed 0's: the largest set whose waterfill run
+    ends before the balanced lanes beside it or leaves the phases after it
+    the time left."""
+    report = {} if rate is None else {"greedy_s_per_step": rate}
+    _name, keep, _steps = _load_chip_smoke().main_lanes(report, elapsed_s)
+    assert (31 if keep is None else 16 if keep == "seed 0"
+            else len(keep)) == lanes
+
+
+def test_chip_smoke_main_lane_sets_cover_every_greedy_strategy():
+    """Each cut lane set is cells of the main phase's greedy grid and keeps
+    EASY, MIN, PREF and KEEPPREF (KEEPPREF at 0.4: the 256-slot window)."""
+    from repro_torch.experiments.spec import ExperimentSpec
+    smoke = _load_chip_smoke()
+    cells = ExperimentSpec(workloads=("theta",), scale=1.0, seeds=2,
+                           strategies=smoke.GREEDY_STRATEGIES).cells()
+    assert len(cells) == 31
+    steps = [n for _name, _keep, n in smoke.MAIN_LANE_SETS]
+    assert steps == sorted(steps, reverse=True)
+    for _name, keep, _n in smoke.MAIN_LANE_SETS[1:]:
+        kept = ([c for c in cells if c[2] == 0] if keep == "seed 0"
+                else list(keep))
+        assert set(kept) <= set(cells)
+        assert {c[0] for c in kept} == {"easy", "min", "pref", "keeppref"}
+        assert ("keeppref", 0.4, 0) in kept
 
 
 @pytest.mark.parametrize("rule,elapsed_s,rate,scale", [
@@ -334,6 +377,9 @@ def test_chip_smoke_cuts_haswell_only_when_it_cannot_fit(elapsed_s, rate,
     # a slow host (6.80 ms a greedy step): the registry itself would fit,
     # the phases after it at their least scales would not
     ("registry_scale", 700.0, 6.80e-3, 0.05),
+    # an H100 final-tree smoke at 6.53 ms a greedy step kept 0.1 from about
+    # here (its registry took ~230 s; the smoke ended at 1,183.7 s)
+    ("registry_scale", 480.0, 6.53e-3, 0.05),
     ("registry_scale", 0.0, None, 0.1),
     ("whatif_scale", 600.0, 5.0e-3, 0.1),
     ("whatif_scale", 800.0, 3.84e-3, 0.1),

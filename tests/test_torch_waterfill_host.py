@@ -75,6 +75,8 @@ def wf_lib():
                  "-Wno-unknown-pragmas", "-I", str(HOST), "-I",
                  str(build.CSRC), str(cpp), str(build.CSRC / "bindings.cpp"),
                  str(HOST / "others.cpp"), str(HOST / "no_schedule_tick.cpp"),
+                 str(HOST / "no_rmsnorm.cpp"),
+                 str(HOST / "no_rmsnorm_bwd.cpp"),
                  "-o", str(tmp)],
                 capture_output=True, text=True)
             if done.returncode != 0 and "barrier" in done.stderr:
