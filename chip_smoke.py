@@ -115,40 +115,48 @@ Phases:
    beside SDPA with the call's own ``causal``; rmsnorm at internvl2's
    calls (1,536 x 2,048 and 4 x 2,048) beside ``F.rms_norm``;
 7. train: training through the port's LLM layer on the hand-written
-   backward kernels of RMSNorm and flash attention: (a) each backward
-   kernel against its plain version (``rmsnorm_bwd_ref``,
-   ``attention_bwd_ref``) in f32 and bf16 -- rmsnorm at 2,048 x 2,048
-   (internvl2's training rows), 996 x 2,560, d = 2,561, 2,048 x 8,192
-   (qwen2-72b's width) and 256 x 32,768 (past the registers: each row
-   walked twice), with its launch plan printed; attention at
-   internvl2's training call (4 x 512, 16 / 8 heads of 128, causal),
-   gemma3's (head 256, window 1,024), DeepSeek-V2's widths (192 / 128),
-   whisper's encoder (4 x 1,500 x 20 x 64, non-causal) and its cross
-   attention (448 queries over 1,500 keys) -- within 2e-4 (f32) / 5e-2
-   (bf16) of the largest |ref|, the same bits on a second call; median
-   times (CUDA events, 20 runs), device times (a CUDA graph of 20 calls),
-   the plain backward's time, and the kernel's forward + backward beside
-   ``F.rms_norm``'s / SDPA's through autograd; (b) one f32
-   ``make_train_step`` step of each reduced architecture the card trains
-   (stablelm, gemma3, glm4, qwen2, olmoe, DeepSeek, internvl2 with
-   patches, whisper), the same seeded weights and batch on the card and
-   the CPU: loss within 1e-4, every gradient within 1e-3 of its largest
-   |value|, every updated parameter within 1e-5; ``accum_steps`` 2 the
-   same; a ``compress_grads`` step's loss; remat none / dots / full the
-   same loss and gradient norm on the card; mamba2-1.3b and zamba2-2.7b
-   refused (``NotImplementedError``, ROADMAP §A10e2) before any step;
-   (c) internvl2-2b at full width and depth through
+   backward kernels of RMSNorm, flash attention and the SSD scan: (a) each
+   backward kernel against its plain version (``rmsnorm_bwd_ref``,
+   ``attention_bwd_ref``, ``ssd_bwd_ref``) in f32 and bf16 -- rmsnorm at
+   2,048 x 2,048 (internvl2's training rows), 996 x 2,560, d = 2,561,
+   2,048 x 8,192 (qwen2-72b's width) and 256 x 32,768 (past the
+   registers: each row walked twice), with its launch plan printed;
+   attention at internvl2's training call (4 x 512, 16 / 8 heads of 128,
+   causal), gemma3's (head 256, window 1,024), DeepSeek-V2's widths
+   (192 / 128), whisper's encoder (4 x 1,500 x 20 x 64, non-causal) and
+   its cross attention (448 queries over 1,500 keys); the SSD scan at
+   zamba2-2.7b's training call (4 x 512, 80 heads, P = N = 64), zamba2's
+   serve prefill (1 x 996, ragged against the chunk), mamba2-1.3b's width
+   (4 x 512, 64 heads, N = 128) and a small call from an initial state,
+   on the forward's saved states, with its plan printed -- within 2e-4
+   (f32) / 5e-2 (bf16) of the largest |ref|, the same bits on a second
+   call; median times (CUDA events, 20 runs), device times (a CUDA graph
+   of 20 calls), the plain backward's time, and the kernel's forward +
+   backward beside ``F.rms_norm``'s / SDPA's through autograd (the SSD
+   scan has no library call); (b) one f32 ``make_train_step`` step of
+   each reduced architecture (stablelm, gemma3, glm4, qwen2, olmoe,
+   DeepSeek, internvl2 with patches, whisper, mamba2, zamba2), the same
+   seeded weights and batch on the card and the CPU: loss within 1e-4,
+   every gradient within 1e-3 of its largest |value|, every updated
+   parameter within 1e-5; ``accum_steps`` 2 the same; a
+   ``compress_grads`` step's loss; remat none / dots / full the same loss
+   and gradient norm on the card for olmoe and zamba2, reduced; (c)
+   internvl2-2b at full width and depth through
    ``repro_torch.launch.train.train`` (the code of ``python -m
    repro_torch.launch.train``): 8 steps of 4 x (256 patches + 256 tokens),
    bf16 compute, f32 params, AdamW with the reference's defaults, remat
    ``dots``: every loss and gradient norm finite, every parameter finite
-   and changed, launches a step of rmsnorm, rmsnorm_bwd, flash_attention
-   and flash_attention_bwd (counted from 0 just before the run) equal to
-   what the model's plan gives, and no call to a plain version (each
-   wrapped with a counter); s / step, positions / s, peak memory, and a
-   torch.profiler trace of step 7 (busy share, device time by kind: GEMMs,
-   the two kernels' forward and backward, the optimizer).  Each backward
-   kernel is then timed on (c)'s own call (bf16);
+   and changed, launches a step of rmsnorm, rmsnorm_bwd, flash_attention,
+   flash_attention_bwd, ssd_scan and ssd_scan_bwd (counted from 0 just
+   before the run) equal to what the model's plan gives, and no call to a
+   plain version (each wrapped with a counter); s / step, positions / s,
+   peak memory, and a torch.profiler trace of one step (busy share,
+   device time by kind: GEMMs, the kernels' forward and backward, the
+   optimizer); (c') zamba2-2.7b at full width and depth the same way, 4 x
+   512 tokens, 6 steps (4 where the time left would not hold the phases
+   after it at their least scales; printed as CUT): all six LLM kernels,
+   forward and backward.  Each backward kernel is then timed on (c)'s or
+   (c')'s own call (bf16 and f32);
 8. registry: the rest of the strategy registry through ``run_cells``, on
    theta at scale 0.1 (255 jobs on 4,392 nodes, 1 seed, proportions 0.2 /
    0.6 / 1.0): SJF with MIN, KEEPPREF, PREF_COMMON_POOL and
@@ -256,6 +264,7 @@ import argparse
 import json
 import math
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -280,16 +289,18 @@ HASWELL_STEP_RATIO = 1.75
 # the registry phase at theta scale 0.1: scan steps of its batches that run
 # the plain pass, and the plain pass's wall per step over the theta fused
 # greedy batch's (PERF.md section 5; 4.4 on an H100 run at 6.53 ms a greedy
-# step, whose phase at 0.1 took ~230 s and ended the smoke at 1,183.7 s)
+# step, whose phase at 0.1 took ~230 s and ended the smoke at 1,183.7 s;
+# 4.72 on one at 5.72 ms, ~216 s, the smoke ended at 1,161.2 s)
 REGISTRY_STEPS = 8_000
-REGISTRY_STEP_RATIO = 4.4
+REGISTRY_STEP_RATIO = 4.8
 # what-if (d) at theta scale 0.1: scan steps of its six runs, and their
 # wall per step over the theta fused greedy batch's (4.2 on H100 runs at
-# 3.84 and 5.34 ms a greedy step); the dense phase's wall in theta fused
-# greedy steps (13,570-15,000 on the same runs; PERF.md section 5)
+# 3.84 and 5.34 ms a greedy step, 4.65 on one at 5.72 ms); the dense
+# phase's wall in theta fused greedy steps (13,570-15,000 on the same
+# runs, 17,552 on the 5.72 ms one; PERF.md section 5)
 WHATIF_D_STEPS = 4_320
-WHATIF_D_STEP_RATIO = 4.2
-DENSE_GREEDY_STEPS = 15_000
+WHATIF_D_STEP_RATIO = 4.8
+DENSE_GREEDY_STEPS = 17_600
 # the main phase's waterfill run (D8), beside which run the fused run's
 # balanced lanes (a worker process on the card) and bisect (a worker
 # process on the CPU): the waterfill run's wall per step over the fused
@@ -2305,7 +2316,13 @@ BWD_KERNELS = {
     "flash_attention_bwd": (
         "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "src/repro/kernels/flash_attention.py:36"),
+    "ssd_scan_bwd": ("src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+                     "src/repro/kernels/ssd_scan.py:37"),
 }
+# the names of each backward kernel's outputs, in its wrapper's order
+BWD_OUTPUTS = {"rmsnorm_bwd": ("dx", "dscale"),
+               "flash_attention_bwd": ("dq", "dk", "dv"),
+               "ssd_scan_bwd": ("dx", "ddt", "da", "db", "dc", "dinit")}
 # a backward output against its plain version: max |err| <= tol x the
 # largest |ref| of that output (its sums run over rows, keys or queries,
 # so the error grows with that length as |ref| does)
@@ -2315,7 +2332,9 @@ BWD_TOL = {"float32": 2e-4, "bfloat16": 5e-2}
 # rows too wide for the registers (the forward's widest f32 rows, walked
 # twice);
 # gemma3's head dim with its window, DeepSeek-V2's key / value widths,
-# whisper's encoder and cross attention
+# whisper's encoder and cross attention;
+# zamba2-2.7b's training call, its serve prefill (ragged against the
+# chunk), mamba2-1.3b's width (N = 128), a small call from a state
 RMS_BWD_SHAPES = [("internvl2 train rows", dict(rows=2048, d=2048)),
                   ("zamba2 prefill rows", dict(rows=996, d=2560)),
                   ("odd width", dict(rows=7, d=2561)),
@@ -2333,18 +2352,30 @@ ATTN_BWD_SHAPES = [
     ("whisper cross", dict(B=4, Sq=448, Sk=1500, H=20, Hkv=20, D=64, Dv=64,
                            causal=False)),
 ]
-# (b): every architecture the card trains, reduced; Mamba-2's wait (A10e2)
+SSD_BWD_SHAPES = [
+    ("zamba2 train call", dict(B=4, S=512, H=80, P=64, N=64)),
+    ("zamba2 serve prefill", dict(B=1, S=996, H=80, P=64, N=64)),
+    ("mamba2 train call", dict(B=4, S=512, H=64, P=64, N=128)),
+    ("initial state", dict(B=2, S=300, H=6, P=64, N=64, init=True)),
+]
+# (b): every registered architecture, reduced; the remat modes on olmoe
+# (MoE blocks) and zamba2 (Mamba-2 blocks and the shared attention block)
 TRAIN_ARCHS = ("stablelm-1.6b", "gemma3-4b", "glm4-9b", "qwen2-72b",
                "olmoe-1b-7b", "deepseek-v2-236b", "internvl2-2b",
-               "whisper-large-v3")
-TRAIN_REFUSED = ("mamba2-1.3b", "zamba2-2.7b")
-# (c): internvl2-2b at full width and depth, bf16 compute, f32 params,
-# AdamW with the reference's defaults, remat "dots" (TrainConfig's
-# defaults): 8 steps of 4 x (256 patches + 256 tokens)
-TRAIN_FULL = dict(arch="internvl2-2b", steps=8, batch=4, seq=512,
-                  profile_step=7)
-TRAIN_PLAIN = ("rmsnorm_ref", "attention_ref", "rmsnorm_bwd_ref",
-               "attention_bwd_ref")
+               "whisper-large-v3", "mamba2-1.3b", "zamba2-2.7b")
+TRAIN_REMAT = ("olmoe-1b-7b", "zamba2-2.7b")
+# (c) and (c'): internvl2-2b and zamba2-2.7b at full width and depth,
+# bf16 compute, f32 params, AdamW with the reference's defaults, remat
+# "dots" (TrainConfig's defaults): 8 steps of 4 x (256 patches + 256
+# tokens), 6 of 4 x 512 tokens (4, ``least_steps``, where the time left
+# would not hold the phases after the train phase at their least scales
+# with 6 at ``s_per_step``: 1.09-1.44 s a step on H100 runs, PERF.md
+# section 5); the last step is profiled
+TRAIN_FULL = dict(tag="c", arch="internvl2-2b", steps=8, batch=4, seq=512)
+TRAIN_ZAMBA2 = dict(tag="c'", arch="zamba2-2.7b", steps=6, least_steps=4,
+                    batch=4, seq=512, s_per_step=1.5)
+TRAIN_PLAIN = ("rmsnorm_ref", "attention_ref", "ssd_ref", "rmsnorm_bwd_ref",
+               "attention_bwd_ref", "ssd_bwd_ref")
 
 
 def max_rel_err(got, ref, tol, label):
@@ -2362,13 +2393,35 @@ def max_rel_err(got, ref, tol, label):
 
 def bwd_case(gen, kernel, shape, dtype):
     """Seeded inputs of a backward kernel on the card, the forward's
-    output and row log-sum-exp (attention) from the kernel."""
+    output and row log-sum-exp (attention) or its saved states (the SSD
+    scan: the forward kernels' scratch at the backward's chunk) from the
+    kernel."""
     import torch
     from repro_torch.kernels.flash_attention import flash_attention_with_lse
+    from repro_torch.kernels.ssd_scan import ssd_scan_with_states
 
     def rn(*s, dt=dtype):
         return torch.randn(s, generator=gen).to(DEVICE, dt)
 
+    if kernel == "ssd_scan_bwd":   # made on the card: ~10 M values a row
+        dgen = torch.Generator(DEVICE).manual_seed(
+            int(torch.randint(2 ** 31, (1,), generator=gen)))
+
+        def rd(*s, lo=None, hi=None, dt=dtype):
+            t = (torch.randn(s, generator=dgen, device=DEVICE) if lo is None
+                 else lo + (hi - lo) * torch.rand(s, generator=dgen,
+                                                  device=DEVICE))
+            return t.to(dt)
+
+        b, s, h, p, n = (shape[k] for k in ("B", "S", "H", "P", "N"))
+        f32 = torch.float32
+        ins = (rd(b, s, h, p), rd(b, s, h, lo=0.01, hi=0.5),
+               rd(h, lo=0.5, hi=2.0, dt=f32), rd(b, s, n), rd(b, s, n))
+        kw = {"initial_state": rd(b, h, p, n, dt=f32)} if shape.get(
+            "init") else {}
+        states = ssd_scan_with_states(*ins, **kw)[2]
+        return ins + (rd(b, s, h, p, dt=f32), rd(b, h, p, n, dt=f32),
+                      states), kw
     if kernel == "rmsnorm_bwd":
         r, d = shape["rows"], shape["d"]
         return (rn(r, d), rn(d, dt=torch.float32), rn(r, d)), {}
@@ -2386,8 +2439,12 @@ def bwd_work(kernel, args, kw):
     (~8 flops an element, f32 CUDA cores); attention computes, per visible
     (query, key) pair, S again (2 D), dP (2 Dv), dV (2 Dv), dQ (2 D) and
     dK (2 D) flops, reads q, k, v, o, dO and lse once and writes dq, dk,
-    dv once, at the route's rate (bf16 tensor cores, or split TF32)."""
+    dv once, at the route's rate (bf16 tensor cores, or split TF32); the
+    SSD scan as :func:`ssd_bwd_work` computes it."""
     import torch
+    if kernel == "ssd_scan_bwd":
+        flops, nbytes = ssd_bwd_work(args, kw)
+        return (flops, nbytes) + ssd_rate(args[0])
     if kernel == "rmsnorm_bwd":
         x, w = args[:2]
         return (8.0 * x.numel(),
@@ -2410,6 +2467,32 @@ def bwd_work(kernel, args, kw):
     return 2.0 * (3 * d + 2 * dv) * pairs, nbytes, rate, name
 
 
+def ssd_bwd_work(args, kw):
+    """(flops, bytes) the SSD scan's gradient needs on one call's inputs (x,
+    dt, a, b, c, dy, dstate, the saved states): per (batch, chunk) C B^T
+    again and the head-summed D's products with B and C over the lower
+    triangle; per head dy x^T and W^T dy over it, and G, dS B, x^T dS and
+    before^T dy over the chunk's steps; the inputs, the saved states and
+    dy read once, the gradients written once (at the backward's chunk)."""
+    from repro_torch.kernels.ssd_scan import bwd_plan
+    x, dt, a, b, c, dy, dstate, states = args
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    chunk = bwd_plan(bsz, s, h, p, n, kw.get("chunk", 128)).chunk
+    tri = sum(lc * (lc + 1) // 2 for lc in
+              (min(chunk, s - t0) for t0 in range(0, s, chunk)))
+    macs = bsz * (3 * tri * n + h * (2 * tri * p + 4 * s * p * n))
+    es = x.element_size()
+    init = kw.get("initial_state")
+    nbytes = (2 * es * (x.numel() + dt.numel() + b.numel() + c.numel())
+              + 4 * (dy.numel() + states.numel() + 2 * a.numel()))
+    if dstate is not None:
+        nbytes += 4 * dstate.numel()
+    if init is not None:
+        nbytes += 2 * 4 * init.numel()
+    return 2.0 * macs, nbytes
+
+
 def bwd_fns(kernel, args, kw):
     """(kernel backward, plain backward, kernel forward + backward through
     autograd, library forward + backward through autograd, the library's
@@ -2417,13 +2500,23 @@ def bwd_fns(kernel, args, kw):
     call's inputs; the third and fourth return the inputs' gradients.  The
     library's attention is SDPA with the call's own mask (``is_causal``, or
     with a window a boolean ``attn_mask`` built here, outside the timed
-    call) and value width."""
+    call) and value width.  The SSD scan has no library call to set its
+    forward + backward beside: the last three are None."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_bwd)
     from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd
+    from repro_torch.kernels.ssd_scan import bwd_plan, ssd_scan_bwd
+    if kernel == "ssd_scan_bwd":
+        x, b = args[0], args[3]
+        chunk = bwd_plan(*x.shape, b.shape[-1]).chunk
+        init = kw.get("initial_state")
+        return ((lambda: ssd_scan_bwd(*args, **kw)),
+                (lambda: ref.ssd_bwd_ref(*args[:7], chunk=chunk,
+                                         initial_state=init)),
+                None, None, None)
     if kernel == "rmsnorm_bwd":
         x, w, dy = args[:3]
         ins = x.detach().requires_grad_(), w.detach().requires_grad_()
@@ -2499,6 +2592,42 @@ def rms_bwd_plan_text(args):
                if p.depth else "each row walked twice")), p
 
 
+def ssd_bwd_plan_text(args):
+    """The SSD backward's launch plan for one call's inputs
+    (``ssd_scan.bwd_plan``), as the [train:a] line prints it."""
+    from repro_torch.kernels.ssd_scan import bwd_plan
+    x, b, states = args[0], args[3], args[7]
+    p = bwd_plan(*x.shape, b.shape[-1])
+    return (f"plan chunk {p.chunk} ({p.n_chunks} chunks), {p.groups} head "
+            f"groups a chunk (<= {p.heads_per_cta} heads a CTA), "
+            f"{p.scan_ctas} chunk-scan CTAs of {p.smem_bytes} B shared, "
+            f"{p.pass_ctas} state-pass CTAs, scratch "
+            f"{4 * p.scratch_floats} B, saved states "
+            f"{4 * states.numel()} B"), p
+
+
+def ssd_forward_check(args, kw, label, dname):
+    """The training forward on an SSD backward call's inputs: y and the
+    final state of :func:`ssd_scan_with_states` (the forward kernels at
+    the backward's chunk, which serving never runs) held to ``ssd_ref`` at
+    that chunk within ``LLM_TOL``, and its scratch equal, bit for bit, to
+    the saved states the backward was given.  Returns (chunk, max |err|)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import bwd_plan, ssd_scan_with_states
+    x, b, init = args[0], args[3], kw.get("initial_state")
+    chunk = bwd_plan(*x.shape, b.shape[-1], kw.get("chunk", 128)).chunk
+    tol = LLM_TOL[dname]["ssd_scan"]
+    y, state, states = ssd_scan_with_states(*args[:5], **kw)
+    want = ref.ssd_ref(*args[:5], chunk=chunk, initial_state=init)
+    err = max(close_err(g, w, tol, f"ssd_scan at chunk {chunk} {label} "
+                        f"{dname} {n}")
+              for n, g, w in zip(("y", "state"), (y, state), want))
+    if not identical(states, args[7]):
+        raise AssertionError(f"ssd_scan at chunk {chunk} {label} {dname}: "
+                             "its scratch differs from the saved states")
+    return chunk, err
+
+
 def bwd_row(kernel, label, args, kw, report, dname):
     """One backward kernel on one call's inputs: held to its plain
     version, then single-call (CUDA events, median of 20) and device (a
@@ -2506,56 +2635,74 @@ def bwd_row(kernel, label, args, kw, report, dname):
     and the kernel's forward + backward against the library's through
     autograd, both as single-call and as device times; the library's
     backward alone as its forward + backward less its forward (device
-    times)."""
+    times).  The SSD scan has no library call: those times are None."""
     kern, plain, both, lib, lib_fwd = bwd_fns(kernel, args, kw)
     got, ref = kern(), plain()
-    names = ("dx", "dscale") if kernel == "rmsnorm_bwd" else ("dq", "dk",
-                                                              "dv")
     errs = [max_rel_err(g, r, BWD_TOL[dname], f"{kernel} {label} {dname} "
-                        f"{n}") for n, g, r in zip(names, got, ref)]
+                        f"{n}") for n, g, r in zip(BWD_OUTPUTS[kernel], got,
+                                                   ref) if g is not None]
     err, rel = max(e for e, _ in errs), max(r for _, r in errs)
     again = kern()
-    if not all(identical(a, b) for a, b in zip(got, again)):
+    if not all(a is b or identical(a, b) for a, b in zip(got, again)):
         raise AssertionError(f"{kernel} {label} {dname}: a second call "
                              "gave other bits")
     flops, nbytes, rate, rate_name = bwd_work(kernel, args, kw)
     b_bytes, b_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / rate * 1e3
     r = {"label": label, "dtype": dname, "shape": list(args[0].shape),
-         "kwargs": kw, "max_abs_err": err, "max_rel_err": rel,
+         "kwargs": {k: v for k, v in kw.items() if not hasattr(v, "shape")},
+         "max_abs_err": err, "max_rel_err": rel,
          "ms": cuda_median_ms(kern), "device_ms": graph_ms(kern),
          "plain_ms": cuda_median_ms(plain),
          "bound_ms": max(b_bytes, b_ops),
          "bound_by": "bytes" if b_bytes >= b_ops else "operations",
-         "bound_rate": rate_name, "fwd_bwd_ms": cuda_median_ms(both),
-         "fwd_bwd_device_ms": graph_ms(both),
-         "library_ms": cuda_median_ms(lib),
-         "library_device_ms": graph_ms(lib),
-         "library_fwd_device_ms": graph_ms(lib_fwd)}
-    r["library_bwd_device_ms"] = (r["library_device_ms"]
-                                  - r["library_fwd_device_ms"])
+         "bound_rate": rate_name, "fwd_bwd_ms": None,
+         "fwd_bwd_device_ms": None, "library_ms": None,
+         "library_device_ms": None, "library_fwd_device_ms": None,
+         "library_bwd_device_ms": None}
+    if lib is None:
+        lib_text = "no library call"
+    else:
+        r.update(fwd_bwd_ms=cuda_median_ms(both),
+                 fwd_bwd_device_ms=graph_ms(both),
+                 library_ms=cuda_median_ms(lib),
+                 library_device_ms=graph_ms(lib),
+                 library_fwd_device_ms=graph_ms(lib_fwd))
+        r["library_bwd_device_ms"] = (r["library_device_ms"]
+                                      - r["library_fwd_device_ms"])
+        lib_text = (
+            f"forward + backward {r['fwd_bwd_ms']:.4f} ms, device "
+            f"{r['fwd_bwd_device_ms']:.4f} ms; "
+            f"library {r['library_ms']:.4f} ms, device "
+            f"{r['library_device_ms']:.4f} ms (library / kernels "
+            f"{r['library_device_ms'] / r['fwd_bwd_device_ms']:.3f} in "
+            f"device time); backward alone, device: kernels "
+            f"{r['device_ms']:.4f} ms, library "
+            f"{r['library_bwd_device_ms']:.4f} ms (its forward "
+            f"{r['library_fwd_device_ms']:.4f} ms; library / kernels "
+            f"{r['library_bwd_device_ms'] / r['device_ms']:.3f})")
     if kernel == "flash_attention_bwd":
         if args[2].shape[-1] != args[0].shape[-1]:
             r["value_dim"] = args[2].shape[-1]
         plan, p = bwd_plan_text(args)
         r["plan"] = dict(vars(p))
+    elif kernel == "ssd_scan_bwd":
+        plan, p = ssd_bwd_plan_text(args)
+        r["plan"] = dict(vars(p))
+        chunk, r["forward_max_abs_err"] = ssd_forward_check(args, kw, label,
+                                                            dname)
+        plan += (f"; the forward at chunk {chunk} == ssd_ref at it, max "
+                 f"|err| {r['forward_max_abs_err']:.3g} <= tol "
+                 f"{LLM_TOL[dname]['ssd_scan']}, its scratch == the saved "
+                 "states")
     else:
         plan, p = rms_bwd_plan_text(args)
         r["plan"] = p._asdict()
-    plan = f"; {plan}"
-    log(f"[train:a] {kernel} {label} {dname} {r['shape']} {kw}: "
+    log(f"[train:a] {kernel} {label} {dname} {r['shape']} {r['kwargs']}: "
         f"{r['ms']:.4f} ms, device {r['device_ms']:.4f} ms (plain "
         f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms by "
-        f"{r['bound_by']}, {rate_name}); forward + backward "
-        f"{r['fwd_bwd_ms']:.4f} ms, device {r['fwd_bwd_device_ms']:.4f} "
-        f"ms; library {r['library_ms']:.4f} ms, device "
-        f"{r['library_device_ms']:.4f} ms (library / kernels "
-        f"{r['library_device_ms'] / r['fwd_bwd_device_ms']:.3f} in device "
-        f"time); backward alone, device: kernels {r['device_ms']:.4f} ms, "
-        f"library {r['library_bwd_device_ms']:.4f} ms (its forward "
-        f"{r['library_fwd_device_ms']:.4f} ms; library / kernels "
-        f"{r['library_bwd_device_ms'] / r['device_ms']:.3f}); max |err| "
-        f"{err:.3g}, {rel:.3g} of max |ref| <= {BWD_TOL[dname]}; the same "
-        f"bits twice{plan}; {report['gpu']}")
+        f"{r['bound_by']}, {rate_name}); {lib_text}; max |err| {err:.3g}, "
+        f"{rel:.3g} of max |ref| <= {BWD_TOL[dname]}; the same bits twice; "
+        f"{plan}; {report['gpu']}")
     return r
 
 
@@ -2717,30 +2864,66 @@ def check_compression(out, tol_grad=1e-3):
     return flips, total, worst
 
 
+# the kernels a block of each kind launches forward: (RMSNorms, attention
+# calls, SSD scans); zamba2's "shared" block and a "moe" block are
+# attention blocks
+BLOCK_LAUNCHES = {"attn": (2, 1, 0), "moe": (2, 1, 0), "shared": (2, 1, 0),
+                  "mamba": (2, 0, 1)}
+TRAIN_KERNELS = ("rmsnorm", "rmsnorm_bwd", "flash_attention",
+                 "flash_attention_bwd", "ssd_scan", "ssd_scan_bwd")
+
+
 def expected_train_launches(cfg, remat):
-    """The launches of one train step of an ``attn``-block config that the
-    model's plan gives: each block's two RMSNorms and its attention run
-    forward once, and again under remat's recompute, and backward once;
-    the final norm runs forward and backward once."""
-    layers = sum(seg.count for seg in cfg_plan(cfg))
+    """The launches of one train step that the model's plan gives: each
+    block's RMSNorms (an attention block's two; a Mamba-2 block's norm and
+    its gated output norm), attention and SSD scan run forward once, and
+    again under remat's recompute, and backward once; the final norm runs
+    forward and backward once."""
+    norms = attn = ssd = 0
+    for seg in cfg_plan(cfg):
+        kn, ka, ks = BLOCK_LAUNCHES[seg.kind]
+        norms, attn, ssd = (norms + kn * seg.count, attn + ka * seg.count,
+                            ssd + ks * seg.count)
     fwd = 1 if remat == "none" else 2
-    return {"rmsnorm": 2 * layers * fwd + 1, "rmsnorm_bwd": 2 * layers + 1,
-            "flash_attention": layers * fwd, "flash_attention_bwd": layers}
+    return {"rmsnorm": norms * fwd + 1, "rmsnorm_bwd": norms + 1,
+            "flash_attention": attn * fwd, "flash_attention_bwd": attn,
+            "ssd_scan": ssd * fwd, "ssd_scan_bwd": ssd}
 
 
 def cfg_plan(cfg):
     from repro_torch.models.transformer import decoder_plan
     plan = decoder_plan(cfg)
-    if any(seg.kind != "attn" for seg in plan) or cfg.norm != "rmsnorm":
-        raise ValueError(f"{cfg.name}: the launch plan counts attn blocks "
-                         "with RMSNorm only")
+    if (any(seg.kind not in BLOCK_LAUNCHES for seg in plan)
+            or cfg.norm != "rmsnorm"):
+        raise ValueError(f"{cfg.name}: the launch plan counts attn, moe, "
+                         "shared and mamba blocks with RMSNorm only")
     return plan
 
 
+def by_kernel_ms(fn, calls: int = 10):
+    """Device ms a launch of each kernel ``fn`` runs, from ``calls`` eager
+    calls under torch.profiler (largest first)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in device_events(prof):
+        name = re.search(r"\b(\w+_kernel)\b", e.key)
+        out[name.group(1) if name else e.key] = (
+            e.self_device_time_total / 1e3 / max(e.count, 1))
+    return out
+
+
 def device_split(prof):
-    """Device ms of a profiled step by kind: the GEMMs, the two LLM
-    kernels' forward and backward, the optimizer's foreach kernels, the
-    rest."""
+    """Device ms of a profiled step by kind: the GEMMs, the LLM kernels'
+    forward and backward, the optimizer's foreach kernels, the rest (the
+    first kind whose pattern a kernel's name holds: the SSD backward's
+    names hold the forward's)."""
     groups = {"gemm": ("gemm", "xmma", "cutlass", "nvjet", "cublas"),
               "rmsnorm forward": ("rmsnorm_kernel",),
               "rmsnorm backward": ("rmsnorm_bwd_kernel",
@@ -2749,6 +2932,9 @@ def device_split(prof):
                                     "combine_kernel"),
               "attention backward": ("dkdv_", "dq_kernel", "dq_wg_kernel",
                                      "delta_kernel"),
+              "ssd backward": ("ssd_dstate_kernel", "ssd_bwd_pass_kernel",
+                               "ssd_scan_bwd_kernel", "ssd_bwd_sum_kernel"),
+              "ssd forward": ("state_kernel", "pass_kernel", "scan_kernel"),
               "optimizer": ("multi_tensor_apply", "foreach")}
     out = dict.fromkeys(list(groups) + ["other"], 0.0)
     for e in device_events(prof):
@@ -2771,11 +2957,32 @@ class Counted(Patch):
         return self.inner(*args, **kwargs)
 
 
-def train_full(report):
-    """(c): internvl2-2b at full width and depth through
+def train_steps(report, elapsed_s, spec):
+    """``spec``'s steps, or its ``least_steps`` where the phases after the
+    train phase at their least scales (registry and what-if (d) at 0.05,
+    experiment, what-if (a)-(c), dense, haswell at 0.25), predicted at this
+    card's theta greedy rate, would not end inside the time limit after
+    ``steps`` steps at ``s_per_step``."""
+    rate = report.get("greedy_s_per_step")
+    least = spec.get("least_steps", spec["steps"])
+    if rate is None:
+        return spec["steps"], False
+    after = (0.5 * REGISTRY_STEPS * REGISTRY_STEP_RATIO + EXPERIMENT_STEPS
+             + WHATIF_ABC_STEPS + 0.5 * WHATIF_D_STEPS * WHATIF_D_STEP_RATIO
+             + DENSE_GREEDY_STEPS + 0.25 * HASWELL_STEPS * HASWELL_STEP_RATIO)
+    left = 0.95 * TIME_LIMIT_S - elapsed_s - after * rate
+    if spec["steps"] * spec.get("s_per_step", 0.0) <= left:
+        return spec["steps"], False
+    return least, least < spec["steps"]
+
+
+def train_full(report, spec, steps):
+    """(c) / (c'): ``spec["arch"]`` at full width and depth through
     ``launch.train.train`` (the code path of ``python -m
-    repro_torch.launch.train``), launches counted from 0 just before it and
-    the plain versions wrapped with counters that must stay at 0."""
+    repro_torch.launch.train``) for ``steps`` steps, the last profiled,
+    launches counted from 0 just before it and the plain versions wrapped
+    with counters that must stay at 0.  Returns (the run's numbers, each
+    backward kernel's largest call's inputs by label)."""
     import contextlib
     import io
     import torch
@@ -2785,25 +2992,29 @@ def train_full(report):
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ref
     from repro_torch.kernels import rmsnorm as RN
+    from repro_torch.kernels import ssd_scan as SS
     from repro_torch.launch import train as LT
     from repro_torch.train.train_step import TrainConfig
-    spec = TRAIN_FULL
+    tag = spec["tag"]
     cfg = get_config(spec["arch"])
     tc = TrainConfig()
+    profile_step = steps
     plain = [Counted(m, n) for n in TRAIN_PLAIN
-             for m in (ref, RN, FA) if hasattr(m, n)]
-    keep_attn = Keep(FA, "flash_attention_bwd",
-                     lambda a, k: ("internvl2 train call", 1))
-    keep_norm = Keep(RN, "rmsnorm_bwd", lambda a, k: (
-        "internvl2 train rows", a[0].numel()))
+             for m in (ref, RN, FA, SS) if hasattr(m, n)]
+    call = f"{cfg.name.split('-')[0]} train call"
+    keeps = [Keep(FA, "flash_attention_bwd", lambda a, k: (call, 1)),
+             Keep(RN, "rmsnorm_bwd", lambda a, k: (call, a[0].numel())),
+             Keep(SS, "ssd_scan_bwd", lambda a, k: (call, 1))]
     sums = {}
-    steps = {}
+    done = {}
 
     def snapshot(state):
         return {n: float(p.detach().double().sum())
                 for n, p in state["params"].named_parameters()}
 
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    # device activity only: the split reads the device's events, and the
+    # host's (~10^5 ops a zamba2 step) took seconds to reduce
+    prof = profile(activities=[ProfilerActivity.CUDA])
     t_prof = [0.0]
 
     def on_step(i, state, stats):
@@ -2812,24 +3023,24 @@ def train_full(report):
         loss, gnorm = float(stats["loss"]), float(stats["grad_norm"])
         torch.cuda.synchronize()
         t_end = time.monotonic()
-        if i == spec["profile_step"]:
+        if i == profile_step:
             prof.__exit__(None, None, None)
             t_prof[0] = t_end - t_prof[0]
-        steps[i] = dict(loss=loss, grad_norm=gnorm, t_end=t_end)
+        done[i] = dict(loss=loss, grad_norm=gnorm, t_end=t_end)
         if not (math.isfinite(loss) and math.isfinite(gnorm)):
-            raise AssertionError(f"train (c) step {i}: loss {loss}, grad "
-                                 f"norm {gnorm}")
+            raise AssertionError(f"train ({tag}) step {i}: loss {loss}, "
+                                 f"grad norm {gnorm}")
         if i == 1:
             sums["first"] = snapshot(state)
             sums["n_params"] = sum(p.numel() for p in
                                    state["params"].parameters())
-        if i == spec["steps"]:
+        if i == steps:
             sums["last"] = snapshot(state)
             sums["finite"] = all(bool(torch.isfinite(p).all()) for p in
                                  state["params"].parameters())
         torch.cuda.synchronize()
-        steps[i]["t_next"] = time.monotonic()
-        if i == spec["profile_step"] - 1:
+        done[i]["t_next"] = time.monotonic()
+        if i == profile_step - 1:
             prof.__enter__()
             t_prof[0] = time.monotonic()
 
@@ -2839,86 +3050,86 @@ def train_full(report):
     build.LAUNCH_COUNTS.clear()  # this path's launches start here
     t0 = time.monotonic()
     with contextlib.ExitStack() as stack:
-        for p in plain + [keep_attn, keep_norm]:
+        for p in plain + keeps:
             stack.enter_context(p)
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
-            LT.train(cfg, tc, steps=spec["steps"], batch=spec["batch"],
+            LT.train(cfg, tc, steps=steps, batch=spec["batch"],
                      seq=spec["seq"], seed=0, device=DEVICE, log_every=1,
                      on_step=on_step)
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     for line in buf.getvalue().splitlines():
-        log(f"[train:c] {line}")
-    launches = {k: build.LAUNCH_COUNTS[k] for k in
-                ("rmsnorm", "rmsnorm_bwd", "flash_attention",
-                 "flash_attention_bwd", "ssd_scan")}
-    per_step = {k: v / spec["steps"] for k, v in launches.items()}
-    want = {**expected_train_launches(cfg, tc.remat), "ssd_scan": 0}
+        log(f"[train:{tag}] {line}")
+    launches = {k: build.LAUNCH_COUNTS[k] for k in TRAIN_KERNELS}
+    per_step = {k: v / steps for k, v in launches.items()}
+    want = expected_train_launches(cfg, tc.remat)
     if per_step != want:
-        raise AssertionError(f"train (c): launches a step {per_step}, the "
-                             f"plan gives {want}")
+        raise AssertionError(f"train ({tag}): launches a step {per_step}, "
+                             f"the plan gives {want}")
     calls = {f"{p.module.__name__.rsplit('.', 1)[-1]}.{p.name}": p.calls
              for p in plain}
     if any(calls.values()):
-        raise AssertionError(f"train (c): plain versions called {calls}")
-    unchanged = [n for n, s in sums["first"].items()
-                 if s == sums["last"][n]]
+        raise AssertionError(f"train ({tag}): plain versions called {calls}")
+    unchanged = [n for n, v in sums["first"].items()
+                 if v == sums["last"][n]]
     if not sums["finite"] or unchanged:
-        raise AssertionError(f"train (c): params finite {sums['finite']}, "
-                             f"unchanged {unchanged[:5]}")
-    times = [steps[i + 1]["t_end"] - steps[i]["t_next"]
-             for i in range(1, spec["steps"])
-             if i + 1 != spec["profile_step"]]
+        raise AssertionError(f"train ({tag}): params finite "
+                             f"{sums['finite']}, unchanged {unchanged[:5]}")
+    times = [done[i + 1]["t_end"] - done[i]["t_next"]
+             for i in range(1, steps) if i + 1 != profile_step]
     s_step = statistics.median(times)
     positions = spec["batch"] * spec["seq"]
     text = spec["batch"] * (spec["seq"] - cfg.n_frontend_tokens)
     split = device_split(prof)
     dev_ms = sum(split.values())
-    out = dict(params=sums["n_params"],
+    out = dict(arch=cfg.name, steps=steps, params=sums["n_params"],
                wall_s=wall, s_per_step=s_step,
                positions_per_s=positions / s_step,
                text_tokens_per_s=text / s_step,
                peak_gb=torch.cuda.max_memory_allocated() / 1e9,
-               losses=[steps[i]["loss"] for i in sorted(steps)],
-               grad_norms=[steps[i]["grad_norm"] for i in sorted(steps)],
+               losses=[done[i]["loss"] for i in sorted(done)],
+               grad_norms=[done[i]["grad_norm"] for i in sorted(done)],
                launches=launches, launches_per_step=per_step,
                plain_calls=calls, profiled_step_s=t_prof[0],
                device_ms=dev_ms, busy=dev_ms / 1e3 / t_prof[0],
                device_split_ms=split)
-    log(f"[train:c] {cfg.name} at full width and depth: {spec['steps']} "
-        f"steps of {spec['batch']} x ({cfg.n_frontend_tokens} patches + "
-        f"{spec['seq'] - cfg.n_frontend_tokens} tokens), bf16 compute, f32 "
-        f"params, AdamW, remat {tc.remat}: wall {wall:.2f}s, "
-        f"{s_step:.4f} s/step (median of the unprofiled steps), "
-        f"{out['positions_per_s']:.0f} positions/s "
-        f"({out['text_tokens_per_s']:.0f} text tokens/s), peak memory "
+    tokens = (f"{cfg.n_frontend_tokens} patches + "
+              f"{spec['seq'] - cfg.n_frontend_tokens} tokens"
+              if cfg.n_frontend_tokens else f"{spec['seq']} tokens")
+    log(f"[train:{tag}] {cfg.name} at full width and depth "
+        f"({sums['n_params']:,} parameters): {steps} steps of "
+        f"{spec['batch']} x ({tokens}), bf16 compute, f32 params, AdamW, "
+        f"remat {tc.remat}: wall {wall:.2f}s, {s_step:.4f} s/step (median "
+        f"of the unprofiled steps), {out['positions_per_s']:.0f} positions/s"
+        f" ({out['text_tokens_per_s']:.0f} text tokens/s), peak memory "
         f"{out['peak_gb']:.2f} GB; losses "
         f"{[round(x, 4) for x in out['losses']]}, every loss and grad norm "
         f"finite, every parameter finite and changed; launches a step "
         f"{per_step} == the plan's; plain versions called {calls}")
-    log(f"[train:c] profiled step {spec['profile_step']}: "
+    log(f"[train:{tag}] profiled step {profile_step}: "
         f"{t_prof[0] * 1e3:.1f} ms wall under the profiler, device busy "
         f"{dev_ms:.1f} ms ({100.0 * out['busy']:.1f}%); device ms by kind "
         + ", ".join(f"{k} {v:.2f}" for k, v in split.items())
         + f"; {report['gpu']}")
-    kept = {"flash_attention_bwd": keep_attn.kept, "rmsnorm_bwd":
-            keep_norm.kept}
+    kept = {k.name: k.kept for k in keeps if k.kept}
     return out, kept
 
 
-def phase_train(report):
+def phase_train(report, elapsed_s=0.0):
     """Training through the port's LLM layer on hand-written backward
-    kernels: (a) both backward kernels against their plain versions at the
+    kernels: (a) the backward kernels against their plain versions at the
     training path's shapes, f32 and bf16, timed beside the plain backward
     and the library's forward + backward; (b) one train step of every
-    reduced architecture the card trains, card == CPU, the remat modes, an
-    accumulated and a compressed step, and the Mamba-2 configs refused; (c)
-    internvl2-2b at full width and depth through ``launch.train``; then
-    each backward kernel timed on (c)'s own calls."""
+    reduced architecture, card == CPU, the remat modes (launches as the
+    plan gives), an accumulated and a compressed step; (c) internvl2-2b
+    and (c') zamba2-2.7b at full width and depth through
+    ``launch.train``; then each backward kernel timed on (c)'s or (c')'s
+    own calls.  ``elapsed_s``: the smoke's time at the phase's start."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.convert import to_tensors
+    from repro_torch.kernels import build
     from repro_torch.models import transformer as T
     from repro_torch.train import train_step as TS
     from repro_torch.train.data import batch_for
@@ -2929,7 +3140,8 @@ def phase_train(report):
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         for kernel, shapes in (("rmsnorm_bwd", RMS_BWD_SHAPES),
-                               ("flash_attention_bwd", ATTN_BWD_SHAPES)):
+                               ("flash_attention_bwd", ATTN_BWD_SHAPES),
+                               ("ssd_scan_bwd", SSD_BWD_SHAPES)):
             for label, shape in shapes:
                 args, kw = bwd_case(gen, kernel, shape, dtype)
                 rows[kernel].append(bwd_row(kernel, label, args, kw, report,
@@ -2965,61 +3177,88 @@ def phase_train(report):
         f"gradients and residuals card == CPU but {flips} of {n_elem} "
         f"elements one int8 step apart at a rounding boundary (worst "
         f"{comp_err:.3g} of the leaf's max |grad|)")
-    cfg = get_config("olmoe-1b-7b").reduced()
-    model = T.init_params(cfg, torch.Generator(DEVICE).manual_seed(0),
-                          DEVICE)
-    model.requires_grad_(True)
-    batch = to_tensors(batch_for(cfg, 32, 4, step=2, seed=0), DEVICE)
     remat = {}
-    for mode in T.REMAT_MODES:
-        model.zero_grad(set_to_none=True)
-        loss, _ = T.forward_train(model, cfg, batch, dtype=torch.float32,
-                                  remat=mode)
-        loss.backward()
-        remat[mode] = (float(loss.detach()), float(torch.linalg.vector_norm(
-            torch.stack([p.grad.norm() for p in model.parameters()]))))
-    base = remat["none"]
-    if any(abs(v[0] - base[0]) > 1e-6 * abs(base[0]) or
-           abs(v[1] - base[1]) > 1e-5 * base[1] for v in remat.values()):
-        raise AssertionError(f"train (b): remat modes disagree {remat}")
-    log(f"[train:b] olmoe reduced on the card, remat none / dots / full: "
-        f"loss and gradient norm {remat}")
-    for arch in TRAIN_REFUSED:
-        try:
-            TS.init_train_state(get_config(arch).reduced(), TS.TrainConfig(),
-                                torch.Generator(DEVICE).manual_seed(0),
-                                DEVICE)
-        except NotImplementedError as e:
-            if "A10e2" not in str(e):
-                raise
-            log(f"[train:b] {arch} on the card: refused before any step "
-                f"({e})")
-        else:
-            raise AssertionError(f"train (b): {arch} was not refused")
-    del model
+    for arch in TRAIN_REMAT:
+        cfg = get_config(arch).reduced()
+        model = T.init_params(cfg, torch.Generator(DEVICE).manual_seed(0),
+                              DEVICE)
+        model.requires_grad_(True)
+        batch = to_tensors(batch_for(cfg, 32, 4, step=2, seed=0), DEVICE)
+        modes = {}
+        for mode in T.REMAT_MODES:
+            model.zero_grad(set_to_none=True)
+            build.LAUNCH_COUNTS.clear()
+            loss, _ = T.forward_train(model, cfg, batch, dtype=torch.float32,
+                                      remat=mode)
+            loss.backward()
+            launches = {k: build.LAUNCH_COUNTS[k] for k in TRAIN_KERNELS}
+            want = expected_train_launches(cfg, mode)
+            if launches != want:
+                raise AssertionError(f"train (b) {arch} remat {mode}: "
+                                     f"launches {launches}, the plan gives "
+                                     f"{want}")
+            modes[mode] = (float(loss.detach()), float(
+                torch.linalg.vector_norm(torch.stack(
+                    [p.grad.norm() for p in model.parameters()]))))
+        base = modes["none"]
+        if any(abs(v[0] - base[0]) > 1e-6 * abs(base[0]) or
+               abs(v[1] - base[1]) > 1e-5 * base[1] for v in modes.values()):
+            raise AssertionError(f"train (b) {arch}: remat modes disagree "
+                                 f"{modes}")
+        remat[arch] = modes
+        log(f"[train:b] {arch} reduced on the card, remat none / dots / "
+            f"full: loss and gradient norm {modes}; launches as the plan "
+            f"gives in each")
+        del model
     out["b"] = {"errors": errs, "remat": remat}
     out["b_s"] = time.monotonic() - t_phase - out["a_s"]
 
-    out["full"], kept = train_full(report)
+    out["full"], kept = train_full(report, TRAIN_FULL, TRAIN_FULL["steps"])
+    t_c = time.monotonic()
+    steps, cut = train_steps(report, elapsed_s + t_c - t_phase,
+                             TRAIN_ZAMBA2)
+    log(f"[train:c'] {TRAIN_ZAMBA2['arch']}: {steps} steps"
+        + (" (CUT: the time left would not hold "
+           f"{TRAIN_ZAMBA2['steps']} and the phases after this one)"
+           if cut else ""))
+    out["zamba2"], kept_z = train_full(report, TRAIN_ZAMBA2, steps)
+    out["zamba2"]["cut"] = cut
+    out["c_prime_s"] = time.monotonic() - t_c
+    runs = {"rmsnorm_bwd": ("full", kept), "flash_attention_bwd": (
+        "full", kept), "ssd_scan_bwd": ("zamba2", kept_z)}
     entries = report.setdefault("kernels", [])
     for kernel, (source, replaces) in BWD_KERNELS.items():
-        (label, (_size, args, kw)), = kept[kernel].items()
+        run, kept_run = runs[kernel]
+        (label, (_size, args, kw)), = kept_run[kernel].items()
         main = bwd_row(kernel, label, args, kw, report,
                        str(args[0].dtype).split(".")[-1])
+        if kernel == "ssd_scan_bwd":
+            main["by_kernel_ms"] = by_kernel_ms(
+                lambda: bwd_fns(kernel, args, kw)[0]())
+            log(f"[train:c'] ssd_scan_bwd at {label}, device ms a launch by "
+                "kernel (10 eager calls): " + ", ".join(
+                    f"{k} {v:.4f}" for k, v in main["by_kernel_ms"].items())
+                + f"; {report['gpu']}")
         entries.append({
             "name": kernel, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": out["full"]["launches"][kernel],
+            "launches": out[run]["launches"][kernel],
             **{k: main[k] for k in (
                 "max_abs_err", "max_rel_err", "ms", "plain_ms", "bound_ms",
                 "bound_by", "library_ms", "device_ms", "fwd_bwd_ms",
                 "fwd_bwd_device_ms", "library_device_ms",
                 "library_fwd_device_ms", "library_bwd_device_ms", "shape",
                 "dtype")},
+            **{k: main[k] for k in ("by_kernel_ms", "forward_max_abs_err")
+               if k in main},
             "shapes": rows[kernel]})
+        del args, kw
+    del kept, kept_z
+    torch.cuda.empty_cache()
     out["phase_s"] = time.monotonic() - t_phase
     log(f"[train] phase {out['phase_s']:.1f}s ((a) {out['a_s']:.1f}s, (b) "
-        f"{out['b_s']:.1f}s); {report['gpu']}")
+        f"{out['b_s']:.1f}s, (c') {out['c_prime_s']:.1f}s); "
+        f"{report['gpu']}")
 
 
 # ------------------------------------------------- the dense per-tick engine
@@ -3472,7 +3711,8 @@ def phase_registry(report, elapsed_s):
 
 # ------------------------------------------------ the experiment layer
 KERNEL_NAMES = ("schedule_tick", "waterfill", "rmsnorm", "flash_attention",
-                "ssd_scan", "rmsnorm_bwd", "flash_attention_bwd")
+                "ssd_scan", "rmsnorm_bwd", "flash_attention_bwd",
+                "ssd_scan_bwd")
 # the configuration the reference's CI gates: haswell at scale 0.02, 2
 # seeds, the paper grid, 2 cells crosschecked against the DES
 GATED_ARGV = ["--workload", "haswell", "--scale", "0.02", "--seeds", "2"]
@@ -4251,7 +4491,6 @@ def phase_bwd_ab(report, csrc):
     A tree whose RMSNorm backward lives in ``rmsnorm.cu`` is called as its
     wrapper called it (:func:`rmsnorm_bwd_per_cta`)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import build, ref
     from repro_torch.kernels.flash_attention import flash_attention_bwd
     from repro_torch.kernels.rmsnorm import rmsnorm_bwd
@@ -4263,18 +4502,24 @@ def phase_bwd_ab(report, csrc):
         raise FileNotFoundError(f"--ab-csrc {csrc}: no rmsnorm.cu or "
                                 "flash_attention_bwd.cu")
     mine = build.load_library()
-    saved = build.CSRC, build.SOURCES, build.HEADERS
+    saved = build.CSRC, build.SOURCES, build.HEADERS, build._SIGNATURES
     build.CSRC = other_dir
     build.SOURCES, build.HEADERS = (
         tuple(f for f in names if (other_dir / f).is_file())
-        for names in saved[1:])
+        for names in saved[1:3])
+    # the entry points the other tree's bindings.cpp has (an older tree
+    # lacks the later ones)
+    entries = set(re.findall(r"^int (repro_\w+)\(",
+                             (other_dir / "bindings.cpp").read_text(),
+                             re.M))
+    build._SIGNATURES = {k: v for k, v in saved[3].items() if k in entries}
     build._LIB = None
     try:
         t0 = time.monotonic()
         other = build.load_library()
         log(f"[bwd-ab] built {other_dir} in {time.monotonic() - t0:.1f}s")
     finally:
-        build.CSRC, build.SOURCES, build.HEADERS = saved
+        build.CSRC, build.SOURCES, build.HEADERS, build._SIGNATURES = saved
         build._LIB = mine
     libs = {"other": other, "this": mine}
     per_cta = not (other_dir / "rmsnorm_bwd.cu").is_file()
@@ -4313,14 +4558,8 @@ def phase_bwd_ab(report, csrc):
                     for n, g, r in zip(names[kernel], fn(args, kw), want):
                         max_rel_err(g, r, BWD_TOL[dname],
                                     f"bwd-ab {name} {label} {dname} {n}")
-                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                        for _ in range(10):
-                            fn(args, kw)
-                        torch.cuda.synchronize()
-                    row["by_kernel_ms"][name] = {
-                        e.key.split("<")[0].split("::")[-1]:
-                        e.self_device_time_total / 1e3 / max(e.count, 1)
-                        for e in device_events(prof)}
+                    row["by_kernel_ms"][name] = by_kernel_ms(
+                        lambda: fn(args, kw))
                 build._LIB = mine
                 t = row["device_ms"]
                 log(f"[bwd-ab] {kernel} {label} {dname}: device ms other "
@@ -4395,7 +4634,7 @@ def main(argv=None) -> int:
         if "encdec" in phases:
             phase_encdec(report)
         if "train" in phases:
-            phase_train(report)
+            phase_train(report, time.monotonic() - t_start)
         if "registry" in phases:
             phase_registry(report, time.monotonic() - t_start)
         if "experiment" in phases:

@@ -47,7 +47,8 @@ import torch
 CSRC = pathlib.Path(__file__).resolve().with_name("csrc")
 SOURCES = ("schedule_tick.cu", "waterfill.cu", "rmsnorm.cu",
            "rmsnorm_bwd.cu", "flash_attention.cu", "flash_attention_bwd.cu",
-           "flash_attention_bwd_wgmma.cu", "ssd_scan.cu", "bindings.cpp")
+           "flash_attention_bwd_wgmma.cu", "ssd_scan.cu", "ssd_scan_bwd.cu",
+           "bindings.cpp")
 HEADERS = ("kernels.h", "block.cuh", "dtype.cuh", "mma.cuh", "atomics.cuh",
            "attention.cuh", "attention_bwd.cuh", "wgmma.cuh")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3",
@@ -72,6 +73,7 @@ _SIGNATURES = {
     "repro_flash_attention": [_P] * 6 + [_I] * 11 + [_F, _I, _I, _P],
     "repro_flash_attention_bwd": [_P] * 10 + [_I] * 9 + [_F, _I, _P],
     "repro_ssd_scan": [_P] * 9 + [_I] * 8 + [_P],
+    "repro_ssd_scan_bwd": [_P] * 15 + [_I] * 8 + [_P],
 }
 _CODES = {_P: "P", _I: "I", _F: "F"}
 

@@ -221,6 +221,39 @@ int repro_ssd_scan(const void* x, const void* dt, const void* a_rate,
       a, dtype, static_cast<cudaStream_t>(stream)));
 }
 
+int repro_ssd_scan_bwd(const void* x, const void* dt, const void* a_rate,
+                       const void* b, const void* c, const void* dy,
+                       const void* dstate, const void* states, void* dx,
+                       void* ddt, void* db, void* dc, void* da, void* dinit,
+                       void* scratch, int B, int S, int H, int P, int N,
+                       int L, int groups, int dtype, void* stream) {
+  repro::SsdBwdArgs a;
+  a.x = x;
+  a.dt = dt;
+  a.a = static_cast<const float*>(a_rate);
+  a.b = b;
+  a.c = c;
+  a.dy = static_cast<const float*>(dy);
+  a.dstate = static_cast<const float*>(dstate);
+  a.states = static_cast<const float*>(states);
+  a.dx = dx;
+  a.ddt = ddt;
+  a.db = db;
+  a.dc = dc;
+  a.da = static_cast<float*>(da);
+  a.dinit = static_cast<float*>(dinit);
+  a.scratch = static_cast<float*>(scratch);
+  a.B = B;
+  a.S = S;
+  a.H = H;
+  a.P = P;
+  a.N = N;
+  a.L = L;
+  a.groups = groups;
+  return static_cast<int>(repro::launch_ssd_scan_bwd(
+      a, dtype, static_cast<cudaStream_t>(stream)));
+}
+
 const char* repro_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
@@ -250,7 +283,7 @@ char* append_signature(char* out, const char* name, R (*)(A...)) {
 }
 
 struct Abi {
-  char text[512];
+  char text[640];
 };
 
 Abi make_abi() {
@@ -265,6 +298,7 @@ Abi make_abi() {
   out = append_signature(out, "repro_flash_attention_bwd",
                          &repro_flash_attention_bwd);
   out = append_signature(out, "repro_ssd_scan", &repro_ssd_scan);
+  out = append_signature(out, "repro_ssd_scan_bwd", &repro_ssd_scan_bwd);
   *out = '\0';
   return abi;
 }

@@ -208,4 +208,33 @@ struct SsdArgs {
 cudaError_t launch_ssd_scan(const SsdArgs& args, int dtype,
                             cudaStream_t stream);
 
+// The gradient of launch_ssd_scan (ssd_scan_bwd.cu).  x, dt, b, c as the
+// forward took them; dy: (B, S, H, P) f32; dstate: (B, H, P, N) f32 or
+// null (no pull on the final state); states: the forward's scratch, run at
+// this L (the states before each chunk, then the chunks' last cumsums).
+// Writes dx, ddt, db, dc in the inputs' type, da (H,) f32 and, when not
+// null, dinit (B, H, P, N) f32.  groups: the head groups of a chunk, one
+// chunk-scan CTA each (1 to H).  scratch: f32, B * NC * H * (P * N + X + 1)
+// + 2 * B * NC * groups * L * N floats, X = ceil(P * N / 256).  P, N <= 128.
+struct SsdBwdArgs {
+  const void* x;
+  const void* dt;
+  const float* a;
+  const void* b;
+  const void* c;
+  const float* dy;
+  const float* dstate;
+  const float* states;
+  void* dx;
+  void* ddt;
+  void* db;
+  void* dc;
+  float* da;
+  float* dinit;
+  float* scratch;
+  int B, S, H, P, N, L, groups;
+};
+cudaError_t launch_ssd_scan_bwd(const SsdBwdArgs& args, int dtype,
+                                cudaStream_t stream);
+
 }  // namespace repro

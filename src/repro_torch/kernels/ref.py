@@ -4,9 +4,9 @@ Each kernel wrapper falls back to its plain version only for tensors that
 lie on the CPU; the CPU tests use these, and ``chip_smoke.py`` holds every
 kernel against its plain version on the card.  Nothing on the main path
 calls them when a card is present.  The backward kernels have theirs too
-(:func:`rmsnorm_bwd_ref`, :func:`attention_bwd_ref`): they compute what the
-kernels compute, step by step, and the CPU path of the autograd functions
-runs them.
+(:func:`rmsnorm_bwd_ref`, :func:`attention_bwd_ref`, :func:`ssd_bwd_ref`):
+they compute what the kernels compute, step by step, and the CPU path of
+the autograd functions runs them.
 """
 from __future__ import annotations
 
@@ -239,3 +239,113 @@ def ssd_ref(x, dt, a, b, c, *, chunk: int = 128, initial_state=None):
                * torch.exp(cum)[..., None])
     y = (y_intra + y_inter).reshape(bsz, nc * chunk, h, p)[:, :s]
     return y, state
+
+
+def ssd_bwd_ref(x, dt, a, b, c, dy, dstate, *, chunk: int = 128,
+                initial_state=None):
+    """The gradient of :func:`ssd_ref` given the output's gradient ``dy``
+    (B, S, H, P) and the final state's ``dstate`` (B, H, P, N) or None (no
+    pull), step by step in the order of ``ssd_scan_bwd.cu``.  With ``cum``
+    the inclusive cumsum of ``la = -a_h dt`` within a chunk, ``W[t, u] =
+    (C_t . B_u) exp(cum_t - cum_u)`` on the lower triangle and ``before[c]``
+    the state before chunk c:
+
+    1. per chunk, the output's pull on the state before it:
+       ``G_c = sum_t exp(cum_t) dy_t^T C_t`` (P x N);
+    2. the reverse state pass: ``dbefore[NC] = dstate``, ``dbefore[c] =
+       exp(cum_end) dbefore[c + 1] + G_c``, and the chunk decay's gradient
+       ``<dbefore[c + 1], before[c]>``; ``dinit = dbefore[0]``;
+    3. per chunk and head, with ``dS = dbefore[c + 1]``: the gradient of
+       ``dt_u x_u`` (through which alone y sees x and dt directly),
+       ``gx_u = (W^T dy)_u + tail_u dS B_u``, so ``dx = dt gx`` and the
+       direct ``ddt = x . gx``; dC from the intra term and ``exp(cum_t)
+       before^T dy_t``; dB from the intra term and ``tail_u dt_u x_u^T
+       dS``; d cum from the row and column sums of ``CB o D`` (``D =
+       (dy x^T) dt_u exp(cum_t - cum_u)``, the gradient of CB), the inter
+       term ``exp(cum_t) C_t . before^T dy_t``, the tail terms and the
+       chunk decay's; then ``dla`` is d cum's reverse cumsum within the
+       chunk, ``ddt += -a_h dla`` and ``da_h -= sum dt dla``;
+    4. dB and dC summed over heads, da over batch and chunks.
+
+    Computes in f32; returns ``(dx, ddt, da, db, dc, dinit)``: dx, ddt, db,
+    dc in x's, dt's, b's and c's dtypes, da and dinit f32.
+    """
+    dtypes = x.dtype, dt.dtype, b.dtype, c.dtype
+    x, dt, b, c, dy = (t.float() for t in (x, dt, b, c, dy))
+    a = a.float()
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    pad = (-s) % chunk
+    if pad:
+        x, dy = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))
+                 for t in (x, dy))
+        dt, b, c = (torch.nn.functional.pad(t, (0, 0, 0, pad))
+                    for t in (dt, b, c))
+    nc = x.shape[1] // chunk
+    xc = x.reshape(bsz, nc, chunk, h, p)
+    dyc = dy.reshape(bsz, nc, chunk, h, p)
+    dtc = dt.reshape(bsz, nc, chunk, h)
+    bc = b.reshape(bsz, nc, chunk, n)
+    cc = c.reshape(bsz, nc, chunk, n)
+
+    cum = torch.cumsum(-a * dtc, dim=2)                    # (B,NC,L,H)
+    last = cum[:, :, -1]                                   # (B,NC,H)
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=x.device))
+    decay = torch.exp(torch.where(
+        tri[None, None, :, :, None],
+        cum[:, :, :, None, :] - cum[:, :, None, :, :], -torch.inf))
+    cb = torch.einsum("zctn,zcun->zctu", cc, bc)           # (B,NC,L,L)
+    w = cb[..., None] * decay                              # (B,NC,t,u,H)
+    ecum = torch.exp(cum)
+    tail = torch.exp(last[:, :, None] - cum)
+    chunk_decay = torch.exp(last)
+    # the forward's states before each chunk
+    sc = torch.einsum("zcuhp,zcun->zchpn", xc * (tail * dtc)[..., None], bc)
+    state = (initial_state.float() if initial_state is not None
+             else torch.zeros((bsz, h, p, n), device=x.device))
+    before = []
+    for ci in range(nc):
+        before.append(state)
+        state = state * chunk_decay[:, ci, :, None, None] + sc[:, ci]
+    before = torch.stack(before, dim=1)                    # (B,NC,H,P,N)
+
+    # 1. the output's pull on the state before each chunk
+    g = torch.einsum("zcthp,zctn->zchpn", dyc * ecum[..., None], cc)
+    # 2. the reverse state pass
+    carry = (dstate.float() if dstate is not None
+             else torch.zeros((bsz, h, p, n), device=x.device))
+    ds, dots = [None] * nc, [None] * nc
+    for ci in reversed(range(nc)):
+        ds[ci] = carry
+        dots[ci] = (carry * before[:, ci]).sum(dim=(-1, -2))
+        carry = carry * chunk_decay[:, ci, :, None, None] + g[:, ci]
+    dinit = carry
+    ds = torch.stack(ds, dim=1)                            # (B,NC,H,P,N)
+    dot = torch.stack(dots, dim=1)                         # (B,NC,H)
+    # 3. per chunk and head
+    q = torch.einsum("zcthp,zcuhp->zctuh", dyc, xc)
+    d = q * dtc[:, :, None] * decay                        # dt_u: axis u
+    v = torch.einsum("zcun,zchpn->zcuhp", bc, ds)          # dS B_u
+    gx = torch.einsum("zctuh,zcthp->zcuhp", w, dyc) + tail[..., None] * v
+    dx = dtc[..., None] * gx
+    ddt = (xc * gx).sum(dim=-1)
+    z = torch.einsum("zcthp,zchpn->zcthn", dyc, before)    # before^T dy_t
+    dcm = (torch.einsum("zctuh,zcun->zctn", d, bc)
+           + torch.einsum("zcth,zcthn->zctn", ecum, z))
+    dbm = (torch.einsum("zctuh,zctn->zcun", d, cc)
+           + torch.einsum("zcuhp,zchpn->zcuhn",
+                          xc * (tail * dtc)[..., None], ds).sum(dim=3))
+    r = cb[..., None] * d
+    tails = tail * dtc * (xc * v).sum(dim=-1)              # (B,NC,L,H)
+    dcum = (r.sum(dim=3) - r.sum(dim=2)
+            + ecum * (cc[:, :, :, None, :] * z).sum(dim=-1) - tails)
+    dcum[:, :, -1] += tails.sum(dim=2) + chunk_decay * dot
+    dla = torch.flip(torch.cumsum(torch.flip(dcum, (2,)), dim=2), (2,))
+    ddt = ddt - a * dla
+    da = -(dtc * dla).sum(dim=(0, 1, 2))
+    s_all = nc * chunk
+    return (dx.reshape(bsz, s_all, h, p)[:, :s].to(dtypes[0]),
+            ddt.reshape(bsz, s_all, h)[:, :s].to(dtypes[1]), da,
+            dbm.reshape(bsz, s_all, n)[:, :s].to(dtypes[2]),
+            dcm.reshape(bsz, s_all, n)[:, :s].to(dtypes[3]), dinit)

@@ -1,4 +1,5 @@
-"""Mamba-2 SSD scan: the CUDA kernels ``csrc/ssd_scan.cu`` and their wrapper.
+"""Mamba-2 SSD scan: the CUDA kernels ``csrc/ssd_scan.cu`` (forward) and
+``csrc/ssd_scan_bwd.cu`` (backward) and their wrappers.
 
 Replaces the JAX package's Pallas ``repro/kernels/ssd_scan.py::ssd_scan``.
 :func:`ssd_scan` launches the kernels for CUDA tensors and uses the plain
@@ -6,9 +7,14 @@ version (:func:`repro_torch.kernels.ref.ssd_ref`) only for tensors on the
 CPU.  :func:`plan` picks the chunk length and the heads a chunk-scan CTA
 serves.
 
-The scan has no backward kernel yet (ROADMAP §A10e2): on a CUDA tensor that
-needs a gradient :func:`ssd_scan` raises rather than return an output cut
-from the autograd graph.  On the CPU the plain version is differentiable.
+Training: when an input needs a gradient, :func:`ssd_scan` runs as an
+autograd function whose backward is :func:`ssd_scan_bwd`, the backward
+kernels (plain :func:`repro_torch.kernels.ref.ssd_bwd_ref` on the CPU).
+Its forward (:func:`ssd_scan_with_states`) runs at the chunk length the
+backward's shared memory allows (:func:`bwd_plan`) and keeps the forward's
+scratch, the states before each chunk and the chunks' last cumsums, for
+the backward.  The gradients do not depend on the chunk length but by
+rounding.
 """
 from __future__ import annotations
 
@@ -20,7 +26,7 @@ import torch
 
 from . import KernelModule
 from .build import dtype_code, launch
-from .ref import ssd_ref
+from .ref import ssd_bwd_ref, ssd_ref
 
 # a CTA's dynamic shared memory on Hopper (232,448 bytes)
 MAX_SMEM_BYTES = 227 * 1024
@@ -32,6 +38,12 @@ MAX_HEADDIM = 128
 # C B^T once for the heads it serves, so the scan kernel takes one wave of
 # CTAs, or as many waves as it takes to give every chunk one
 SMS = 132
+# the backward (csrc/ssd_scan_bwd.cu): dstate <= 128, 256 threads a CTA
+# (the state pass: one state element a thread), ten L-long vectors in a
+# chunk-scan CTA's shared memory
+BWD_MAX_DSTATE = 128
+BWD_THREADS = 256
+BWD_VECTORS = 10
 
 
 def _pad16(n: int) -> int:
@@ -89,24 +101,62 @@ def plan(b: int, s: int, h: int, p: int, n: int, chunk: int = 128) -> SsdPlan:
     return SsdPlan(L, nc, heads, q * h, k, smem_bytes(L, p, n))
 
 
-def ssd_scan(x, dt, a, b, c, *, chunk: int = 128, initial_state=None):
-    """Chunked SSD scan; returns (y (B, S, H, P) f32, state (B, H, P, N) f32).
+def _pad4(n: int) -> int:
+    return -(-n // 4) * 4
 
-    x: (B, S, H, P); dt: (B, S, H) post-softplus; a: (H,) positive decay
-    rates; b, c: (B, S, N) shared across heads; initial_state: (B, H, P, N)
-    or None.  x, dt, b, c are float32 or bfloat16, of one dtype; P <= 128.
-    """
-    if not x.is_cuda:
-        if x.device.type == "cpu":
-            return ssd_ref(x, dt, a, b, c, chunk=chunk,
-                           initial_state=initial_state)
-        raise ValueError(f"ssd_scan runs on cuda or cpu, not {x.device}")
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad
-            for t in (x, dt, a, b, c, initial_state)):
-        raise NotImplementedError(
-            "ssd_scan has no backward kernel yet: training Mamba-2 blocks "
-            "on the card waits for ROADMAP §A10e2")
+
+def bwd_smem_bytes(L: int, P: int, N: int) -> int:
+    """Shared memory of the larger CTA of the backward's two tile kernels
+    (``scan_smem_bytes`` and ``state_smem_bytes`` in the source): tiles of
+    rows padded to 4 columns plus one."""
+    lt, pp = _pad4(L), _pad4(P)
+    sn, sp, sl = _pad4(N) + 1, pp + 1, lt + 1
+    scan = (2 * lt * sn + 3 * lt * sl + 2 * lt * sp + pp * sn
+            + lt * max(sn, sp) + BWD_VECTORS * lt + 4)
+    state = lt * sp + lt * sn + 3 * lt
+    return 4 * max(scan, state)
+
+
+@dataclass(frozen=True)
+class SsdBwdPlan:
+    """What one backward call runs: the chunk length and count, a chunk's
+    head groups (one chunk-scan CTA each) and the most heads in one, the
+    chunk-scan and state-pass CTAs, the larger CTA's shared memory in
+    bytes and the scratch's f32 elements."""
+    chunk: int
+    n_chunks: int
+    groups: int
+    heads_per_cta: int
+    scan_ctas: int
+    pass_ctas: int
+    smem_bytes: int
+    scratch_floats: int
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_plan(b: int, s: int, h: int, p: int, n: int,
+             chunk: int = 128) -> SsdBwdPlan:
+    """The backward's plan of a call on x (b, s, h, p) and B, C (b, s, n):
+    ``chunk`` (no longer than the sequence or 128) halved until a
+    chunk-scan CTA's shared memory holds it, and each chunk's heads split
+    into as many groups as fill one wave of the SMs (csrc/ssd_scan_bwd.cu,
+    scan_bwd_kernel).  The training forward runs at the same chunk."""
+    if p > MAX_HEADDIM or n > BWD_MAX_DSTATE:
+        raise ValueError(f"headdim {p} x dstate {n}: the SSD backward takes "
+                         f"both up to {MAX_HEADDIM}")
+    L = max(1, min(chunk, s, MAX_CHUNK))
+    while L > 1 and bwd_smem_bytes(L, p, n) > MAX_SMEM_BYTES:
+        L //= 2
+    nc = -(-s // L)
+    q = b * nc
+    groups = max(1, min(h, SMS // q)) if q else 1
+    x_ctas = -(-p * n // BWD_THREADS)
+    scratch = b * nc * h * (p * n + x_ctas + 1) + 2 * q * groups * L * n
+    return SsdBwdPlan(L, nc, groups, -(-h // groups), q * groups,
+                      b * h * x_ctas, bwd_smem_bytes(L, p, n), scratch)
+
+
+def _check(x, dt, a, b, c, initial_state):
     bsz, s, h, p = x.shape
     n = b.shape[-1]
     if (dt.shape != (bsz, s, h) or a.shape != (h,) or b.shape != (bsz, s, n)
@@ -117,22 +167,31 @@ def ssd_scan(x, dt, a, b, c, *, chunk: int = 128, initial_state=None):
                          f"{tuple(c.shape)}: shapes or dtypes disagree")
     if p > MAX_HEADDIM:
         raise ValueError(f"headdim {p} > {MAX_HEADDIM}")
+    if initial_state is not None and initial_state.shape != (bsz, h, p, n):
+        raise ValueError(f"initial_state {tuple(initial_state.shape)} "
+                         f"!= {(bsz, h, p, n)}")
+
+
+def _launch(x, dt, a, b, c, initial_state, chunk: int):
+    """One launch of the forward kernels on CUDA tensors: ``(y, state,
+    scratch)``, the scratch holding the states before each chunk (B, NC,
+    H, P, N) then the chunks' last cumsums (B, NC, H), f32 (None when
+    S = 0)."""
+    _check(x, dt, a, b, c, initial_state)
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
     code = dtype_code(x.dtype)
     pl = plan(bsz, s, h, p, n, chunk)
     x, dt, b, c = (t.contiguous() for t in (x, dt, b, c))
     a = a.to(device=x.device, dtype=torch.float32).contiguous()
     init = None
     if initial_state is not None:
-        if initial_state.shape != (bsz, h, p, n):
-            raise ValueError(f"initial_state {tuple(initial_state.shape)} "
-                             f"!= {(bsz, h, p, n)}")
         init = initial_state.to(device=x.device,
                                 dtype=torch.float32).contiguous()
     y = torch.empty((bsz, s, h, p), dtype=torch.float32, device=x.device)
     state = torch.empty((bsz, h, p, n), dtype=torch.float32, device=x.device)
+    scratch = None
     if bsz and h:
-        # the chunks' states (B, NC, H, P, N), then their last cumsums
-        scratch = None
         if pl.n_chunks:
             scratch = torch.empty(bsz * pl.n_chunks * h * (p * n + 1),
                                   dtype=torch.float32, device=x.device)
@@ -142,7 +201,132 @@ def ssd_scan(x, dt, a, b, c, *, chunk: int = 128, initial_state=None):
                state.data_ptr(),
                None if scratch is None else scratch.data_ptr(), bsz, s, h, p,
                n, pl.chunk, pl.scan_ctas, code)
-    return y, state
+    return y, state, scratch
+
+
+def ssd_scan(x, dt, a, b, c, *, chunk: int = 128, initial_state=None):
+    """Chunked SSD scan; returns (y (B, S, H, P) f32, state (B, H, P, N) f32).
+
+    x: (B, S, H, P); dt: (B, S, H) post-softplus; a: (H,) positive decay
+    rates; b, c: (B, S, N) shared across heads; initial_state: (B, H, P, N)
+    or None.  x, dt, b, c are float32 or bfloat16, of one dtype; P <= 128.
+    Differentiable in all six inputs (see the module's docstring).
+    """
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, dt, a, b, c, initial_state)):
+        return _SSD.apply(x, dt, a, b, c, initial_state, chunk)
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return ssd_ref(x, dt, a, b, c, chunk=chunk,
+                           initial_state=initial_state)
+        raise ValueError(f"ssd_scan runs on cuda or cpu, not {x.device}")
+    return _launch(x, dt, a, b, c, initial_state, chunk)[:2]
+
+
+def ssd_scan_with_states(x, dt, a, b, c, *, chunk: int = 128,
+                         initial_state=None):
+    """The training forward: ``(y, state, states)``.  On the card the
+    forward kernels run at :func:`bwd_plan`'s chunk and ``states`` is their
+    scratch (the states before each chunk, then the chunks' last cumsums),
+    what :func:`ssd_scan_bwd` reads; on the CPU ``states`` is None (the
+    plain backward recomputes them)."""
+    if x.device.type == "cpu":
+        y, state = ssd_ref(x, dt, a, b, c, chunk=chunk,
+                           initial_state=initial_state)
+        return y, state, None
+    if not x.is_cuda:
+        raise ValueError(f"ssd_scan runs on cuda or cpu, not {x.device}")
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    L = bwd_plan(bsz, s, h, p, n, chunk).chunk
+    if plan(bsz, s, h, p, n, L).chunk != L:
+        raise ValueError(f"the SSD forward cannot run at the backward's "
+                         f"chunk {L} (P {p}, N {n})")
+    return _launch(x, dt, a, b, c, initial_state, L)
+
+
+class _SSD(torch.autograd.Function):
+    """The SSD scan with the backward kernels as its gradient: the forward
+    keeps its inputs and its scratch (the states before each chunk)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b, c, initial_state, chunk):
+        x, dt, b, c = (t.contiguous() for t in (x, dt, b, c))
+        y, state, states = ssd_scan_with_states(
+            x, dt, a, b, c, chunk=chunk, initial_state=initial_state)
+        ctx.save_for_backward(x, dt, a, b, c, initial_state, states)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        x, dt, a, b, c, init, states = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        dx, ddt, da, db, dc, dinit = ssd_scan_bwd(
+            x, dt, a, b, c, dy, dstate, states, chunk=ctx.chunk,
+            initial_state=init)
+        return (dx, ddt, da.to(a.dtype), db, dc,
+                None if init is None else dinit.to(init.dtype), None)
+
+
+def ssd_scan_bwd(x, dt, a, b, c, dy, dstate, states=None, *,
+                 chunk: int = 128, initial_state=None):
+    """The gradient of :func:`ssd_scan` given the outputs' gradients ``dy``
+    (B, S, H, P) and ``dstate`` (B, H, P, N, or None: no pull on the final
+    state): ``(dx, ddt, da, db, dc, dinit)``, dx, ddt, db, dc in the inputs'
+    dtype, da (H,) f32, dinit (B, H, P, N) f32, None without an
+    ``initial_state``.  On the card ``states`` is
+    :func:`ssd_scan_with_states`' for the same inputs and ``chunk``.  The
+    sums over heads, chunks and the batch take a fixed order: the same
+    inputs give the same bits."""
+    if x.device.type == "cpu":
+        out = ssd_bwd_ref(x, dt, a, b, c, dy, dstate, chunk=chunk,
+                          initial_state=initial_state)
+        return out[:5] + ((out[5],) if initial_state is not None else (None,))
+    if not x.is_cuda:
+        raise ValueError(f"ssd_scan_bwd runs on cuda or cpu, not {x.device}")
+    _check(x, dt, a, b, c, initial_state)
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    if dy.shape != x.shape or (dstate is not None
+                               and dstate.shape != (bsz, h, p, n)):
+        raise ValueError(f"dy {tuple(dy.shape)}, dstate "
+                         f"{None if dstate is None else tuple(dstate.shape)}"
+                         f": need {tuple(x.shape)} and {(bsz, h, p, n)}")
+    code = dtype_code(x.dtype)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    x, dt, b, c = (t.contiguous() for t in (x, dt, b, c))
+    dx, ddt, db, dc = (torch.empty_like(t) for t in (x, dt, b, c))
+    da = torch.empty((h,), **f32)
+    dinit = (None if initial_state is None
+             else torch.empty((bsz, h, p, n), **f32))
+    if not (bsz and s and h):
+        for t in (dx, ddt, db, dc, da):
+            t.zero_()
+        if dinit is not None:
+            dinit.copy_(dstate if dstate is not None else 0.0)
+        return dx, ddt, da, db, dc, dinit
+    pl = bwd_plan(bsz, s, h, p, n, chunk)
+    if states is None or states.numel() != bsz * pl.n_chunks * h * (
+            p * n + 1) or states.dtype != torch.float32:
+        raise ValueError("ssd_scan_bwd needs the forward's states at the "
+                         "backward's chunk (ssd_scan_with_states)")
+    a = a.to(**f32).contiguous()
+    dy = dy.to(**f32).contiguous()
+    if dstate is not None:
+        dstate = dstate.to(**f32).contiguous()
+    scratch = torch.empty(pl.scratch_floats, **f32)
+    launch("ssd_scan_bwd", x, "repro_ssd_scan_bwd", x.data_ptr(),
+           dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
+           dy.data_ptr(), None if dstate is None else dstate.data_ptr(),
+           states.data_ptr(), dx.data_ptr(), ddt.data_ptr(), db.data_ptr(),
+           dc.data_ptr(), da.data_ptr(),
+           None if dinit is None else dinit.data_ptr(), scratch.data_ptr(),
+           bsz, s, h, p, n, pl.chunk, pl.groups, code)
+    return dx, ddt, da, db, dc, dinit
 
 
 # one name for the module and its wrapper: calling the module calls it

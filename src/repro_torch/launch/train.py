@@ -5,16 +5,19 @@ Trains any registered architecture (full or ``--reduced``) with the train
 step (AdamW, remat, gradient accumulation, int8 gradient compression) on
 the synthetic data pipeline, on the card unless ``--device cpu`` is given.
 Prints the reference's ``[train] step i: loss=... lr=...`` lines and its
-``done: loss a -> b`` line.  Mamba-2 blocks (mamba2-1.3b, zamba2-2.7b)
-train on the CPU only for now (ROADMAP §A10e2).  The elastic flags
-(``--malleable``, ``--resize-every``, ``--fail-at``, ``--ckpt-dir``,
-``--resume``) need the elastic manager, which is ROADMAP §A10g: they exit 1.
+``done: loss a -> b`` line.  Every block kind trains on the card through
+the backward kernels, Mamba-2's (mamba2-1.3b, zamba2-2.7b) included.  The
+elastic flags (``--malleable``, ``--resize-every``, ``--fail-at``,
+``--ckpt-dir``, ``--resume``) need the elastic manager, which is ROADMAP
+§A10g: they exit 1.
 
 Examples:
   python -m repro_torch.launch.train --arch stablelm-1.6b --reduced \\
       --steps 50 --device cpu
   python -m repro_torch.launch.train --arch internvl2-2b --steps 8 \\
       --batch 4 --seq 512 --remat dots
+  python -m repro_torch.launch.train --arch zamba2-2.7b --steps 4 \\
+      --batch 4 --seq 512
 """
 from __future__ import annotations
 

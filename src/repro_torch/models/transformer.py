@@ -12,9 +12,9 @@ follow the JAX pytree: ``segments.<i>.<layer>.mixer.in_z`` is layer
 ``enc_segments.0.<layer>.attn.wq`` of ``enc_segments/0/attn/wq`` (see
 ``repro_torch.convert``).
 
-Training differentiates through the kernels' autograd functions (RMSNorm's
-and attention's backward kernels; the SSD scan has none yet, so Mamba-2
-blocks train on the CPU only: ROADMAP §A10e2).  ``remat`` checkpoints each
+Training differentiates through the kernels' autograd functions (the
+backward kernels of RMSNorm, attention and the Mamba-2 SSD scan).
+``remat`` checkpoints each
 layer as the JAX ``_remat`` does: ``"dots"`` keeps the layer's plain matrix
 products (``aten.mm`` / ``addmm``: XLA's dots with no batch dimensions) and
 recomputes the rest, ``"full"`` keeps nothing, ``"none"`` checkpoints

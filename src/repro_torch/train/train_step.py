@@ -13,9 +13,10 @@ The port of the JAX package's ``train/train_step.py``.
 The state is ``{"params": the LM (its parameters need gradients), "opt":
 the AdamW state keyed by parameter name, "ef": the residuals (with
 compress_grads)}``; a step updates it in place and returns it.  On a CUDA
-device the gradients of RMSNorm and attention come from their backward
-kernels; the SSD scan has none yet, so :func:`check_trainable` refuses a
-config with Mamba-2 blocks there (ROADMAP §A10e2) before any step.
+device the gradients of RMSNorm, attention and the Mamba-2 SSD scan come
+from their backward kernels; :func:`check_trainable` refuses, before any
+step, a config whose Mamba-2 blocks are wider than the SSD backward kernel
+takes (no registered one is).
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.elastic.compression import (compress_decompress,
                                              init_residuals)
+from repro_torch.kernels import ssd_scan as SSD
 from repro_torch.models import transformer as T
 
 from .optimizer import AdamWConfig, adamw_update, init_opt_state
@@ -44,15 +46,18 @@ class TrainConfig:
 
 
 def check_trainable(cfg: ModelConfig, device) -> None:
-    """Raise ``NotImplementedError`` for a config with Mamba-2 blocks (the
-    ``mamba`` kind, zamba2's hybrid stack) on a CUDA device: the SSD scan
-    has no backward kernel yet."""
+    """Raise ``ValueError`` for a config with Mamba-2 blocks (the ``mamba``
+    kind, zamba2's hybrid stack) of a head dim or a state wider than the
+    SSD backward kernel takes, on a CUDA device."""
     if torch.device(device).type == "cuda" and any(
             seg.kind == "mamba" for seg in T.decoder_plan(cfg)):
-        raise NotImplementedError(
-            f"{cfg.name}: training Mamba-2 blocks on the card needs the SSD "
-            "scan's backward kernel, which is ROADMAP §A10e2; train it with "
-            "device='cpu'")
+        dims = T._ssm_dims(cfg)
+        if (dims.headdim > SSD.MAX_HEADDIM
+                or dims.dstate > SSD.BWD_MAX_DSTATE):
+            raise ValueError(
+                f"{cfg.name}: Mamba-2 head dim {dims.headdim} and state "
+                f"{dims.dstate}; the SSD backward kernel takes up to "
+                f"{SSD.MAX_HEADDIM} and {SSD.BWD_MAX_DSTATE}")
 
 
 def loss_fn(model: T.LM, cfg: ModelConfig, batch, tc: TrainConfig):

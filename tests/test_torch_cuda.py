@@ -1,8 +1,8 @@
 """Card-only checks of the port: the CUDA kernels (the backward kernels of
-RMSNorm and attention too) against their plain versions, the scheduling
-engine on the card against the engine on the CPU, the reduced zamba2,
-olmoe and DeepSeek serving engines, reduced whisper and internvl2 through
-prefill / decode likewise, and one reduced train step card == CPU.
+RMSNorm, attention and the SSD scan too) against their plain versions, the
+scheduling engine on the card against the engine on the CPU, the reduced
+zamba2, olmoe and DeepSeek serving engines, reduced whisper and internvl2
+through prefill / decode likewise, and one reduced train step card == CPU.
 
 Every test here is marked ``cuda`` and skips without a CUDA device; this
 file imports no JAX, so it also runs where only PyTorch is installed:
@@ -662,23 +662,92 @@ def test_flash_attention_backward_kernel_matches_plain(
         assert torch.equal(got, g2)
 
 
+def _ssd_case(gen, dev, dtype, b, s, h, p, n, init):
+    """Seeded SSD inputs on the card, the outputs' gradients and an initial
+    state (or None)."""
+    args = (_rand(gen, b, s, h, p, dev=dev, dtype=dtype),
+            _rand(gen, b, s, h, dev=dev, dtype=dtype, lo=0.01, hi=0.5),
+            _rand(gen, h, dev=dev, lo=0.5, hi=2.0),
+            _rand(gen, b, s, n, dev=dev, dtype=dtype),
+            _rand(gen, b, s, n, dev=dev, dtype=dtype))
+    s0 = _rand(gen, b, h, p, n, dev=dev) if init else None
+    return args, _rand(gen, b, s, h, p, dev=dev), _rand(gen, b, h, p, n,
+                                                        dev=dev), s0
+
+
 @pytest.mark.cuda
 def test_ssd_scan_refuses_a_gradient_on_the_card(cuda_device):
-    from repro_torch.kernels.ssd_scan import ssd_scan
+    """The SSD scan takes a gradient on the card now (its backward
+    kernels): through autograd, every input's gradient is the plain
+    backward's within BWD_TOL, from one ssd_scan_bwd launch; without a
+    gradient it runs the forward alone."""
+    from repro_torch.kernels.ref import ssd_bwd_ref
+    from repro_torch.kernels.ssd_scan import bwd_plan, ssd_scan
     gen = torch.Generator().manual_seed(0)
-    x = _rand(gen, 1, 16, 2, 8, dev=cuda_device).requires_grad_()
-    dt = _rand(gen, 1, 16, 2, dev=cuda_device, lo=0.1, hi=0.5)
-    a = _rand(gen, 2, dev=cuda_device, lo=0.5, hi=1.0)
-    bc = _rand(gen, 1, 16, 4, dev=cuda_device)
-    with pytest.raises(NotImplementedError, match="A10e2"):
-        ssd_scan(x, dt, a, bc, bc)
+    args, dy, dstate, s0 = _ssd_case(gen, cuda_device, torch.float32, 1, 16,
+                                     2, 8, 4, True)
+    ins = [t.clone().requires_grad_() for t in args + (s0,)]
+    before = build.LAUNCH_COUNTS["ssd_scan_bwd"]
+    y, state = ssd_scan(*ins[:5], initial_state=ins[5])
+    torch.autograd.backward((y, state), (dy, dstate))
+    torch.cuda.synchronize()
+    assert build.LAUNCH_COUNTS["ssd_scan_bwd"] == before + 1
+    ref = ssd_bwd_ref(*args, dy, dstate, chunk=bwd_plan(1, 16, 2, 8, 4).chunk,
+                      initial_state=s0)
+    for name, t, r in zip(("dx", "ddt", "da", "db", "dc", "dinit"), ins,
+                          ref):
+        assert t.grad.dtype == t.dtype
+        _close_to_max(t.grad, r, BWD_TOL[torch.float32], name)
     with torch.no_grad():
-        assert ssd_scan(x, dt, a, bc, bc)[0].shape == (1, 16, 2, 8)
+        assert ssd_scan(*ins[:5])[0].shape == (1, 16, 2, 8)
+    assert build.LAUNCH_COUNTS["ssd_scan_bwd"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,p,n,init,pull", [
+    (1, 200, 4, 64, 64, False, True), (2, 50, 3, 16, 16, True, True),
+    (1, 130, 2, 64, 128, False, False), (1, 37, 4, 64, 64, True, True),
+    (2, 300, 6, 64, 64, True, False), (1, 700, 80, 64, 64, False, True),
+    (4, 512, 8, 64, 64, False, False)])
+def test_ssd_scan_backward_kernel_matches_plain(cuda_device, dtype, b, s, h,
+                                                p, n, init, pull):
+    """The training forward (at the backward's chunk) against the plain
+    forward at that chunk, within the forward's tolerance; the backward
+    kernels on its saved states against the plain backward: every output
+    within BWD_TOL of its largest |ref|, in the inputs' dtype (da and dinit
+    f32), and the same bits on a second call."""
+    from repro_torch.kernels.ref import ssd_bwd_ref, ssd_ref
+    from repro_torch.kernels.ssd_scan import (bwd_plan, ssd_scan_bwd,
+                                              ssd_scan_with_states)
+    gen = torch.Generator().manual_seed(s + h)
+    args, dy, dstate, s0 = _ssd_case(gen, cuda_device, dtype, b, s, h, p, n,
+                                     init)
+    dstate = dstate if pull else None
+    chunk = bwd_plan(b, s, h, p, n).chunk
+    y, state, states = ssd_scan_with_states(*args, initial_state=s0)
+    for g, r in zip((y, state), ssd_ref(*args, chunk=chunk,
+                                        initial_state=s0)):
+        _close(g, r, LLM_TOL[dtype][1])
+    got = ssd_scan_bwd(*args, dy, dstate, states, initial_state=s0)
+    ref = ssd_bwd_ref(*args, dy, dstate, chunk=chunk, initial_state=s0)
+    for name, g, r in zip(("dx", "ddt", "da", "db", "dc", "dinit"), got,
+                          ref):
+        if not init and name == "dinit":
+            assert g is None
+            continue
+        want = torch.float32 if name in ("da", "dinit") else dtype
+        assert g.dtype == want, name
+        _close_to_max(g, r, BWD_TOL[dtype], name)
+    again = ssd_scan_bwd(*args, dy, dstate, states, initial_state=s0)
+    for g, g2 in zip(got, again):
+        assert g is None or torch.equal(g, g2)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["stablelm-1.6b", "internvl2-2b",
-                                  "olmoe-1b-7b", "whisper-large-v3"])
+                                  "olmoe-1b-7b", "whisper-large-v3",
+                                  "mamba2-1.3b", "zamba2-2.7b"])
 def test_reduced_train_step_on_card_matches_cpu(cuda_device, arch):
     """One f32 train step of the reduced config, the same seeded weights
     and batch on the card (the backward kernels) and on the CPU: loss,

@@ -211,19 +211,18 @@ def test_llm_moe_and_mla_build(arch):
 
 
 def test_llm_training_raises_not_implemented():
-    """Training is ported (A10e) but for Mamba-2 blocks on the card: the
-    train-step check refuses a Mamba config for a ``cuda`` device, before
-    any step and without a card, and passes a dense one."""
-    from repro_torch.configs import get_config
+    """Training is ported (A10e), Mamba-2 blocks on the card too (A10e2):
+    the train-step check passes every registered config, published and
+    reduced, for a ``cuda`` device and the CPU, without a card, and names
+    no ROADMAP item."""
+    from repro_torch.configs import get_config, list_archs
     from repro_torch.train.train_step import (TrainConfig, check_trainable,
                                               init_train_state)
-    for arch in ("mamba2-1.3b", "zamba2-2.7b"):
-        cfg = get_config(arch).reduced()
-        with pytest.raises(NotImplementedError, match="ROADMAP §A10e2"):
+    for arch in list_archs():
+        for cfg in (get_config(arch), get_config(arch).reduced()):
             check_trainable(cfg, "cuda")
-        check_trainable(cfg, "cpu")
-    check_trainable(get_config("internvl2-2b").reduced(), "cuda")
-    state = init_train_state(get_config("stablelm-1.6b").reduced(),
+            check_trainable(cfg, "cpu")
+    state = init_train_state(get_config("zamba2-2.7b").reduced(),
                              TrainConfig(), torch.Generator().manual_seed(0),
                              "cpu")
     assert all(p.requires_grad for p in state["params"].parameters())
@@ -378,8 +377,10 @@ def test_chip_smoke_main_lane_sets_cover_every_greedy_strategy():
     # the phases after it at their least scales would not
     ("registry_scale", 700.0, 6.80e-3, 0.05),
     # an H100 final-tree smoke at 6.53 ms a greedy step kept 0.1 from about
-    # here (its registry took ~230 s; the smoke ended at 1,183.7 s)
+    # here (its registry took ~230 s; the smoke ended at 1,183.7 s), and
+    # one at 5.72 ms from ~490 s (~216 s; it ended at 1,161.2 s)
     ("registry_scale", 480.0, 6.53e-3, 0.05),
+    ("registry_scale", 490.0, 5.72e-3, 0.05),
     ("registry_scale", 0.0, None, 0.1),
     ("whatif_scale", 600.0, 5.0e-3, 0.1),
     ("whatif_scale", 800.0, 3.84e-3, 0.1),
@@ -393,6 +394,24 @@ def test_chip_smoke_cuts_theta_phases_only_when_they_cannot_fit(
     haswell; what-if (d): dense and haswell)."""
     report = {} if rate is None else {"greedy_s_per_step": rate}
     assert getattr(_load_chip_smoke(), rule)(report, elapsed_s) == scale
+
+
+@pytest.mark.parametrize("elapsed_s,rate,steps", [
+    # a 4.90 ms host reaching (c') at ~450 s: every step
+    (450.0, 4.90e-3, 6), (300.0, 6.53e-3, 6),
+    # a 6.53 ms host there at ~550 s (PR 26's final tree's train phase
+    # began near 500 s): the phases after it at their least scales take
+    # ~600 s, so (c') keeps its least steps; never fewer, never skipped
+    (550.0, 6.53e-3, 4), (1100.0, 6.88e-3, 4), (0.0, None, 6)])
+def test_chip_smoke_cuts_the_zamba2_steps_only_when_they_cannot_fit(
+        elapsed_s, rate, steps):
+    """The train phase's (c') zamba2-2.7b run keeps its 6 steps or cuts to
+    4 where the time left would not hold them and the phases after it at
+    their least scales; the cut is reported."""
+    smoke = _load_chip_smoke()
+    report = {} if rate is None else {"greedy_s_per_step": rate}
+    got, cut = smoke.train_steps(report, elapsed_s, smoke.TRAIN_ZAMBA2)
+    assert got == steps and cut == (steps < smoke.TRAIN_ZAMBA2["steps"])
 
 
 @pytest.mark.parametrize("case", [

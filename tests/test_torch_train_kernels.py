@@ -11,16 +11,18 @@ functions around the kernels, on the CPU.
   +inf for a row that sees no key.
 * the wrappers as autograd functions: their gradients are the plain
   backward versions' on the CPU; the attention backward refuses decode's
-  ``q_offset`` / ``kv_valid_len``; ``ssd_scan`` stays differentiable on
-  the CPU (the card refuses it: ``tests/test_torch_cuda.py``).
-* ``check_trainable``: a Mamba-2 config is refused on a CUDA device, a
-  dense one is not (no card needed: the device's type decides).
+  ``q_offset`` / ``kv_valid_len``; ``ssd_scan`` is differentiable on the
+  CPU (``tests/test_torch_ssd_bwd.py`` holds its backward).
+* ``check_trainable``: every registered config passes on a CUDA device,
+  Mamba-2's too; a Mamba-2 state wider than the SSD backward kernel takes
+  is refused there (no card needed: the device's type decides).
 * ``bwd_plan``, the Python mirror of the backward's launch choices, at
   every head-dim bucket in f32 and bf16 (shared memory within the card's,
   bf16 on wgmma, f32 on mma.sync, one dK / dV launch), and the kernels'
   walks (``bwd_query_range`` / ``bwd_key_range``) and block predicates
   (``bwd_kv_block`` / ``bwd_q_block``) against a brute-force mask.
 """
+import dataclasses
 import math
 
 import pytest
@@ -150,17 +152,23 @@ def test_ssd_scan_is_differentiable_on_the_cpu():
     assert x.grad.shape == x.shape and torch.isfinite(x.grad).all()
 
 
-@pytest.mark.parametrize("arch,refused", [
+@pytest.mark.parametrize("arch,mamba", [
     ("mamba2-1.3b", True), ("zamba2-2.7b", True), ("stablelm-1.6b", False),
     ("deepseek-v2-236b", False), ("whisper-large-v3", False)])
-def test_check_trainable_refuses_mamba_blocks_on_the_card(arch, refused):
+def test_check_trainable_refuses_mamba_blocks_on_the_card(arch, mamba):
+    """The SSD scan has a backward kernel, so every config trains on a CUDA
+    device, published and reduced, Mamba-2 blocks included; what the card
+    refuses is a Mamba-2 block wider than that kernel takes (a state past
+    128), which the CPU trains."""
     cfg = get_config(arch).reduced()
     check_trainable(cfg, "cpu")
-    if refused:
-        with pytest.raises(NotImplementedError, match="ROADMAP §A10e2"):
-            check_trainable(cfg, "cuda")
-    else:
-        check_trainable(cfg, torch.device("cuda"))
+    check_trainable(cfg, torch.device("cuda"))
+    check_trainable(get_config(arch), "cuda")
+    if mamba:
+        wide = dataclasses.replace(cfg, ssm_state=256)
+        with pytest.raises(ValueError, match="SSD backward kernel"):
+            check_trainable(wide, "cuda")
+        check_trainable(wide, "cpu")
 
 
 BWD_DIMS = [(dk, dv) for dk in (20, 48, 64, 80, 128, 192, 256)
