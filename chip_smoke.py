@@ -2600,9 +2600,10 @@ def ssd_bwd_plan_text(args):
     p = bwd_plan(*x.shape, b.shape[-1])
     return (f"plan chunk {p.chunk} ({p.n_chunks} chunks), {p.groups} head "
             f"groups a chunk (<= {p.heads_per_cta} heads a CTA), "
-            f"{p.scan_ctas} chunk-scan CTAs of {p.smem_bytes} B shared, "
-            f"{p.pass_ctas} state-pass CTAs, scratch "
-            f"{4 * p.scratch_floats} B, saved states "
+            f"{p.scan_ctas} chunk-scan CTAs of {p.smem_bytes} B shared "
+            f"({p.tile_sets} set(s) of head tiles), {p.state_ctas} state "
+            f"CTAs of {p.state_threads} threads and {p.state_smem_bytes} B, "
+            f"scratch {4 * p.scratch_floats} B, saved states "
             f"{4 * states.numel()} B"), p
 
 
@@ -2932,8 +2933,8 @@ def device_split(prof):
                                     "combine_kernel"),
               "attention backward": ("dkdv_", "dq_kernel", "dq_wg_kernel",
                                      "delta_kernel"),
-              "ssd backward": ("ssd_dstate_kernel", "ssd_bwd_pass_kernel",
-                               "ssd_scan_bwd_kernel", "ssd_bwd_sum_kernel"),
+              "ssd backward": ("ssd_bwd_state_kernel", "ssd_scan_bwd_kernel",
+                               "ssd_bwd_sum_kernel"),
               "ssd forward": ("state_kernel", "pass_kernel", "scan_kernel"),
               "optimizer": ("multi_tensor_apply", "foreach")}
     out = dict.fromkeys(list(groups) + ["other"], 0.0)
@@ -4476,31 +4477,78 @@ def rmsnorm_bwd_per_cta(x, scale, dy, eps=1e-6):
     return dx, dw
 
 
-def phase_bwd_ab(report, csrc):
+def ssd_scan_bwd_cuda_core(x, dt, a, b, c, dy, dstate, states, *,
+                           initial_state=None):
+    """``repro_ssd_scan_bwd`` called as the CUDA-core backward's wrapper
+    called it, for an ``--ab-csrc`` tree whose ``ssd_scan_bwd.cu`` runs four
+    kernels (the pulls on the states, the reverse pass, the chunk scan on
+    CUDA-core tiles, the sums): the same C parameters, a scratch that also
+    holds the pulls G and the pass's per-CTA dot partials.  Its plan picked
+    the chunk and head groups this tree's does at ``SSD_BWD_SHAPES`` (64, a
+    wave of the SMs)."""
+    import torch
+    from repro_torch.kernels.build import dtype_code, launch
+    from repro_torch.kernels.ssd_scan import SMS, bwd_plan
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    L = bwd_plan(bsz, s, h, p, n).chunk
+    if L != 64:
+        raise ValueError(f"the CUDA-core backward's plan runs chunk 64 "
+                         f"here, not {L}")
+    nc = -(-s // L)
+    q = bsz * nc
+    groups = max(1, min(h, SMS // q))
+    x_ctas = -(-p * n // 256)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    scratch = torch.empty(bsz * nc * h * (p * n + x_ctas + 1)
+                          + 2 * q * groups * L * n, **f32)
+    dx, ddt, db, dc = (torch.empty_like(t) for t in (x, dt, b, c))
+    da = torch.empty((h,), **f32)
+    dinit = (None if initial_state is None
+             else torch.empty((bsz, h, p, n), **f32))
+    launch("ssd_scan_bwd", x, "repro_ssd_scan_bwd", x.data_ptr(),
+           dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
+           dy.data_ptr(), None if dstate is None else dstate.data_ptr(),
+           states.data_ptr(), dx.data_ptr(), ddt.data_ptr(), db.data_ptr(),
+           dc.data_ptr(), da.data_ptr(),
+           None if dinit is None else dinit.data_ptr(), scratch.data_ptr(),
+           bsz, s, h, p, n, L, groups, dtype_code(x.dtype))
+    return dx, ddt, da, db, dc, dinit
+
+
+def phase_bwd_ab(report, csrc, kernels=None):
     """Opt-in (``--phases env,bwd-ab``): the backward kernels of this tree
     against another tree's (``--ab-csrc``: that tree's
     ``src/repro_torch/kernels/csrc``, say the parent commit's, unpacked
     with ``git archive`` into a directory that .gitignore lists; its
     library is built beside it), in one process on one card: the backward
-    kernels the other tree has, the RMSNorm backward at
-    ``RMS_BWD_SHAPES`` and the attention backward at ``ATTN_BWD_SHAPES``,
-    in bf16 and f32: device time (a CUDA graph of 20 calls) in turns other
-    / this / this / other, both held to the plain backward, then each
-    kernel's device time a launch under torch.profiler (10 eager calls,
-    memsets included).
+    kernels the other tree has (of ``kernels``, by default all three),
+    the RMSNorm backward at ``RMS_BWD_SHAPES``, the attention backward at
+    ``ATTN_BWD_SHAPES`` and the SSD scan's at ``SSD_BWD_SHAPES``, in bf16
+    and f32: device time (a CUDA graph of 20 calls) in turns other / this
+    / this / other, both held to the plain backward, then each kernel's
+    device time a launch under torch.profiler (10 eager calls, memsets
+    included).
     A tree whose RMSNorm backward lives in ``rmsnorm.cu`` is called as its
-    wrapper called it (:func:`rmsnorm_bwd_per_cta`)."""
+    wrapper called it (:func:`rmsnorm_bwd_per_cta`), and one whose SSD
+    backward runs a reverse pass kernel as its wrapper called it
+    (:func:`ssd_scan_bwd_cuda_core`)."""
     import torch
     from repro_torch.kernels import build, ref
     from repro_torch.kernels.flash_attention import flash_attention_bwd
     from repro_torch.kernels.rmsnorm import rmsnorm_bwd
+    from repro_torch.kernels.ssd_scan import bwd_plan, ssd_scan_bwd
     other_dir = pathlib.Path(csrc).resolve()
+    wanted = kernels or ("rmsnorm_bwd", "flash_attention_bwd",
+                         "ssd_scan_bwd")
     has = {"rmsnorm_bwd": (other_dir / "rmsnorm.cu").is_file(),
            "flash_attention_bwd": (other_dir /
-                                   "flash_attention_bwd.cu").is_file()}
+                                   "flash_attention_bwd.cu").is_file(),
+           "ssd_scan_bwd": (other_dir / "ssd_scan_bwd.cu").is_file()}
+    has = {k: v and k in wanted for k, v in has.items()}
     if not any(has.values()):
-        raise FileNotFoundError(f"--ab-csrc {csrc}: no rmsnorm.cu or "
-                                "flash_attention_bwd.cu")
+        raise FileNotFoundError(f"--ab-csrc {csrc}: none of {wanted}'s "
+                                "sources")
     mine = build.load_library()
     saved = build.CSRC, build.SOURCES, build.HEADERS, build._SIGNATURES
     build.CSRC = other_dir
@@ -4523,21 +4571,35 @@ def phase_bwd_ab(report, csrc):
         build._LIB = mine
     libs = {"other": other, "this": mine}
     per_cta = not (other_dir / "rmsnorm_bwd.cu").is_file()
+    ssd_cuda_core = has["ssd_scan_bwd"] and "ssd_bwd_pass_kernel" in (
+        other_dir / "ssd_scan_bwd.cu").read_text()
+
+    def ssd_this(a, kw):
+        return ssd_scan_bwd(*a, **kw)
+
+    def ssd_plain(a, kw):
+        x, b = a[0], a[3]
+        return ref.ssd_bwd_ref(*a[:7], chunk=bwd_plan(*x.shape,
+                                                      b.shape[-1]).chunk,
+                               initial_state=kw.get("initial_state"))
     calls = {
         "rmsnorm_bwd": {"this": lambda a, kw: rmsnorm_bwd(*a),
                         "other": (lambda a, kw: rmsnorm_bwd_per_cta(*a))
                         if per_cta else (lambda a, kw: rmsnorm_bwd(*a))},
         "flash_attention_bwd": dict.fromkeys(
-            libs, lambda a, kw: flash_attention_bwd(*a, **kw))}
+            libs, lambda a, kw: flash_attention_bwd(*a, **kw)),
+        "ssd_scan_bwd": {"this": ssd_this,
+                         "other": (lambda a, kw: ssd_scan_bwd_cuda_core(
+                             *a, **kw)) if ssd_cuda_core else ssd_this}}
     plains = {"rmsnorm_bwd": lambda a, kw: ref.rmsnorm_bwd_ref(*a),
               "flash_attention_bwd": lambda a, kw: ref.attention_bwd_ref(
-                  *a, **kw)}
-    names = {"rmsnorm_bwd": ("dx", "dscale"),
-             "flash_attention_bwd": ("dq", "dk", "dv")}
+                  *a, **kw),
+              "ssd_scan_bwd": ssd_plain}
     rows = []
     gen = torch.Generator().manual_seed(25)
     for kernel, shapes in (("rmsnorm_bwd", RMS_BWD_SHAPES),
-                           ("flash_attention_bwd", ATTN_BWD_SHAPES)):
+                           ("flash_attention_bwd", ATTN_BWD_SHAPES),
+                           ("ssd_scan_bwd", SSD_BWD_SHAPES)):
         if not has[kernel]:
             continue
         for dtype in (torch.bfloat16, torch.float32):
@@ -4555,9 +4617,11 @@ def phase_bwd_ab(report, csrc):
                 for name, lib in libs.items():
                     build._LIB = lib
                     fn = calls[kernel][name]
-                    for n, g, r in zip(names[kernel], fn(args, kw), want):
-                        max_rel_err(g, r, BWD_TOL[dname],
-                                    f"bwd-ab {name} {label} {dname} {n}")
+                    for n, g, r in zip(BWD_OUTPUTS[kernel], fn(args, kw),
+                                       want):
+                        if g is not None:
+                            max_rel_err(g, r, BWD_TOL[dname],
+                                        f"bwd-ab {name} {label} {dname} {n}")
                     row["by_kernel_ms"][name] = by_kernel_ms(
                         lambda: fn(args, kw))
                 build._LIB = mine
@@ -4577,6 +4641,341 @@ def phase_bwd_ab(report, csrc):
     report["bwd_ab"] = {"other_csrc": str(other_dir), "rows": rows}
 
 
+# (old, new) edits of csrc/ssd_scan_bwd.cu, each matching it once
+_SSD_SCAN_LOOP = ("for (int k0 = 0; k0 < pp; k0 += 8) {\n"
+                  "      const float2 v0 = ")
+SSD_VARIANTS = {
+    "base": [],
+    "no_head_copies": [("  const auto stage_head = [&](int h, int set) {\n",
+                        "  const auto stage_head = [&](int h, int set) {\n"
+                        "    return;\n")],
+    "no_scalar_steps": [
+        ("  const auto cum_step = [&](int h, float* vec, float d0, float d1) "
+         "{\n", "  const auto cum_step = [&](int h, float* vec, float d0, "
+         "float d1) {\n    return;\n"),
+        ("  const auto tail_step = [&](int h, const float* pt, "
+         "const float* vec) {\n",
+         "  const auto tail_step = [&](int h, const float* pt, "
+         "const float* vec) {\n    return;\n")],
+    "no_q_z": [(_SSD_SCAN_LOOP + "ld2(dys",
+                _SSD_SCAN_LOOP.replace("k0 < pp", "k0 < 0") + "ld2(dys")],
+    "no_xds": [("for (int k0 = 0; k0 < pp; k0 += 8) {\n        const float2 "
+                "v0 = ld2(xs",
+                "for (int k0 = 0; k0 < 0; k0 += 8) {\n        const float2 "
+                "v0 = ld2(xs")],
+    "no_dsb": [("for (int k0 = 0; k0 < np; k0 += 8) {\n      const float2 "
+                "v0 = ld2(bs",
+                "for (int k0 = 0; k0 < 0; k0 += 8) {\n      const float2 "
+                "v0 = ld2(bs")],
+    "no_wt_dy": [("for (int k0 = r0; k0 < lt; k0 += 8) {\n      const int ta",
+                  "for (int k0 = r0; k0 < r0; k0 += 8) {\n      const int ta")],
+    "no_decays": [("for (int tt = warp; tt < lt; tt += kMmaWarps) {",
+                   "for (int tt = warp; tt < 0; tt += kMmaWarps) {")],
+    "no_dot": [("for (int p = warp; p < pp; p += kMmaWarps) {",
+                "for (int p = warp; p < 0; p += kMmaWarps) {")],
+    "sync_head_copies": [
+        ("    if (sets == 2 && h + 1 < h_hi) stage_head(h + 1, nxt);\n",
+         "    if (sets == 2 && h + 1 < h_hi) stage_head(h + 1, nxt);\n"
+         "    cp_async_wait<0>();\n")],
+    "no_state_mma": [("mma_tiles<false, kBf16, 8>(carry, ah, al, b0, b1, "
+                      "valid);", "")],
+    "no_state_copies": [("  const auto stage_chunk = [&](int c, int buf) {\n",
+                         "  const auto stage_chunk = [&](int c, int buf) {\n"
+                         "    return;\n")],
+    "no_state_ds_stores": [("        if (p < P && n < N) out[p * N + n] = "
+                            "carry[i][e];", "")],
+}
+
+# The other route for the state work: each chunk's pull G_c on the state
+# before it by its own CTA (a (batch, chunk, head)) into the dS slots, then
+# a reverse pass that carries 4 elements a thread and loads 8 chunks' pulls
+# ahead of its chain (ssd_scan.cu's pass_kernel<4> pattern) and writes dS
+# over G.  <dS, before> stays in the chunk-scan kernel.  Timed beside the
+# fused ssd_bwd_state_kernel; it computes the same function, so its outputs
+# are held to the plain backward too.
+_SSD_PASS_KERNELS = r"""
+template <typename T>
+__global__ void __launch_bounds__(kStateMaxThreads)
+    variant_pull_kernel(SsdBwdArgs a, int NC, int flags) {
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* sm = reinterpret_cast<float*>(smem);
+  const int L = a.L, P = a.P, N = a.N, H = a.H;
+  const int lt = pad16(L), pp = pad16(P), np = pad16(N);
+  const int sdy = pp + 4, sc = np + static_cast<int>(16 / sizeof(T));
+  float* dyt = sm;
+  T* ct = reinterpret_cast<T*>(sm + lt * sdy);
+  float* dts = sm + lt * (pp + 4 + np + 4);
+  float* ec = dts + lt;
+  const int bch = blockIdx.x, h = bch % H, c = (bch / H) % NC;
+  const int b = bch / (H * NC);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int mts = pp / 16, p0 = 16 * (warp % mts), n0 = 8 * (warp / mts);
+  const int rows = min(L, a.S - c * L);
+  const long long tok0 = static_cast<long long>(b) * a.S + c * L;
+  stage_tile<float>(dyt, sdy, a.dy + (tok0 * H + h) * P,
+                    static_cast<long long>(H) * P, rows, lt, P, pp,
+                    flags & kVecDy);
+  stage_tile<T>(ct, sc, static_cast<const T*>(a.c) + tok0 * N, N, rows, lt,
+                N, np, flags & kVecBC);
+  cp_async_commit();
+  const T* dt = static_cast<const T*>(a.dt);
+  for (int u = threadIdx.x; u < lt; u += blockDim.x) {
+    dts[u] = u < rows ? to_f32(dt[(tok0 + u) * H + h]) : 0.f;
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  if (threadIdx.x == 0) chunk_cumsum(dts, ec, lt, -a.a[h]);
+  __syncthreads();
+  for (int u = threadIdx.x; u < lt; u += blockDim.x) ec[u] = expf(ec[u]);
+  __syncthreads();
+  const unsigned valid = (1u << min(8, max(0, np / 8 - n0))) - 1;
+  float acc[8][4] = {};
+  for (int k0 = 0; k0 < lt; k0 += 8) {
+    const int ta = k0 + 2 * t, tb = ta + 1;
+    const float ea = ec[ta], eb = ec[tb];
+    const float* ya = dyt + ta * sdy + p0 + g;
+    const float* yb = dyt + tb * sdy + p0 + g;
+    uint32_t ah[4], al[4];
+    split_frag<false>(ea * ya[0], ea * ya[8], eb * yb[0], eb * yb[8], ah,
+                      al);
+    float b0[8], b1[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int col = min((n0 + i) * 8, np - 8) + g;
+      b0[i] = to_f32(ct[ta * sc + col]);
+      b1[i] = to_f32(ct[tb * sc + col]);
+    }
+    mma_tiles<false, kBf16, 8>(acc, ah, al, b0, b1, valid);
+  }
+  float* out = scratch_of(a, NC).ds + static_cast<long long>(bch) * P * N;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int p = p0 + g + (e >> 1) * 8;
+      const int n = (n0 + i) * 8 + 2 * t + (e & 1);
+      if (p < P && n < N) out[p * N + n] = acc[i][e];
+    }
+  }
+}
+
+__global__ void __launch_bounds__(256) variant_pass_kernel(SsdBwdArgs a,
+                                                           int NC, int X) {
+  const int PN = a.P * a.N;
+  const int e = (blockIdx.x % X * 256 + threadIdx.x) * 4;
+  const long long hb = blockIdx.x / X;
+  const int b = static_cast<int>(hb / a.H), h = static_cast<int>(hb % a.H);
+  if (e >= PN) return;
+  float4 carry = a.dstate
+      ? *reinterpret_cast<const float4*>(a.dstate + hb * PN + e)
+      : make_float4(0.f, 0.f, 0.f, 0.f);
+  float* ds = scratch_of(a, NC).ds;
+  const float* cum_last =
+      a.states + static_cast<long long>(a.B) * NC * a.H * PN;
+  for (int c0 = NC - 1; c0 >= 0; c0 -= 8) {
+    float4 gv[8];
+    float d[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const long long bc = (static_cast<long long>(b) * NC + c0 - j) * a.H + h;
+      if (c0 - j >= 0) {
+        gv[j] = *reinterpret_cast<const float4*>(ds + bc * PN + e);
+        d[j] = expf(cum_last[bc]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const long long bc = (static_cast<long long>(b) * NC + c0 - j) * a.H + h;
+      if (c0 - j >= 0) {
+        *reinterpret_cast<float4*>(ds + bc * PN + e) = carry;
+        carry.x = carry.x * d[j] + gv[j].x;
+        carry.y = carry.y * d[j] + gv[j].y;
+        carry.z = carry.z * d[j] + gv[j].z;
+        carry.w = carry.w * d[j] + gv[j].w;
+      }
+    }
+  }
+  if (a.dinit) *reinterpret_cast<float4*>(a.dinit + hb * PN + e) = carry;
+}
+
+"""
+_SSD_STATE_LAUNCH = """  size_t smem = state_smem_bytes(a.L, a.P, a.N);
+  cudaError_t err =
+      allow_smem<ssd_bwd_state_kernel<T, kLT, kPP, kNP>>(smem);
+  if (err != cudaSuccess) return err;
+  err = launch(ssd_bwd_state_kernel<T, kLT, kPP, kNP>,
+               static_cast<long long>(a.B) * a.H, state_threads(a.P, a.N),
+               smem, stream, a, NC, flags);
+  if (err != cudaSuccess) return err;
+"""
+_SSD_PASS_LAUNCH = """  const int lt_ = pad16(a.L);
+  size_t smem = sizeof(float) *
+                (lt_ * (pad16(a.P) + 4 + pad16(a.N) + 4) + 2 * lt_);
+  cudaError_t err = allow_smem<variant_pull_kernel<T>>(smem);
+  if (err != cudaSuccess) return err;
+  err = launch(variant_pull_kernel<T>, static_cast<long long>(a.B) * NC * a.H,
+               state_threads(a.P, a.N), smem, stream, a, NC, flags);
+  if (err != cudaSuccess) return err;
+  const int X = (a.P * a.N / 4 + 255) / 256;
+  err = launch(variant_pass_kernel, static_cast<long long>(a.B) * a.H * X,
+               256, 0, stream, a, NC, X);
+  if (err != cudaSuccess) return err;
+"""
+SSD_VARIANTS["load_ahead_pass"] = [
+    ("// --------------------------------------------------------------- "
+     "launch\n", _SSD_PASS_KERNELS + "// ------------------------------------"
+     "--------------------------- launch\n"),
+    (_SSD_STATE_LAUNCH, _SSD_PASS_LAUNCH)]
+# the variants that compute the backward: their outputs are checked
+SSD_VARIANTS_CORRECT = ("base", "load_ahead_pass")
+
+_SSD_VARIANT_SHIM = r"""
+#include "kernels.h"
+extern "C" int variant_ssd_scan_bwd(
+    const void* x, const void* dt, const void* a_rate, const void* b,
+    const void* c, const void* dy, const void* dstate, const void* states,
+    void* dx, void* ddt, void* db, void* dc, void* da, void* dinit,
+    void* scratch, int B, int S, int H, int P, int N, int L, int groups,
+    int dtype, void* stream) {
+  repro::SsdBwdArgs a;
+  a.x = x; a.dt = dt; a.a = static_cast<const float*>(a_rate); a.b = b;
+  a.c = c; a.dy = static_cast<const float*>(dy);
+  a.dstate = static_cast<const float*>(dstate);
+  a.states = static_cast<const float*>(states); a.dx = dx; a.ddt = ddt;
+  a.db = db; a.dc = dc; a.da = static_cast<float*>(da);
+  a.dinit = static_cast<float*>(dinit);
+  a.scratch = static_cast<float*>(scratch);
+  a.B = B; a.S = S; a.H = H; a.P = P; a.N = N; a.L = L; a.groups = groups;
+  return static_cast<int>(repro::launch_ssd_scan_bwd(
+      a, dtype, static_cast<cudaStream_t>(stream)));
+}
+"""
+
+
+def ssd_variant_libs(names, out: pathlib.Path) -> dict:
+    """{name: ctypes library} for each variant of ``SSD_VARIANTS``, built
+    in parallel (its ``ssd_scan_bwd.cu`` and a C entry point of its own,
+    one nvcc each)."""
+    import ctypes
+    import shutil
+    from repro_torch.kernels import build
+    src = (build.CSRC / "ssd_scan_bwd.cu").read_text()
+    nvcc = build._nvcc()
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        d = out / name
+        shutil.rmtree(d, ignore_errors=True)
+        shutil.copytree(build.CSRC, d)
+        text = src
+        for old, new in SSD_VARIANTS[name]:
+            if text.count(old) != 1:
+                raise ValueError(f"variant {name}: {old!r} matches "
+                                 f"{text.count(old)} times")
+            text = text.replace(old, new)
+        (d / "ssd_scan_bwd.cu").write_text(text)
+        (d / "shim.cu").write_text(_SSD_VARIANT_SHIM)
+        flags = [f for f in build.NVCC_FLAGS if f != "-Xptxas=-v"]
+        cmd = (f"{nvcc} {' '.join(flags)} -I {d} -c {d / 'ssd_scan_bwd.cu'} "
+               f"-o {d / 'k.o'} && {nvcc} {' '.join(flags)} -I {d} -c "
+               f"{d / 'shim.cu'} -o {d / 's.o'} && {nvcc} -shared "
+               f"-gencode=arch=compute_90a,code=sm_90a {d / 'k.o'} "
+               f"{d / 's.o'} -o {d / 'lib.so'}")
+        procs[name] = subprocess.Popen(cmd, shell=True, text=True,
+                                       stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT)
+    libs = {}
+    for name, proc in procs.items():
+        text, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"variant {name} did not build:\n{text}")
+        lib = ctypes.CDLL(str(out / name / "lib.so"))
+        lib.variant_ssd_scan_bwd.argtypes = (
+            build._SIGNATURES["repro_ssd_scan_bwd"])
+        lib.variant_ssd_scan_bwd.restype = ctypes.c_int
+        libs[name] = lib
+    return libs
+
+
+def ssd_variant_call(lib, args, kw):
+    """One backward call through a variant, as ``ssd_scan_bwd`` makes it
+    (no initial state)."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels.ssd_scan import bwd_plan
+    x, dt, a, b, c, dy, dstate, states = args
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    pl = bwd_plan(bsz, s, h, p, n)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx, ddt, db, dc = (torch.empty_like(t) for t in (x, dt, b, c))
+    da = torch.empty((h,), **f32)
+    scratch = torch.empty(pl.scratch_floats, **f32)
+    err = lib.variant_ssd_scan_bwd(
+        x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
+        c.data_ptr(), dy.data_ptr(), dstate.data_ptr(), states.data_ptr(),
+        dx.data_ptr(), ddt.data_ptr(), db.data_ptr(), dc.data_ptr(),
+        da.data_ptr(), None, scratch.data_ptr(), bsz, s, h, p, n, pl.chunk,
+        pl.groups, build.dtype_code(x.dtype),
+        torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"variant launch failed: {err}")
+    return dx, ddt, da, db, dc
+
+
+def phase_ssd_variants(report):
+    """Opt-in (``--phases env,ssd-variants``): where the SSD backward's time
+    goes, at zamba2-2.7b's training call (``SSD_BWD_SHAPES``' first row),
+    f32 and bf16.  Each variant of ``SSD_VARIANTS`` is the kernel's source
+    with textual edits, one phase cut out (what it computes is wrong by
+    design, only its device time is read) or, for ``load_ahead_pass``, the
+    chunks' pulls and the state pass as two kernels (held to the plain
+    backward, as ``base`` is).  Device time: a CUDA graph of 20 calls, the
+    variants in turns, then again in reverse; by kernel: torch.profiler
+    over 10 eager calls.  Each variant builds alone into
+    ``build/ssd_variants``."""
+    import torch
+    from repro_torch.kernels.ref import ssd_bwd_ref
+    names = list(SSD_VARIANTS)
+    t0 = time.monotonic()
+    libs = ssd_variant_libs(names, ROOT / "build" / "ssd_variants")
+    log(f"[ssd-variants] built {len(names)} variants in "
+        f"{time.monotonic() - t0:.1f}s")
+    label, shape = SSD_BWD_SHAPES[0]
+    gen = torch.Generator().manual_seed(28)
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        args, kw = bwd_case(gen, "ssd_scan_bwd", shape, dtype)
+        want = ssd_bwd_ref(*args[:7], chunk=64)
+        for name in SSD_VARIANTS_CORRECT:
+            got = ssd_variant_call(libs[name], args, kw)
+            rel = max(max_rel_err(g, r, BWD_TOL[dname], f"{name} {o}")[1]
+                      for o, g, r in zip(BWD_OUTPUTS["ssd_scan_bwd"], got,
+                                         want))
+            log(f"[ssd-variants] {label} {dname} {name}: outputs within "
+                f"{rel:.3g} of max |ref| (tol {BWD_TOL[dname]})")
+        times = {name: [] for name in names}
+        for order in (names, names[::-1]):
+            for name in order:
+                times[name].append(graph_ms(
+                    lambda lib=libs[name]: ssd_variant_call(lib, args, kw)))
+        for name in names:
+            split = by_kernel_ms(
+                lambda lib=libs[name]: ssd_variant_call(lib, args, kw))
+            rows.append({"variant": name, "dtype": dname,
+                         "device_ms": times[name], "by_kernel_ms": split})
+            log(f"[ssd-variants] {label} {dname} {name}: device ms "
+                f"{times[name][0]:.4f} / {times[name][1]:.4f}; by kernel "
+                + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+                + f"; {report['gpu']}")
+        del args, want
+        torch.cuda.empty_cache()
+    report["ssd_variants"] = rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
@@ -4586,11 +4985,15 @@ def main(argv=None) -> int:
                          "moe,encdec,train,registry,experiment,whatif,dense,"
                          "scale (the default) "
                          "and the opt-in waterfill, waterfill-plans, "
-                         "rmsnorm-plans, profile, paper-scale and bwd-ab")
+                         "rmsnorm-plans, profile, paper-scale, bwd-ab and "
+                         "ssd-variants")
     ap.add_argument("--ab-csrc", default=str(
         ROOT / "build" / "parent" / "src" / "repro_torch" / "kernels" /
         "csrc"), metavar="DIR",
                     help="bwd-ab: the other tree's kernel sources")
+    ap.add_argument("--ab-kernels", default="rmsnorm_bwd,flash_attention_bwd,"
+                    "ssd_scan_bwd", metavar="NAMES",
+                    help="bwd-ab: the backward kernels to compare")
     ap.add_argument("--paper-scale-budget", type=float,
                     default=PAPER_SCALE_BUDGET_S, metavar="SECONDS",
                     help="the paper-scale phase cuts its strategies so "
@@ -4654,7 +5057,10 @@ def main(argv=None) -> int:
         if "profile" in phases:
             phase_profile(report)
         if "bwd-ab" in phases:
-            phase_bwd_ab(report, args.ab_csrc)
+            phase_bwd_ab(report, args.ab_csrc,
+                         tuple(args.ab_kernels.split(",")))
+        if "ssd-variants" in phases:
+            phase_ssd_variants(report)
         if "paper-scale" in phases:
             phase_paper_scale(report, time.monotonic() - t_start,
                               args.paper_scale_budget)

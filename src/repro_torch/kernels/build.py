@@ -49,8 +49,8 @@ SOURCES = ("schedule_tick.cu", "waterfill.cu", "rmsnorm.cu",
            "rmsnorm_bwd.cu", "flash_attention.cu", "flash_attention_bwd.cu",
            "flash_attention_bwd_wgmma.cu", "ssd_scan.cu", "ssd_scan_bwd.cu",
            "bindings.cpp")
-HEADERS = ("kernels.h", "block.cuh", "dtype.cuh", "mma.cuh", "atomics.cuh",
-           "attention.cuh", "attention_bwd.cuh", "wgmma.cuh")
+HEADERS = ("kernels.h", "block.cuh", "dtype.cuh", "mma.cuh", "ssd_mma.cuh",
+           "atomics.cuh", "attention.cuh", "attention_bwd.cuh", "wgmma.cuh")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3",
               "--fmad=false", "-std=c++17", "-Xcompiler", "-fPIC",
               "-Xptxas=-v")

@@ -4,8 +4,9 @@
 // warp's 16 rows of A against BK rows of B, both rows of shared memory;
 // pv_tile adds P V to an accumulator, with P held as the C fragment of a
 // qk_tile product.  Rows are copied into shared memory with cp.async
-// (load_rows) and padded to a multiple of 16 columns with zeros
-// (zero_pad).  Every kernel that uses them runs kThreads threads a CTA.
+// (load_rows, on mma.cuh's cp_async16) and padded to a multiple of 16
+// columns with zeros (zero_pad).  Every kernel that uses them runs
+// kThreads threads a CTA.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -37,20 +38,6 @@ __host__ __device__ constexpr int v_stride(int dp) {
 }
 
 // ------------------------------------------------------------ primitives
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // Rows [0, n) of a tile: row j from src + j * src_stride into
 // dst + j * dst_stride, D elements each (16-byte cp.async pieces when
 // `vec`, else plain element copies); rows [n, rows) are written as zeros.

@@ -1,5 +1,8 @@
 // Tensor-core helpers shared by the kernels that run their products as
-// mma.sync (flash_attention.cu, ssd_scan.cu), and the shared-memory opt-in.
+// mma.sync (flash_attention*.cu, ssd_scan*.cu), cp.async copies into shared
+// memory, and the shared-memory opt-in.  The host emulation of CUDA
+// (tests/host_cuda/mma.cuh) stands in for this file, with the same fragment
+// layouts.
 //
 // f32 products run as split TF32: x = hi + lo with both parts TF32, and
 // a * b as hi*hi + hi*lo + lo*hi (three m16n8k8 TF32 products), which keeps
@@ -76,6 +79,23 @@ __device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
 __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// 16 bytes from device to shared memory, in flight until the group that
+// holds it is waited for (cp_async_commit closes a group; cp_async_wait<N>
+// waits until at most N groups are in flight)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Lets `Kernel` take `smem` bytes of dynamic shared memory.  The opt-in is

@@ -76,6 +76,7 @@
 #include "dtype.cuh"
 #include "kernels.h"
 #include "mma.cuh"
+#include "ssd_mma.cuh"
 
 namespace repro {
 namespace {
@@ -191,48 +192,6 @@ __device__ __forceinline__ void chunk_cumsum(const float* dts, float* cum,
     for (int j = 0; j < 16; ++j) {
       run += neg_a * v[j];
       cum[u0 + j] = run;
-    }
-  }
-}
-
-// An A fragment of four f32 values as TF32 (hi, lo); an exact operand (a
-// bf16 input) is its own hi and has no lo.
-template <bool kExact>
-__device__ __forceinline__ void split_frag(float v0, float v1, float v2,
-                                           float v3, uint32_t* hi,
-                                           uint32_t* lo) {
-  if constexpr (kExact) {
-    hi[0] = __float_as_uint(v0);
-    hi[1] = __float_as_uint(v1);
-    hi[2] = __float_as_uint(v2);
-    hi[3] = __float_as_uint(v3);
-  } else {
-    split_tf32(v0, hi[0], lo[0]);
-    split_tf32(v1, hi[1], lo[1]);
-    split_tf32(v2, hi[2], lo[2]);
-    split_tf32(v3, hi[3], lo[3]);
-  }
-}
-
-// c += A B, A as TF32 (hi, lo) and B as the two f32 values of a lane's
-// fragment; the lo terms of an exact operand are left out.
-template <bool kExactA, bool kExactB>
-__device__ __forceinline__ void mma_f32(float* c, const uint32_t* ah,
-                                        const uint32_t* al, float b0,
-                                        float b1) {
-  if constexpr (kExactB) {
-    const uint32_t h0 = __float_as_uint(b0), h1 = __float_as_uint(b1);
-    if constexpr (!kExactA) mma_tf32(c, al, h0, h1);
-    mma_tf32(c, ah, h0, h1);
-  } else {
-    uint32_t bh0, bl0, bh1, bl1;
-    split_tf32(b0, bh0, bl0);
-    split_tf32(b1, bh1, bl1);
-    if constexpr (kExactA) {
-      mma_tf32(c, ah, bl0, bl1);
-      mma_tf32(c, ah, bh0, bh1);
-    } else {
-      mma_split(c, ah, al, bh0, bh1, bl0, bl1);
     }
   }
 }
@@ -404,42 +363,6 @@ __global__ void __launch_bounds__(kPassThreads)
 }
 
 // ------------------------------------------------ 3. the chunks' outputs
-// acc (16 x 8) += C rows (cr, 16 of them) . B rows (br, 8 of them)^T over
-// np columns
-template <bool kBf16>
-__device__ __forceinline__ void cb_tile(float* acc, const float* cr,
-                                        const float* br, int fs, int np,
-                                        int g, int t) {
-  if constexpr (kBf16) {
-    // both operands exact in bf16: m16n8k16 with f32 accumulators
-    for (int k0 = 0; k0 < np; k0 += 16) {
-      const float* ap = cr + g * fs + k0 + 2 * t;
-      const float2 a00 = *reinterpret_cast<const float2*>(ap);
-      const float2 a10 = *reinterpret_cast<const float2*>(ap + 8 * fs);
-      const float2 a01 = *reinterpret_cast<const float2*>(ap + 8);
-      const float2 a11 = *reinterpret_cast<const float2*>(ap + 8 * fs + 8);
-      const uint32_t af[4] = {pack_f32(a00.x, a00.y), pack_f32(a10.x, a10.y),
-                              pack_f32(a01.x, a01.y), pack_f32(a11.x, a11.y)};
-      const float* bp = br + g * fs + k0 + 2 * t;
-      const float2 b0 = *reinterpret_cast<const float2*>(bp);
-      const float2 b1 = *reinterpret_cast<const float2*>(bp + 8);
-      mma_bf16(acc, af, pack_f32(b0.x, b0.y), pack_f32(b1.x, b1.y));
-    }
-  } else {
-    for (int k0 = 0; k0 < np; k0 += 16) {
-      const float4 q0 = *reinterpret_cast<const float4*>(cr + g * fs + k0 + 4 * t);
-      const float4 q1 =
-          *reinterpret_cast<const float4*>(cr + (g + 8) * fs + k0 + 4 * t);
-      const float4 kv = *reinterpret_cast<const float4*>(br + g * fs + k0 + 4 * t);
-      uint32_t ah[2][4], al[2][4];
-      split_frag<false>(q0.x, q1.x, q0.y, q1.y, ah[0], al[0]);
-      split_frag<false>(q0.z, q1.z, q0.w, q1.w, ah[1], al[1]);
-      mma_f32<false, false>(acc, ah[0], al[0], kv.x, kv.y);
-      mma_f32<false, false>(acc, ah[1], al[1], kv.z, kv.w);
-    }
-  }
-}
-
 template <typename T, int PB>
 __global__ void __launch_bounds__(kScanThreads)
     scan_kernel(SsdArgs a, int NC, bool vec) {

@@ -38,13 +38,12 @@ MAX_HEADDIM = 128
 # C B^T once for the heads it serves, so the scan kernel takes one wave of
 # CTAs, or as many waves as it takes to give every chunk one
 SMS = 132
-# the backward (csrc/ssd_scan_bwd.cu): dstate <= 128, 256 threads a CTA
-# (the state pass: one state element a thread), ten L-long vectors in a
-# chunk-scan CTA's shared memory
+# the backward (csrc/ssd_scan_bwd.cu): chunk <= 64 (4 row tiles of 16
+# steps), dstate <= 128; a state CTA of (P / 16) x (N / 64) warps holds 16
+# chunks' cumsums
+BWD_MAX_CHUNK = 64
 BWD_MAX_DSTATE = 128
-BWD_THREADS = 256
-BWD_VECTORS = 10
-
+BWD_CUM_BATCH = 16
 
 def _pad16(n: int) -> int:
     return -(-n // 16) * 16
@@ -101,35 +100,54 @@ def plan(b: int, s: int, h: int, p: int, n: int, chunk: int = 128) -> SsdPlan:
     return SsdPlan(L, nc, heads, q * h, k, smem_bytes(L, p, n))
 
 
-def _pad4(n: int) -> int:
-    return -(-n // 4) * 4
+def bwd_smem_bytes(L: int, P: int, N: int, sets: int = 1) -> int:
+    """Shared memory of a backward chunk-scan CTA (``scan_smem`` in the
+    source) holding ``sets`` sets of head tiles: C and B (rows + 8), C B^T
+    and the head's decays (rows + 4), per set x (rows + 8), dy, before and
+    dS (rows + 4), two sets of the warps' partials, three of the head
+    vectors; f32, widths padded to 16."""
+    lt, pp, np_ = _pad16(L), _pad16(P), _pad16(N)
+    head = lt * (pp + 8) + lt * (pp + 4) + 2 * pp * (np_ + 4)
+    parts = 16 * lt + 16
+    return 4 * (2 * lt * (np_ + 8) + 2 * lt * (lt + 4) + sets * head
+                + 2 * parts + 12 * lt)
 
 
-def bwd_smem_bytes(L: int, P: int, N: int) -> int:
-    """Shared memory of the larger CTA of the backward's two tile kernels
-    (``scan_smem_bytes`` and ``state_smem_bytes`` in the source): tiles of
-    rows padded to 4 columns plus one."""
-    lt, pp = _pad4(L), _pad4(P)
-    sn, sp, sl = _pad4(N) + 1, pp + 1, lt + 1
-    scan = (2 * lt * sn + 3 * lt * sl + 2 * lt * sp + pp * sn
-            + lt * max(sn, sp) + BWD_VECTORS * lt + 4)
-    state = lt * sp + lt * sn + 3 * lt
-    return 4 * max(scan, state)
+def bwd_state_smem_bytes(L: int, P: int, N: int) -> int:
+    """Shared memory of a backward state CTA (``state_smem_bytes``): two
+    buffers of dy (L x P) and C (L x N), rows + 4, and ``BWD_CUM_BATCH``
+    chunks' exp(cumsum) (rows + 1) and decay."""
+    lt, pp, np_ = _pad16(L), _pad16(P), _pad16(N)
+    return 4 * (2 * lt * (pp + 4 + np_ + 4) + BWD_CUM_BATCH * (lt + 2))
+
+
+def bwd_scratch_floats(b: int, s: int, h: int, p: int, n: int, L: int,
+                       groups: int) -> int:
+    """The backward's f32 scratch: the dS states (B, NC, H, P, N), da's
+    partials (B, NC, H) and the chunk-scan CTAs' dB and dC partials
+    (B * NC, groups, L, N)."""
+    nc = -(-s // L)
+    return b * nc * h * (p * n + 1) + 2 * b * nc * groups * L * n
 
 
 @dataclass(frozen=True)
 class SsdBwdPlan:
     """What one backward call runs: the chunk length and count, a chunk's
     head groups (one chunk-scan CTA each) and the most heads in one, the
-    chunk-scan and state-pass CTAs, the larger CTA's shared memory in
-    bytes and the scratch's f32 elements."""
+    chunk-scan CTAs, the head tile sets a chunk-scan CTA holds (2: the
+    next head's copied while a head computes; 1: after it) and its shared
+    memory in bytes, the state CTAs (one a batch row and head), their
+    threads and shared memory, and the scratch's f32 elements."""
     chunk: int
     n_chunks: int
     groups: int
     heads_per_cta: int
     scan_ctas: int
-    pass_ctas: int
+    tile_sets: int
     smem_bytes: int
+    state_ctas: int
+    state_threads: int
+    state_smem_bytes: int
     scratch_floats: int
 
 
@@ -137,23 +155,26 @@ class SsdBwdPlan:
 def bwd_plan(b: int, s: int, h: int, p: int, n: int,
              chunk: int = 128) -> SsdBwdPlan:
     """The backward's plan of a call on x (b, s, h, p) and B, C (b, s, n):
-    ``chunk`` (no longer than the sequence or 128) halved until a
-    chunk-scan CTA's shared memory holds it, and each chunk's heads split
-    into as many groups as fill one wave of the SMs (csrc/ssd_scan_bwd.cu,
-    scan_bwd_kernel).  The training forward runs at the same chunk."""
+    ``chunk`` (no longer than the sequence or 64) halved until a chunk-scan
+    CTA with one set of head tiles fits in shared memory, two sets where
+    they fit, and each chunk's heads split into as many groups as fill one
+    wave of the SMs (csrc/ssd_scan_bwd.cu, ssd_scan_bwd_kernel).  The
+    training forward runs at the same chunk."""
     if p > MAX_HEADDIM or n > BWD_MAX_DSTATE:
         raise ValueError(f"headdim {p} x dstate {n}: the SSD backward takes "
                          f"both up to {MAX_HEADDIM}")
-    L = max(1, min(chunk, s, MAX_CHUNK))
+    L = max(1, min(chunk, s, BWD_MAX_CHUNK))
     while L > 1 and bwd_smem_bytes(L, p, n) > MAX_SMEM_BYTES:
         L //= 2
+    sets = 2 if bwd_smem_bytes(L, p, n, 2) <= MAX_SMEM_BYTES else 1
     nc = -(-s // L)
     q = b * nc
     groups = max(1, min(h, SMS // q)) if q else 1
-    x_ctas = -(-p * n // BWD_THREADS)
-    scratch = b * nc * h * (p * n + x_ctas + 1) + 2 * q * groups * L * n
-    return SsdBwdPlan(L, nc, groups, -(-h // groups), q * groups,
-                      b * h * x_ctas, bwd_smem_bytes(L, p, n), scratch)
+    threads = 32 * (_pad16(p) // 16) * -(-_pad16(n) // 64)
+    return SsdBwdPlan(L, nc, groups, -(-h // groups), q * groups, sets,
+                      bwd_smem_bytes(L, p, n, sets), b * h, threads,
+                      bwd_state_smem_bytes(L, p, n),
+                      bwd_scratch_floats(b, s, h, p, n, L, groups))
 
 
 def _check(x, dt, a, b, c, initial_state):

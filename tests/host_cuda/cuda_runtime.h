@@ -1,11 +1,12 @@
 // Host emulation of the CUDA subset that csrc/schedule_tick.cu,
-// csrc/waterfill.cu and csrc/rmsnorm_bwd.cu use, so
-// tests/test_torch_{tick,waterfill,rmsnorm}_host.py can run the kernels' own
-// source on a CPU: every CUDA thread of a step is a std::thread, and
-// warps, CTAs and clusters synchronise through std::barrier (C++20).
-// Warp shuffles, votes and reductions exchange values through the warp's
-// array between two barrier phases; a cluster's CTAs run together, and
-// map_shared_rank() points into a sibling CTA's dynamic shared memory.
+// csrc/waterfill.cu, csrc/rmsnorm_bwd.cu and csrc/ssd_scan_bwd.cu use, so
+// tests/test_torch_{tick,waterfill,rmsnorm,ssd_bwd}_host.py can run the
+// kernels' own source on a CPU: every CUDA thread of a step is a
+// std::thread, and warps, CTAs and clusters synchronise through
+// std::barrier (C++20).  Warp shuffles, votes, reductions and the
+// tensor-core products (mma.cuh beside it) exchange values through the
+// warp's arrays between two barrier phases; a cluster's CTAs run together,
+// and map_shared_rank() points into a sibling CTA's dynamic shared memory.
 // Atomics go through std::atomic_ref.  The grid runs one cluster at a time
 // in blockIdx order, or (emu::config, from the test) every CTA at once,
 // released together (up to emu::kMaxThreadsAtOnce threads a step).  An
@@ -47,6 +48,25 @@ struct dim3 {
 struct int3 {
   int x, y, z;
 };
+struct float2 {
+  float x, y;
+};
+struct alignas(16) float4 {
+  float x, y, z, w;
+};
+struct uint2 {
+  unsigned x, y;
+};
+struct alignas(16) uint4 {
+  unsigned x, y, z, w;
+};
+inline float2 make_float2(float a, float b) { return {a, b}; }
+inline float4 make_float4(float a, float b, float c, float d) {
+  return {a, b, c, d};
+}
+inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) {
+  return {a, b, c, d};
+}
 struct int4 {
   int x, y, z, w;
 };
@@ -67,6 +87,16 @@ inline int __float_as_int(float f) {
 inline float __int_as_float(int i) {
   float f;
   std::memcpy(&f, &i, 4);
+  return f;
+}
+inline unsigned __float_as_uint(float f) {
+  unsigned u;
+  std::memcpy(&u, &f, 4);
+  return u;
+}
+inline float __uint_as_float(unsigned u) {
+  float f;
+  std::memcpy(&f, &u, 4);
   return f;
 }
 
@@ -110,9 +140,17 @@ inline cudaError_t cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
 }
 
 namespace emu {
+// A warp's exchanges (shuffles, votes, reductions; the tensor-core
+// products of mma.cuh) each take one barrier phase: every lane posts into
+// one of two buffers, taken in turn by the lane's count of exchanges, and
+// posts into it again two exchanges later, once every lane has passed the
+// barrier of the exchange between, so has read it.
 struct Warp {
   std::barrier<> bar{32};
-  long long vals[32];
+  long long vals[2][32];
+  unsigned posts[32];
+  unsigned frag[2][32][12];   // a product's registers, each lane's
+  unsigned products[32];
 };
 struct Block {
   std::unique_ptr<std::barrier<>> bar;
@@ -165,19 +203,25 @@ T unbits(long long b) {
   std::memcpy(&v, &b, sizeof(T));
   return v;
 }
-// every lane posts its value; the second phase keeps a lane from posting
-// the next value before all have read this one
+// every lane posts its value, then reads any lane's (Warp: one phase)
 inline void post(long long v) {
-  cur.warp->vals[cur.lane] = v;
-  cur.warp->bar.arrive_and_wait();
+  Warp* w = cur.warp;
+  w->vals[w->posts[cur.lane]++ & 1][cur.lane] = v;
+  w->bar.arrive_and_wait();
 }
-inline long long read(int lane) { return cur.warp->vals[lane & 31]; }
-inline void done() { cur.warp->bar.arrive_and_wait(); }
+inline long long read(int lane) {
+  Warp* w = cur.warp;
+  return w->vals[(w->posts[cur.lane] - 1) & 1][lane & 31];
+}
+inline void done() {}
 }  // namespace emu
 
 inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
 
 inline void __syncthreads() { emu::cur.block->bar->arrive_and_wait(); }
+inline void __syncwarp(unsigned = 0xffffffffu) {
+  emu::cur.warp->bar.arrive_and_wait();
+}
 
 template <class T>
 T __shfl_sync(unsigned, T v, int src) {
@@ -191,6 +235,14 @@ T __shfl_up_sync(unsigned, T v, unsigned d) {
   emu::post(emu::bits(v));
   const int src = emu::cur.lane - static_cast<int>(d);
   const T r = src < 0 ? v : emu::unbits<T>(emu::read(src));
+  emu::done();
+  return r;
+}
+template <class T>
+T __shfl_down_sync(unsigned, T v, unsigned d) {
+  emu::post(emu::bits(v));
+  const int src = emu::cur.lane + static_cast<int>(d);
+  const T r = src > 31 ? v : emu::unbits<T>(emu::read(src));
   emu::done();
   return r;
 }

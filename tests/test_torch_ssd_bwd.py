@@ -14,8 +14,10 @@ plan.
   ``ssd_bwd_ref``'s, for each of the six inputs, with either output unused.
 * ``bwd_plan`` at every registered Mamba-2 config, published and reduced,
   at the training call, the serving path's prefill and a ragged short
-  call: a chunk-scan CTA's shared memory within the card's 232,448 bytes,
-  the forward able to run at the backward's chunk, one wave of CTAs.
+  call: the chunk, a chunk-scan CTA's shared memory within the card's
+  232,448 bytes (two sets of head tiles where they fit), the forward able
+  to run at the backward's chunk, one wave of chunk-scan CTAs, the state
+  CTAs' threads and shared memory, the scratch.
 """
 import numpy as np
 import pytest
@@ -138,28 +140,34 @@ def mamba_configs():
 @pytest.mark.parametrize("cfg", mamba_configs(), ids=lambda c: c.name)
 @pytest.mark.parametrize("bsz,s", [(4, 512), (1, 996), (1, 37)])
 def test_ssd_bwd_plan_fits_the_card(dtype, cfg, bsz, s):
-    """Both dtypes stage their tiles as f32 (bf16 is widened), so one plan
-    serves them: a chunk-scan CTA within 232,448 bytes, the forward runs at
-    the backward's chunk, a chunk's heads split into groups that fill at
-    most one wave of the SMs (or one group a chunk), and the scratch holds
-    the G / dS states, the dot, dB / dC and da partials."""
+    """Both dtypes size their tiles as f32 (bf16 x takes less), so one plan
+    serves them: the chunk min(S, 64), a chunk-scan CTA within 232,448
+    bytes with two sets of head tiles where they fit, the forward able to
+    run at the backward's chunk, a chunk's heads split into groups that
+    fill at most one wave of the SMs (or one group a chunk), one state CTA
+    of (P / 16) x (N / 64) warps a batch row and head, within the card's
+    1,024 threads and its shared memory, and the scratch holding the dS
+    states, da's partials and the dB / dC partials."""
     dtype_code(dtype)
     h, p = cfg.ssm_expand * cfg.d_model // cfg.ssm_headdim, cfg.ssm_headdim
     n = cfg.ssm_state
     pl = ss.bwd_plan(bsz, s, h, p, n)
-    assert pl.smem_bytes == ss.bwd_smem_bytes(pl.chunk, p, n)
+    assert pl.chunk == min(s, 64)
+    assert pl.smem_bytes == ss.bwd_smem_bytes(pl.chunk, p, n, pl.tile_sets)
     assert pl.smem_bytes <= 232_448
-    assert pl.chunk == min(s, 64) or (pl.chunk == 128 and s >= 128
-                                      and p * n <= 16 * 16)
+    assert pl.tile_sets == (2 if ss.bwd_smem_bytes(pl.chunk, p, n, 2)
+                            <= 232_448 else 1)
     assert ss.plan(bsz, s, h, p, n, pl.chunk).chunk == pl.chunk
     q = bsz * pl.n_chunks
     assert pl.n_chunks == -(-s // pl.chunk)
     assert 1 <= pl.groups <= h and pl.scan_ctas == q * pl.groups
     assert pl.scan_ctas <= max(ss.SMS, q)
     assert pl.heads_per_cta * pl.groups >= h
-    x_ctas = -(-p * n // ss.BWD_THREADS)
-    assert pl.pass_ctas == bsz * h * x_ctas
-    assert pl.scratch_floats == (bsz * pl.n_chunks * h * (p * n + x_ctas + 1)
+    assert pl.state_ctas == bsz * h
+    assert pl.state_threads == 32 * (-(-p // 16)) * -(-n // 64) <= 1024
+    assert pl.state_smem_bytes == ss.bwd_state_smem_bytes(pl.chunk, p, n)
+    assert pl.state_smem_bytes <= 232_448
+    assert pl.scratch_floats == (bsz * pl.n_chunks * h * (p * n + 1)
                                  + 2 * q * pl.groups * pl.chunk * n)
 
 

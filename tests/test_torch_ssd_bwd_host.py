@@ -5,8 +5,8 @@ host emulation.
 emulated CTA's memory) and ``csrc/bindings.cpp`` are compiled with the
 host's C++20 compiler against ``tests/host_cuda/`` (a ``std::thread`` per
 CUDA thread, ``std::barrier`` for ``__syncthreads``, warp shuffles through
-the warp's array), and the library's ``repro_ssd_scan_bwd`` (all four
-kernels) is called with the arguments the wrapper passes on CPU tensors:
+the warp's array, tensor-core products from the lanes' fragments), and the
+library's ``repro_ssd_scan_bwd`` (all three kernels) is called with the arguments the wrapper passes on CPU tensors:
 the saved states the forward's scratch would hold (computed here in
 float64), the plans :func:`~repro_torch.kernels.ssd_scan.bwd_plan` picks
 and hand-made head groupings, f32 and bf16, ragged last chunks, widths
@@ -63,7 +63,8 @@ def ssd_lib():
     src = src.replace(SMEM_DECL, "unsigned char* smem = emu::dynamic_smem();")
     h = hashlib.sha256(src.encode())
     for f in [build.CSRC / "bindings.cpp", build.CSRC / "kernels.h",
-              build.CSRC / "dtype.cuh", *sorted(HOST.iterdir())]:
+              build.CSRC / "dtype.cuh", build.CSRC / "ssd_mma.cuh",
+              *sorted(HOST.iterdir())]:
         h.update(f.read_bytes())
     out = build.build_dir().parent / "host_cuda"
     out.mkdir(parents=True, exist_ok=True)
@@ -160,11 +161,9 @@ def run_host(lib, ins, dy, dstate, init, L, groups, dtype_code=None):
     x, dt, a, b, c = ins
     bsz, s, h, p = x.shape
     n = b.shape[-1]
-    nc = -(-s // L)
     states = saved_states(x, dt, a, b, c, L, init)
-    xc = -(-p * n // ss.BWD_THREADS)
-    scratch = torch.full((bsz * nc * h * (p * n + xc + 1)
-                          + 2 * bsz * nc * groups * L * n,), float("nan"))
+    scratch = torch.full((ss.bwd_scratch_floats(bsz, s, h, p, n, L, groups),),
+                         float("nan"))
     outs = [torch.full_like(t, float("nan")) for t in (x, dt)]
     outs.append(torch.full((h,), float("nan")))
     outs += [torch.full_like(t, float("nan")) for t in (b, c)]
@@ -231,7 +230,7 @@ def test_ssd_bwd_source_sums_head_groups_in_order(ssd_lib, groups):
 
 
 def test_ssd_bwd_source_refuses_what_it_cannot_run(ssd_lib):
-    """Head groups outside 1..H, a chunk outside 1..128, a dtype other than
+    """Head groups outside 1..H, a chunk outside 1..64, a dtype other than
     f32 / bf16, null states or scratch: the launch is refused before any
     kernel runs (the outputs stay NaN)."""
     ins, dy, dstate, _ = case(0, 1, 8, 2, 4, 4, F32, False)
@@ -239,5 +238,5 @@ def test_ssd_bwd_source_refuses_what_it_cannot_run(ssd_lib):
         err, outs = run_host(ssd_lib, ins, dy, dstate, None, L, groups,
                              code)
         assert err != 0 and torch.isnan(outs[0]).all(), (L, groups, code)
-    for L in (0, 129, 8):
+    for L in (0, 65, 8):
         assert launch(ssd_lib, (None,) * 15 + (1, 8, 2, 4, 4, L, 1, 0)) != 0
