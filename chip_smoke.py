@@ -11,7 +11,8 @@ layer around it, ``python -m repro_torch.experiments``; the what-if query
 service, ``python -m repro_torch.serve``; LLM serving through
 ``repro_torch.serve.engine.ServeEngine``; the encoder-decoder and the
 vision prefix through ``repro_torch.models.decode.prefill`` /
-``decode_step``; and LLM training through ``repro_torch.launch.train``)
+``decode_step``; LLM training through ``repro_torch.launch.train``; and
+the malleable training job, ``repro_torch.elastic.manager.ElasticTrainer``)
 and prints what it saw.
 Phases:
 
@@ -157,7 +158,24 @@ Phases:
    after it at their least scales; printed as CUT): all six LLM kernels,
    forward and backward.  Each backward kernel is then timed on (c)'s or
    (c')'s own call (bf16 and f32);
-8. registry: the rest of the strategy registry through ``run_cells``, on
+8. elastic: the malleable training job, ``ElasticTrainer`` in a world of
+   one rank (NCCL; the trainer opens it, the phase closes it), on
+   zamba2-2.7b at its published width, its depth cut to one hybrid period
+   (6 Mamba-2 layers and the shared block once, ~0.5 B parameters): first
+   3 plain-path steps on the same config (``launch.train.train``) for
+   their s / step; then, launches counted from 0 just before it, 4 x 512
+   tokens a step, bf16 compute, f32 params, remat ``dots``, a checkpoint
+   every 2 steps, the scheduler's resize(1) after step 2 (its plan
+   printed), a node failure after step 3 (its restart from step 2's
+   checkpoint must lose 1 step), 6 steps in all (4 where the time left
+   would not hold 6 and the phases after it; printed as CUT), then a
+   fresh trainer's ``try_resume``: its state must equal the running
+   trainer's bit for bit and the next step of each give the same loss
+   (within 1e-6); finite losses, launches a step of all six training
+   kernels as the plan gives, no plain version called; prints s / step
+   beside the plain path's, the checkpoint's GB, each write and read in
+   s and GB/s (host copy and npz apart) and peak memory;
+9. registry: the rest of the strategy registry through ``run_cells``, on
    theta at scale 0.1 (255 jobs on 4,392 nodes, 1 seed, proportions 0.2 /
    0.6 / 1.0): SJF with MIN, KEEPPREF, PREF_COMMON_POOL and
    STEAL_AGREEMENT (greedy, pooled and stealing batches; 13 cells) under
@@ -170,9 +188,10 @@ Phases:
    bit for bit at scale 0.02; a captured SJF-permuted tick call and a
    captured pooled / stealing give held to their plain versions and timed
    as in phase 3; each batch's wall, steps, window and ms per step, and the
-   SJF greedy step beside the main phase's FCFS one.  Cut to scale 0.05,
-   printed, if the time left would not hold it;
-9. experiment: ``python -m repro_torch.experiments``'s ``main(argv)`` as
+   SJF greedy step beside the main phase's FCFS one.  The bisect runs go
+   to two worker processes on the CPU beside the card's runs.  Cut to
+   scale 0.05, printed, if the time left would not hold it;
+10. experiment: ``python -m repro_torch.experiments``'s ``main(argv)`` as
    a user runs it, each group of runs in a fresh temporary directory
    outside the repository, kernel launches counted from 0 before each
    run: (a) haswell at scale 0.02, 2 seeds, ``--crosscheck 2
@@ -190,7 +209,7 @@ Phases:
    engine's methodology gap, which the port shares with the JAX engine.
    Each run prints its wall, cells computed, store hits, launches and
    DES seconds;
-10. whatif: the what-if query service (``repro_torch.serve``) in a fresh
+11. whatif: the what-if query service (``repro_torch.serve``) in a fresh
    temporary cell store outside the repository: (a) 16 seeded queries at
    theta scale 1.0 (MIN, PREF, KEEPPREF, EASY; proportions 0.2 / 0.4 /
    0.6 / 1.0; 2 seeds; 10 distinct cells) submitted from 4 client threads
@@ -211,7 +230,7 @@ Phases:
    per-cell metrics identical; and a storm at theta 0.02 (greedy and
    balanced lanes) on the card equal to the same storm on the CPU bit for
    bit.  Prints wall, batches, coalesce widths, steps and launches;
-11. dense: the dense per-tick engine (``repro_torch.core.sim_dense``,
+12. dense: the dense per-tick engine (``repro_torch.core.sim_dense``,
    one scheduling pass a tick over whole job tensors), launches counted
    from 0 before each run: (a) the 20-job workload of
    ``tests/test_sim_jax.py`` on 10 nodes for 800 ticks under the 8
@@ -227,7 +246,7 @@ Phases:
    ticks equal to ``bisect``; wall, ms a tick and each lane's mean
    turnaround beside the port's DES (not gated); the tick kernel timed on
    the batch's 450th call (3 x 415 slots, priority bounds +-4 x 9,688);
-12. scale: the greedy batch on haswell at scale 1.0 (the whole trace,
+13. scale: the greedy batch on haswell at scale 1.0 (the whole trace,
    28,259 jobs on 2,388 nodes) with ``fused``, tick launches counted from
    0 just before it; the tick kernel is then timed on the run's call at
    its peak window (B = 16, W = 16,384): single-call and device (CUDA
@@ -2960,18 +2979,17 @@ class Counted(Patch):
 
 def train_steps(report, elapsed_s, spec):
     """``spec``'s steps, or its ``least_steps`` where the phases after the
-    train phase at their least scales (registry and what-if (d) at 0.05,
-    experiment, what-if (a)-(c), dense, haswell at 0.25), predicted at this
-    card's theta greedy rate, would not end inside the time limit after
-    ``steps`` steps at ``s_per_step``."""
+    train phase at their least scales (the elastic phase at its least
+    steps, registry and what-if (d) at 0.05, experiment, what-if (a)-(c),
+    dense, haswell at 0.25), predicted at this card's theta greedy rate,
+    would not end inside the time limit after ``steps`` steps at
+    ``s_per_step``."""
     rate = report.get("greedy_s_per_step")
     least = spec.get("least_steps", spec["steps"])
     if rate is None:
         return spec["steps"], False
-    after = (0.5 * REGISTRY_STEPS * REGISTRY_STEP_RATIO + EXPERIMENT_STEPS
-             + WHATIF_ABC_STEPS + 0.5 * WHATIF_D_STEPS * WHATIF_D_STEP_RATIO
-             + DENSE_GREEDY_STEPS + 0.25 * HASWELL_STEPS * HASWELL_STEP_RATIO)
-    left = 0.95 * TIME_LIMIT_S - elapsed_s - after * rate
+    left = (0.95 * TIME_LIMIT_S - elapsed_s - after_elastic_steps() * rate
+            - elastic_least_s())
     if spec["steps"] * spec.get("s_per_step", 0.0) <= left:
         return spec["steps"], False
     return least, least < spec["steps"]
@@ -3260,6 +3278,480 @@ def phase_train(report, elapsed_s=0.0):
     log(f"[train] phase {out['phase_s']:.1f}s ((a) {out['a_s']:.1f}s, (b) "
         f"{out['b_s']:.1f}s, (c') {out['c_prime_s']:.1f}s); "
         f"{report['gpu']}")
+
+
+
+# ----------------------------------------------------- the malleable job
+# elastic: ElasticTrainer on zamba2-2.7b at its published width (d 2,560,
+# 80 SSD heads of 64, state 64, the 32-head shared block with ff 10,240,
+# vocab 32,000), its depth cut to one hybrid period: 6 Mamba-2 layers and
+# the shared block once (~0.5 B parameters, ~6 GB of f32 parameters and
+# moments, so a checkpoint writes and reads in seconds); 4 x 512 tokens a
+# step, TrainConfig's defaults, a checkpoint every 2 steps, the
+# scheduler's resize(1) after step 2 and one node failure after step 3
+# (its restart loses 1 step); 6 steps, or ``least_steps`` 4 where the time
+# left would not hold 6 (``fixed_s`` + ``s_per_step`` a step: the phase's
+# steady A/B steps, inits, two checkpoint reads and comparisons, and a
+# step with its share of the checkpoint writes; an H100 run took 77.0 s
+# at 6 steps: ~13.5 s a 6.1 GB read, ~10.5 s a write, 0.135 s a step)
+# and the phases after it at their least scales
+ELASTIC = dict(arch="zamba2-2.7b", layers=6, batch=4, seq=512, steps=6,
+               least_steps=4, ckpt_every=2, resize_at=2, fail_at=3,
+               fixed_s=45.0, s_per_step=5.5)
+
+
+def after_elastic_steps():
+    """What the phases after the elastic one take at their least scales
+    (registry and what-if (d) at 0.05, experiment, what-if (a)-(c), dense,
+    haswell at 0.25), in theta fused greedy steps."""
+    return (0.5 * REGISTRY_STEPS * REGISTRY_STEP_RATIO + EXPERIMENT_STEPS
+            + WHATIF_ABC_STEPS + 0.5 * WHATIF_D_STEPS * WHATIF_D_STEP_RATIO
+            + DENSE_GREEDY_STEPS
+            + 0.25 * HASWELL_STEPS * HASWELL_STEP_RATIO)
+
+
+def elastic_least_s():
+    return ELASTIC["fixed_s"] + ELASTIC["least_steps"] * ELASTIC["s_per_step"]
+
+
+def elastic_steps(report, elapsed_s):
+    """``ELASTIC``'s steps, or its ``least_steps`` where the phase at its
+    steps and the phases after it at their least scales, predicted at this
+    card's theta greedy rate, would not end inside the time limit; the
+    phase itself is never skipped."""
+    rate = report.get("greedy_s_per_step")
+    if rate is None:
+        return ELASTIC["steps"], False
+    left = 0.95 * TIME_LIMIT_S - elapsed_s - after_elastic_steps() * rate
+    if ELASTIC["fixed_s"] + ELASTIC["steps"] * ELASTIC["s_per_step"] <= left:
+        return ELASTIC["steps"], False
+    return ELASTIC["least_steps"], True
+
+
+class CallTimes(Patch):
+    """Wraps a function and keeps each call's wall time (after a
+    synchronise)."""
+
+    def __init__(self, module, name):
+        super().__init__(module, name)
+        self.seconds = []
+
+    def __call__(self, *args, **kwargs):
+        import torch
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out = self.inner(*args, **kwargs)
+        torch.cuda.synchronize()
+        self.seconds.append(time.monotonic() - t0)
+        return out
+
+
+def elastic_config():
+    """zamba2-2.7b at its published width, one hybrid period deep."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import decoder_plan
+    cfg = dataclasses.replace(get_config(ELASTIC["arch"]),
+                              n_layers=ELASTIC["layers"])
+    plan = [(seg.kind, seg.count) for seg in decoder_plan(cfg)]
+    if plan != [("mamba", ELASTIC["layers"]), ("shared", 1)]:
+        raise AssertionError(f"elastic: the cut config's plan is {plan}, "
+                             "not one hybrid period (6 Mamba-2 layers, "
+                             "then the shared block once)")
+    return cfg
+
+
+def phase_elastic(report, elapsed_s=0.0):
+    """The malleable training job on the card: ``ElasticTrainer`` (a world
+    of one rank on NCCL, opened by the trainer and closed at the phase's
+    end) on zamba2-2.7b at its published width, one hybrid period deep.
+    Launches counted from 0: steps with a
+    checkpoint every 2, resize(1) (its plan logged), a node failure and
+    its restart from the last checkpoint, the steps left, and a fresh
+    trainer's ``try_resume`` from the last checkpoint; its state must
+    equal the running trainer's bit for bit and the next step of each must
+    give the same loss (within 1e-6); launches a step as the plan gives
+    (rows 3, 4, 5, 3b, 4b, 5b) and no plain version called.  Then the
+    elastic and the plain step over the same steady steps in turn
+    (:func:`elastic_steady_ab`), and, where the host has two cards, the
+    resize schedule on a world of 2 (:func:`elastic_width_2`)."""
+    import contextlib
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.elastic import manager as EM
+    from repro_torch.elastic.resharding import tree_bytes
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as RN
+    from repro_torch.kernels import ssd_scan as SS
+    from repro_torch.train.train_step import TrainConfig
+    t_phase = time.monotonic()
+    out = report.setdefault("elastic", {})
+    cfg = elastic_config()
+    tc = TrainConfig()
+    spec = ELASTIC
+    steps, cut = elastic_steps(report, elapsed_s)
+    log(f"[elastic] {cfg.name} at its published width (d {cfg.d_model}, "
+        f"{cfg.d_model * cfg.ssm_expand // cfg.ssm_headdim} SSD heads of "
+        f"{cfg.ssm_headdim}, state {cfg.ssm_state}, the shared block's "
+        f"{cfg.n_heads} heads and ff {cfg.d_ff}, vocab {cfg.vocab}), depth "
+        f"cut to {spec['layers']} Mamba-2 layers and the shared block once; "
+        f"{spec['batch']} x {spec['seq']} tokens a step, {steps} steps"
+        + (f" (CUT from {spec['steps']}: the time left would not hold them "
+           "and the phases after this one)" if cut else ""))
+
+    ckpt = tempfile.mkdtemp(prefix="elastic_ckpt_")
+    free_gb = shutil.disk_usage(ckpt).free / 1e9
+    plain = [Counted(m, n) for n in TRAIN_PLAIN
+             for m in (ref, RN, FA, SS) if hasattr(m, n)]
+    saves = CallTimes(EM, "save_checkpoint")
+    host = CallTimes(EM, "train_state_to_numpy")
+    reads = CallTimes(EM, "restore_checkpoint")
+    loads = CallTimes(EM, "train_state_into")
+    step_s, losses, calls = [], {}, 0
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with contextlib.ExitStack() as stack:
+            for p in plain + [saves, host, reads, loads]:
+                stack.enter_context(p)
+            tr = EM.ElasticTrainer(cfg, tc, global_batch=spec["batch"],
+                                   seq_len=spec["seq"], width=1,
+                                   ckpt_dir=ckpt,
+                                   ckpt_every=spec["ckpt_every"], seed=0,
+                                   device=DEVICE)
+            n_params = sum(p.numel() for p in tr.state["params"].parameters())
+            state_gb = tree_bytes(tr.state) / 1e9
+
+            def one_step(trainer, label):
+                nonlocal calls
+                torch.cuda.synchronize()
+                a = time.monotonic()
+                n_saves = len(saves.seconds) + len(host.seconds)
+                stats = trainer.step()
+                torch.cuda.synchronize()
+                wall = time.monotonic() - a
+                ckpt_s = sum((saves.seconds + host.seconds)[n_saves:])
+                calls += 1
+                loss = stats["loss"]
+                if not (math.isfinite(loss)
+                        and math.isfinite(stats["grad_norm"])):
+                    raise AssertionError(f"elastic {label}: loss {loss}, "
+                                         f"grad norm {stats['grad_norm']}")
+                losses.setdefault(label, []).append(loss)
+                step_s.append(wall - ckpt_s)
+                return loss
+
+            build.LAUNCH_COUNTS.clear()  # this path's launches start here
+            failed, lost, plan = False, None, None
+            while tr.step_num < steps:
+                one_step(tr, "job")
+                if tr.step_num == spec["resize_at"] and plan is None:
+                    plan = tr.resize(1)
+                    log(f"[elastic] step {tr.step_num}: scheduler resized DP "
+                        f"width -> 1: {plan}")
+                if tr.step_num == spec["fail_at"] and not failed:
+                    failed = True
+                    lost = tr.fail_and_restore(1)
+                    log(f"[elastic] step {spec['fail_at']}: node failure "
+                        f"injected; lost {lost} steps, restarted at "
+                        f"{tr.step_num}")
+            want_lost = spec["fail_at"] - (spec["fail_at"]
+                                           // spec["ckpt_every"]
+                                           * spec["ckpt_every"])
+            if lost != want_lost:
+                raise AssertionError(f"elastic: lost {lost} steps, planned "
+                                     f"{want_lost}")
+            fresh = EM.ElasticTrainer(cfg, tc, global_batch=spec["batch"],
+                                      seq_len=spec["seq"], width=1,
+                                      ckpt_dir=ckpt, seed=0, device=DEVICE)
+            resumed = fresh.try_resume()
+            if resumed != steps:
+                raise AssertionError(f"elastic: try_resume gave {resumed}, "
+                                     f"the last checkpoint is step {steps}")
+            differ = [n for (n, a), b in zip(
+                tr.state["params"].named_parameters(),
+                fresh.state["params"].parameters()) if not torch.equal(a, b)]
+            differ += [f"opt/{k}/{n}" for k in ("mu", "nu")
+                       for n, a in tr.state["opt"][k].items()
+                       if not torch.equal(a, fresh.state["opt"][k][n])]
+            if differ or int(tr.state["opt"]["step"]) != int(
+                    fresh.state["opt"]["step"]):
+                raise AssertionError(f"elastic: the restored state differs "
+                                     f"from the saved one: {differ[:5]}")
+            l_job = one_step(tr, "job")
+            l_fresh = one_step(fresh, "resumed")
+            diff = abs(l_job - l_fresh)
+            if diff > 1e-6:
+                raise AssertionError(f"elastic: the resumed trainer's loss "
+                                     f"{l_fresh} against {l_job}")
+            torch.cuda.synchronize()
+        launches = {k: build.LAUNCH_COUNTS[k] for k in TRAIN_KERNELS}
+        per_step = {k: v / calls for k, v in launches.items()}
+        want = expected_train_launches(cfg, tc.remat)
+        if per_step != want:
+            raise AssertionError(f"elastic: launches a step {per_step}, the "
+                                 f"plan gives {want}")
+        pcalls = {f"{p.module.__name__.rsplit('.', 1)[-1]}.{p.name}": p.calls
+                  for p in plain}
+        if any(pcalls.values()):
+            raise AssertionError(f"elastic: plain versions called {pcalls}")
+        # s / step of both paths over the same steady steps, in turn
+        ab = elastic_steady_ab(cfg, tc, fresh, spec)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        ckpt_gb = sum(f.stat().st_size for f in pathlib.Path(
+            ckpt, f"step_{steps:08d}").iterdir()) / 1e9
+    finally:
+        EM.close_world()
+        shutil.rmtree(ckpt, ignore_errors=True)
+    import torch.distributed as dist
+    if dist.is_initialized():
+        raise AssertionError("elastic: the trainer's world is still open")
+    write_s = [a + b for a, b in zip(host.seconds, saves.seconds)]
+    read_s = [a + b for a, b in zip(reads.seconds, loads.seconds)]
+    s_step = statistics.median(ab["elastic"])
+    plain_s = statistics.median(ab["plain"])
+    out.update(dict(
+        arch=cfg.name, layers=spec["layers"], params=n_params,
+        state_gb=state_gb, steps=steps, cut=cut, step_calls=calls,
+        losses=losses, lost=lost, plan=dict(
+            old_dp=plan.old_dp, new_dp=plan.new_dp,
+            bytes_moved=plan.bytes_moved, est_seconds=plan.est_seconds),
+        resumed_loss_diff=diff, s_per_step=s_step, plain_s_per_step=plain_s,
+        steady_s=ab, schedule_s_per_step=statistics.median(step_s[1:]),
+        step_s=step_s,
+        launches=launches, launches_per_step=per_step, plain_calls=pcalls,
+        peak_gb=peak, ckpt_gb=ckpt_gb, write_s=write_s,
+        save_s=saves.seconds, host_copy_s=host.seconds, read_s=read_s,
+        restore_s=reads.seconds, load_s=loads.seconds,
+        write_gb_per_s=[ckpt_gb / t for t in write_s],
+        read_gb_per_s=[ckpt_gb / t for t in read_s], ckpt_free_gb=free_gb,
+        world_closed=True))
+    log(f"[elastic] {n_params:,} parameters, {state_gb:.2f} GB of state; "
+        f"{calls} step calls, {out['schedule_s_per_step']:.4f} s/step over "
+        f"the schedule (median after the first, checkpoint writes taken "
+        f"out); steady steps in turn ({len(ab['elastic'])} each): elastic "
+        f"{s_step:.4f} s/step, the plain path {plain_s:.4f} s/step "
+        f"(ratio {s_step / plain_s:.4f}; {ab}); peak memory {peak:.2f} GB; "
+        f"losses {losses}; launches a step {per_step} == the plan's; plain "
+        f"versions called {pcalls}")
+    log(f"[elastic] checkpoint {ckpt_gb:.2f} GB: writes "
+        + ", ".join(f"{t:.2f}s ({ckpt_gb / t:.2f} GB/s: host copy "
+                    f"{a:.2f}s, npz {b:.2f}s)"
+                    for t, a, b in zip(write_s, host.seconds, saves.seconds))
+        + "; reads " + ", ".join(
+            f"{t:.2f}s ({ckpt_gb / t:.2f} GB/s: npz {a:.2f}s, to the card "
+            f"{b:.2f}s)" for t, a, b in zip(read_s, reads.seconds,
+                                            loads.seconds))
+        + f"; {free_gb:.0f} GB free where it wrote (file cache warm)")
+    log(f"[elastic] lost {lost} step(s) as planned; the fresh trainer's "
+        f"try_resume restored step {steps} bit for bit; the next loss "
+        f"{l_fresh!r} against {l_job!r} (difference {diff!r}); the world "
+        f"closed; phase {time.monotonic() - t_phase:.1f}s; {report['gpu']}")
+    if torch.cuda.device_count() >= 2:
+        out["width_2"] = elastic_width_2()
+    else:
+        out["width_2"] = "not run: one card"
+        log("[elastic] width 2 on NCCL: not run (one card; it takes two)")
+    out["phase_s"] = time.monotonic() - t_phase
+    for row in report.get("kernels", []):
+        if row["name"] in launches:
+            row["elastic_launches"] = launches[row["name"]]
+
+
+# steady steps of each path in the elastic phase's A/B, taken in turn
+# (elastic, plain, plain, elastic, ...)
+ELASTIC_AB_PAIRS = 4
+
+
+def elastic_steady_ab(cfg, tc, trainer, spec):
+    """``ELASTIC_AB_PAIRS`` steps of ``trainer`` (``ElasticTrainer.step``)
+    and as many of the plain path (``launch.train.train``'s step: the
+    batch, ``make_train_step``, the loss to the host) on the trainer's own
+    state, in turn, each timed from a synchronise to a synchronise; no
+    checkpoint falls in them (the trainer checkpoints every 50).  Returns
+    {"elastic": [s, ...], "plain": [s, ...]}."""
+    import torch
+    from repro_torch.convert import to_tensors
+    from repro_torch.train.data import batch_for
+    from repro_torch.train.train_step import make_train_step
+    if (trainer.step_num + ELASTIC_AB_PAIRS) // trainer.ckpt_every != (
+            trainer.step_num // trainer.ckpt_every):
+        raise AssertionError("elastic A/B: a checkpoint would fall in it")
+    plain_fn = make_train_step(cfg, tc)
+
+    def plain():
+        data = to_tensors(batch_for(cfg, spec["seq"], spec["batch"],
+                                    step=trainer.step_num, seed=0), DEVICE)
+        trainer.state, stats = plain_fn(trainer.state, data)
+        float(stats["loss"])
+
+    times = {"elastic": [], "plain": []}
+    order = (("elastic", trainer.step), ("plain", plain))
+    for i in range(ELASTIC_AB_PAIRS):
+        for label, fn in (order if i % 2 == 0 else order[::-1]):
+            torch.cuda.synchronize()
+            a = time.monotonic()
+            fn()
+            torch.cuda.synchronize()
+            times[label].append(time.monotonic() - a)
+    return times
+
+
+# elastic, width 2 (run only where the host has two cards or more): a world
+# of 2 processes on NCCL, one a card, each reduced config's trainer at
+# width 1 through the CPU tests' resize schedule (tests/torch_dp_worker.py),
+# f32, held on rank 0's card to a width-1 trainer of the same seed: losses
+# within 1e-5 (relative) and the final parameters within 2e-5 + 1e-4 x
+# |value|, the CPU tests' bounds; rank 1's stats at width 2 equal rank 0's
+ELASTIC_DP = dict(archs=("stablelm-1.6b", "olmoe-1b-7b"), batch=4, seq=32,
+                  schedule=(("step", 2), ("resize", 2), ("step", 2),
+                            ("resize", 1), ("step", 1)),
+                  collective_s=120, timeout_s=300)
+
+
+def elastic_dp_schedule(rank, arch):
+    """One arch's width-1 reference and resize schedule on this rank."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.elastic.manager import ElasticTrainer
+    from repro_torch.kernels import build
+    from repro_torch.train.optimizer import AdamWConfig, cosine_schedule
+    from repro_torch.train.train_step import TrainConfig
+    spec = ELASTIC_DP
+    cfg = get_config(arch).reduced()
+    tc = TrainConfig(compute_dtype=torch.float32, remat="none",
+                     opt=AdamWConfig(lr=cosine_schedule(1e-3, 2, 10)))
+    kw = dict(global_batch=spec["batch"], seq_len=spec["seq"], width=1,
+              seed=0, device="cuda")
+    n = sum(arg for action, arg in spec["schedule"] if action == "step")
+    ref = ElasticTrainer(cfg, tc, **kw)
+    ref_stats = [ref.step() for _ in range(n)]
+    tr = ElasticTrainer(cfg, tc, **kw)
+    stats, widths, plans = [], [], []
+    torch.cuda.synchronize()
+    build.LAUNCH_COUNTS.clear()
+    for action, arg in spec["schedule"]:
+        if action == "step":
+            for _ in range(arg):
+                widths.append(tr.width)
+                stats.append(tr.step())
+        else:
+            plan = tr.resize(arg)
+            plans.append((plan.old_dp, plan.new_dp, plan.bytes_moved))
+    torch.cuda.synchronize()
+    out = {"stats": stats, "widths": widths, "plans": plans,
+           "launches": dict(build.LAUNCH_COUNTS)}
+    if rank == 0:
+        out["ref"] = ref_stats
+        worst, over = 0.0, []
+        for (name, a), b in zip(ref.state["params"].named_parameters(),
+                                tr.state["params"].parameters()):
+            d = (b - a).detach().abs()
+            worst = max(worst, float(d.max()))
+            if not bool((d <= 2e-5 + 1e-4 * a.abs()).all()):
+                over.append(name)
+        out["param_worst"], out["param_over"] = worst, over
+    return out
+
+
+def elastic_dp_worker(rank, port, out):
+    """A rank of the width-2 check's NCCL world: every arch's schedule;
+    its result (or its error) saved to ``out`` + the rank."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://localhost:{port}", rank=rank,
+        world_size=2, timeout=datetime.timedelta(
+            seconds=ELASTIC_DP["collective_s"]))
+    try:
+        result = {"ok": {arch: elastic_dp_schedule(rank, arch)
+                         for arch in ELASTIC_DP["archs"]}}
+    except Exception:
+        result = {"error": traceback.format_exc()}
+    torch.save(result, f"{out}.{rank}")
+    dist.destroy_process_group()
+
+
+def elastic_width_2():
+    """The resize schedule on a world of 2 cards (NCCL): the gradients',
+    losses' and MoE counts' all-reduces and ``reshard_tree``'s broadcasts
+    on the card's collectives.  Returns each arch's figures."""
+    import shutil
+    import socket
+    import tempfile
+    import torch
+    import torch.multiprocessing as mp
+    t0 = time.monotonic()
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    tmp = tempfile.mkdtemp(prefix="elastic_dp_")
+    out = str(pathlib.Path(tmp, "out"))
+    try:
+        ctx = mp.start_processes(elastic_dp_worker, args=(port, out),
+                                 nprocs=2, join=False, start_method="spawn")
+        deadline = t0 + ELASTIC_DP["timeout_s"]
+        try:
+            while not ctx.join(timeout=max(deadline - time.monotonic(), 0.1)):
+                if time.monotonic() >= deadline:
+                    raise AssertionError("elastic width 2: the world did not "
+                                         f"end in {ELASTIC_DP['timeout_s']} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+        ranks = [torch.load(f"{out}.{r}", weights_only=False)
+                 for r in range(2)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for r, res in enumerate(ranks):
+        if "ok" not in res:
+            raise AssertionError(f"elastic width 2, rank {r}:\n"
+                                 f"{res['error']}")
+    figures = {}
+    for arch in ELASTIC_DP["archs"]:
+        r0, r1 = ranks[0]["ok"][arch], ranks[1]["ok"][arch]
+        worst = 0.0
+        for i, (got, want) in enumerate(zip(r0["stats"], r0["ref"])):
+            err = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+            worst = max(worst, err)
+            if not err <= 1e-5:
+                raise AssertionError(
+                    f"elastic width 2 {arch} step {i} (width "
+                    f"{r0['widths'][i]}): loss {got['loss']!r}, width 1 "
+                    f"{want['loss']!r}")
+        if r0["param_over"]:
+            raise AssertionError(f"elastic width 2 {arch}: parameters past "
+                                 f"the bound {r0['param_over'][:5]} (worst "
+                                 f"{r0['param_worst']:.3g})")
+        wide = [i for i, w in enumerate(r0["widths"]) if w == 2]
+        if not wide or r0["plans"] != r1["plans"] or any(
+                abs(r1["stats"][i]["loss"] - r0["stats"][i]["loss"])
+                > 1e-6 * abs(r0["stats"][i]["loss"]) for i in wide):
+            raise AssertionError(f"elastic width 2 {arch}: rank 1's stats "
+                                 f"{r1['stats']} against rank 0's "
+                                 f"{r0['stats']}")
+        if not sum(r1["launches"].values()):
+            raise AssertionError(f"elastic width 2 {arch}: rank 1 launched "
+                                 f"no kernel ({r1['launches']})")
+        figures[arch] = dict(
+            widths=r0["widths"], plans=r0["plans"], loss_worst_rel=worst,
+            param_worst=r0["param_worst"],
+            losses=[s["loss"] for s in r0["stats"]],
+            launches=[r0["launches"], r1["launches"]])
+        log(f"[elastic] width 2 on NCCL, {arch} reduced (f32, widths "
+            f"{r0['widths']}): losses within {worst:.3g} of width 1's "
+            f"(relative), parameters within {r0['param_worst']:.3g}; rank "
+            f"1 took the width-2 steps (launches {r1['launches']})")
+    figures["seconds"] = time.monotonic() - t0
+    return figures
 
 
 # ------------------------------------------------- the dense per-tick engine
@@ -3596,6 +4088,25 @@ def registry_scale(report, elapsed_s):
     return 0.05
 
 
+def registry_worker(name, scale):
+    """One registry run's bisect backend in a worker process on the CPU,
+    beside the card's runs (D8).  Returns ``(todo, metrics, info,
+    launches)``, the launches this process's wrappers counted from 0 just
+    before the run."""
+    import torch
+    from repro_torch.kernels import build
+    torch.set_num_threads(2)
+    spec_kw = next(kw for n, kw, _b in registry_runs() if n == name)
+    build.LAUNCH_COUNTS.clear()  # this run's launches start here
+    todo, metrics, info = run_grid(("theta",), scale, 1, "bisect", "cpu",
+                                   **spec_kw)
+    launches = {k: build.LAUNCH_COUNTS[k]
+                for k in ("schedule_tick", "waterfill")}
+    check_cells(todo, metrics, info, f"registry {name}/bisect on the CPU")
+    return todo, metrics, {k: info[k] for k in ("wall_s", "chunks")}, \
+        launches
+
+
 def check_registry_launches(name, runs):
     """The kernels each backend must (and must not) launch in one run."""
     fused = runs["fused"][2]
@@ -3619,9 +4130,11 @@ def phase_registry(report, elapsed_s):
     each backend; metrics identical across backends, launches as each
     backend routes them, the card equal to the CPU on small runs, and the
     tick (an SJF-permuted call) and waterfill (a pooled / stealing give)
-    held to their plain versions on captured calls and timed there."""
-    import torch
-    from repro_torch.kernels import build, schedule_tick, waterfill
+    held to their plain versions on captured calls and timed there.  The
+    bisect runs go to worker processes on the CPU, beside the card's."""
+    import concurrent.futures
+    import multiprocessing
+    from repro_torch.kernels import schedule_tick, waterfill
     from repro_torch.core import CLUSTERS, traces
     scale = registry_scale(report, elapsed_s)
     cut = "" if scale == 0.1 else " (CUT from scale 0.1 to 0.05)"
@@ -3632,10 +4145,34 @@ def phase_registry(report, elapsed_s):
     out = {"scale": scale, "runs": {}}
     tick_cap = Capture(schedule_tick, "fused_schedule_tick")
     wf_cap = Capture(waterfill, "waterfill")
+    # D8: each run's bisect backend in a worker process on the CPU, beside
+    # the card's runs
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=2, mp_context=multiprocessing.get_context("spawn"))
+    on_cpu = {name: pool.submit(registry_worker, name, scale)
+              for name, _kw, backends in registry_runs()
+              if "bisect" in backends}
+    with pool:
+        registry_card_runs(out, on_cpu, scale, tick_cap, wf_cap)
+    report_registry(report, out, scale, tick_cap, wf_cap)
+
+
+def registry_card_runs(out, on_cpu, scale, tick_cap, wf_cap):
+    """The registry runs' card backends, then each bisect run's result from
+    its CPU worker; metrics identical and launches as routed."""
+    import torch
+    from repro_torch.kernels import build
     for name, spec_kw, backends in registry_runs():
         theta_on_both_devices("registry", 0.02, **spec_kw)
         runs = {}
         for backend in backends:
+            if backend == "bisect":
+                todo, metrics, info, delta = on_cpu[name].result()
+                runs[backend] = (metrics, info, delta)
+                log(f"[registry] {name} bisect on the CPU (a worker process "
+                    f"beside the card's runs): {len(todo)} cells in "
+                    f"{info['wall_s']:.2f}s; launches {delta}")
+                continue
             capture = backend == "fused" and name == "sjf"
             torch.cuda.synchronize()
             build.LAUNCH_COUNTS.clear()  # this run's launches start here
@@ -3672,6 +4209,12 @@ def phase_registry(report, elapsed_s):
             "batches": {b: {c["structure"]: {
                 k: c[k] for k in ("lanes", "wall_s", "steps", "window")}
                 for c in runs[b][1]["chunks"]} for b in backends}}
+
+
+def report_registry(report, out, scale, tick_cap, wf_cap):
+    """The registry phase's SJF step beside the main phase's FCFS one, and
+    the captured tick and waterfill calls held to their plain versions and
+    timed."""
     sjf = out["runs"]["sjf"]["batches"]["fused"]["greedy"]
     s_step = sjf["wall_s"] / sjf["steps"]
     fcfs = report.get("greedy_s_per_step")
@@ -4980,13 +5523,13 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="env,parity,main,serve,moe,encdec,train,"
-                            "registry,experiment,whatif,dense,scale",
+                            "elastic,registry,experiment,whatif,dense,scale",
                     help="comma-separated subset of env,parity,main,serve,"
-                         "moe,encdec,train,registry,experiment,whatif,dense,"
-                         "scale (the default) "
+                         "moe,encdec,train,elastic,registry,experiment,"
+                         "whatif,dense,scale (the default) "
                          "and the opt-in waterfill, waterfill-plans, "
-                         "rmsnorm-plans, profile, paper-scale, bwd-ab and "
-                         "ssd-variants")
+                         "rmsnorm-plans, profile, paper-scale, bwd-ab, "
+                         "ssd-variants and elastic-dp (two cards or more)")
     ap.add_argument("--ab-csrc", default=str(
         ROOT / "build" / "parent" / "src" / "repro_torch" / "kernels" /
         "csrc"), metavar="DIR",
@@ -5038,6 +5581,8 @@ def main(argv=None) -> int:
             phase_encdec(report)
         if "train" in phases:
             phase_train(report, time.monotonic() - t_start)
+        if "elastic" in phases:
+            phase_elastic(report, time.monotonic() - t_start)
         if "registry" in phases:
             phase_registry(report, time.monotonic() - t_start)
         if "experiment" in phases:
@@ -5061,6 +5606,11 @@ def main(argv=None) -> int:
                          tuple(args.ab_kernels.split(",")))
         if "ssd-variants" in phases:
             phase_ssd_variants(report)
+        if "elastic-dp" in phases:
+            if torch.cuda.device_count() < 2:
+                raise AssertionError("elastic-dp takes two cards, the host "
+                                     f"has {torch.cuda.device_count()}")
+            report.setdefault("elastic", {})["width_2"] = elastic_width_2()
         if "paper-scale" in phases:
             phase_paper_scale(report, time.monotonic() - t_start,
                               args.paper_scale_budget)

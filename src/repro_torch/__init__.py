@@ -7,13 +7,13 @@ lane execution in ``sweep.shard``, and the experiment layer,
 service (``serve.whatif``, ``python -m repro_torch.serve``), LLM serving
 (``serve.engine`` over ``models``: the ``mamba``, ``shared``, ``attn``,
 ``moe``, ``enc`` and ``dec`` block kinds, GQA or MLA attention) and LLM
-training (``train``, ``python -m repro_torch.launch.train``) in PyTorch,
-with the greedy scheduling pass, the prefix waterfill, RMSNorm, flash
-attention and the Mamba-2 SSD scan as hand-written CUDA kernels for Hopper
-(``repro_torch/kernels/csrc``), and RMSNorm's and attention's gradients as
-hand-written backward kernels (the SSD scan has none yet, so Mamba-2
-blocks train on the CPU only).  It imports ``torch`` and numpy only; the
-JAX package is never imported here.
+training (``train``, ``python -m repro_torch.launch.train``, and the
+malleable training job a scheduler resizes, ``elastic.manager``) in
+PyTorch, with the greedy scheduling pass, the prefix waterfill, RMSNorm,
+flash attention and the Mamba-2 SSD scan as hand-written CUDA kernels for
+Hopper (``repro_torch/kernels/csrc``), and their gradients as hand-written
+backward kernels.  It imports ``torch`` and numpy only; the JAX package is
+never imported here.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card and without that argument they raise instead of running on

@@ -129,25 +129,19 @@ def named_to_numpy(named: Mapping[str, torch.Tensor]
     out = {}
     for name, t in named.items():
         key, layer = jax_key(name)
-        arr = t.detach().cpu().numpy()
         if layer is None:
-            out[key] = arr
+            out[key] = t.detach().cpu().numpy()
         else:
-            stacks.setdefault(key, {})[layer] = arr
+            stacks.setdefault(key, {})[layer] = t.detach()
     for key, rows in stacks.items():
-        out[key] = np.stack([rows[i] for i in range(len(rows))])
+        # each layer copied once, straight into its row of the stack
+        first = rows[0]
+        dtype = torch.empty((), dtype=first.dtype).numpy().dtype
+        arr = np.empty((len(rows),) + tuple(first.shape), dtype=dtype)
+        for i in range(len(rows)):
+            torch.from_numpy(arr[i]).copy_(rows[i])
+        out[key] = arr
     return out
-
-
-def named_from_numpy(flat: Mapping[str, object], model: torch.nn.Module,
-                     device=None) -> Dict[str, torch.Tensor]:
-    """The inverse of :func:`named_to_numpy` for ``model``'s parameter
-    names: a tree of the JAX layout (an optimizer moment, a residual) as
-    tensors keyed by parameter name, on ``device``."""
-    dev = resolve_device(device)
-    return {name: torch.from_numpy(np.array(_jax_leaf(name, flat)[1],
-                                            copy=True)).to(dev)
-            for name, _ in model.named_parameters()}
 
 
 def lm_params_to_numpy(model: torch.nn.Module, cfg, *, grad: bool = False
@@ -177,22 +171,37 @@ def train_state_to_numpy(state) -> Dict[str, object]:
     return out
 
 
-def train_state_from_numpy(tree: Mapping[str, object], cfg, device=None):
-    """The inverse of :func:`train_state_to_numpy`: a JAX train state's
-    arrays (``tree["params"]`` and the ``opt`` / ``ef`` trees keyed by leaf
-    path) as the port's train state on ``device``, its parameters needing
-    gradients.  Refuses what ``train_step.check_trainable`` refuses."""
-    from repro_torch.train.train_step import check_trainable
-    dev = resolve_device(device)
-    check_trainable(cfg, dev)
-    model = lm_params_from_numpy(tree["params"], cfg, dev)
-    model.requires_grad_(True)
-    opt = {k: named_from_numpy(v, model, dev)
-           for k, v in tree["opt"].items() if k != "step"}
-    opt["step"] = torch.tensor(int(tree["opt"]["step"]), dtype=torch.int32)
-    state = {"params": model, "opt": opt}
-    if "ef" in tree:
-        state["ef"] = named_from_numpy(tree["ef"], model, dev)
+@torch.no_grad()
+def train_state_into(state, tree: Mapping[str, object]):
+    """Copy a JAX train state's arrays (the layout of
+    :func:`train_state_to_numpy`) into the port's train state ``state`` in
+    place: its parameters, optimizer trees, step and residuals keep their
+    tensors.  Every tensor must be filled; returns ``state``."""
+    model = state["params"]
+
+    def fill(dst: Dict[str, torch.Tensor], flat, part):
+        for name, t in dst.items():
+            key, arr = _jax_leaf(name, flat)
+            if arr.shape != tuple(t.shape):
+                raise ValueError(f"{part}/{key}: {arr.shape} for a tensor of "
+                                 f"{tuple(t.shape)}")
+            if not (arr.flags.writeable and arr.flags.c_contiguous):
+                arr = np.array(arr, copy=True)
+            t.copy_(torch.from_numpy(arr))
+
+    fill(dict(model.named_parameters()), tree["params"], "params")
+    opt = state["opt"]
+    if sorted(opt) != sorted(tree["opt"]):
+        raise ValueError(f"opt holds {sorted(opt)}, the tree "
+                         f"{sorted(tree['opt'])}")
+    for k, v in opt.items():
+        if k != "step":
+            fill(v, tree["opt"][k], f"opt/{k}")
+    opt["step"].fill_(int(tree["opt"]["step"]))
+    if ("ef" in state) != ("ef" in tree):
+        raise ValueError("the state and the tree differ in residuals (ef)")
+    if "ef" in state:
+        fill(state["ef"], tree["ef"], "ef")
     return state
 
 

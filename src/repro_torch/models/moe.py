@@ -3,9 +3,18 @@
 Counterpart of the JAX package's ``models/moe.py`` local path
 (``_route``, ``_dispatch_compute``, ``_apply_moe_local``): top-k routing
 with a Switch aux loss, capacity-bounded dispatch and optional shared
-experts.  The sharded dispatch (``apply_moe_sharded``) is not ported
-(ROADMAP §A10f); :func:`dispatch_compute` keeps its ``e_local`` /
+experts.  The expert-sharded dispatch (``apply_moe_sharded``) is not
+ported (ROADMAP §A10f2); :func:`dispatch_compute` keeps its ``e_local`` /
 ``expert_offset`` arguments for it.
+
+Under :func:`data_parallel` (the elastic trainer's step at a width above
+1) each rank holds its contiguous block of the global batch's tokens, and
+:func:`apply_moe` routes them as the global batch's: every rank's count of
+assignments to each expert is gathered, the capacity is the global token
+count's, an assignment's position counts the assignments of the ranks
+before it, and the aux loss reads the global ``frac``, so the ranks'
+outputs are the global step's rows and the mean of their aux losses (and
+of its gradients) the global one.
 
 Capacity: ``C = max(ceil(T * k / E * capacity_factor), k)``.  The (token,
 slot) assignments are taken in the reference's order, token-major and
@@ -22,6 +31,7 @@ is the same on the card as on the CPU (no atomics).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -52,9 +62,9 @@ class MoE(nn.Module):
                               dtype)
 
 
-def route(xf, router, n_experts: int, top_k: int, router_aux_weight: float):
-    """Token routing and the Switch aux loss.  xf: (T, d) -> gate values
-    (T, k) f32, gate indices (T, k) int64, aux (scalar f32).
+def gates(xf, router, top_k: int):
+    """Router probabilities (T, E) f32 and each token's top-k gate values
+    (T, k) f32 and indices (T, k) int64.
 
     The router product reads xf in its own dtype and accumulates in f32;
     ``torch.topk`` gives the largest probabilities first, as
@@ -63,19 +73,68 @@ def route(xf, router, n_experts: int, top_k: int, router_aux_weight: float):
     probs = torch.softmax(logits, dim=-1)                     # (T, E)
     gate_vals, gate_idx = torch.topk(probs, top_k, dim=-1, sorted=True)
     gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
+    return probs, gate_vals, gate_idx
+
+
+def route(xf, router, n_experts: int, top_k: int, router_aux_weight: float):
+    """Token routing and the Switch aux loss.  xf: (T, d) -> gate values
+    (T, k) f32, gate indices (T, k) int64, aux (scalar f32)."""
+    probs, gate_vals, gate_idx = gates(xf, router, top_k)
     onehot_any = F.one_hot(gate_idx, n_experts).float()
     frac = onehot_any.sum(dim=1).mean(dim=0)                  # (E,)
     aux = router_aux_weight * n_experts * torch.sum(frac * probs.mean(dim=0))
     return gate_vals, gate_idx, aux
 
 
+# the data-parallel group whose ranks' tokens route as one batch (None:
+# this rank's tokens are the batch); a module global, not a context
+# variable, so the autograd thread that recomputes a checkpointed layer in
+# the backward sees it too
+_DP_GROUP = None
+
+
+@contextlib.contextmanager
+def data_parallel(group):
+    """Within it, :func:`apply_moe` routes this rank's tokens as its block
+    of the global batch of ``group``'s ranks (rank order = block order);
+    a group of one rank, or None, changes nothing."""
+    global _DP_GROUP
+    import torch.distributed as dist
+    prev = _DP_GROUP
+    _DP_GROUP = (group if group is not None
+                 and dist.get_world_size(group) > 1 else None)
+    try:
+        yield
+    finally:
+        _DP_GROUP = prev
+
+
+def gather_counts(gate_idx, n_experts: int, group):
+    """(W, E) int32: each rank of ``group``'s count of assignments to each
+    expert, in rank order."""
+    import torch.distributed as dist
+    counts = F.one_hot(gate_idx.reshape(-1), n_experts).sum(dim=0).to(
+        torch.int32)
+    out = [torch.empty_like(counts)
+           for _ in range(dist.get_world_size(group))]
+    dist.all_gather(out, counts, group=group)
+    return torch.stack(out)
+
+
+def capacity_for(tokens: int, n_experts: int, top_k: int,
+                 capacity_factor: float) -> int:
+    return max(int(math.ceil(tokens * top_k / n_experts * capacity_factor)),
+               top_k)
+
+
 def dispatch_plan(gate_idx, *, e_local: int, expert_offset: int,
-                  capacity: int):
+                  capacity: int, limit=None):
     """Where each (token, slot) assignment goes: ``(expert, position,
     keep)``, each of shape (T * k,) in token-major order.  ``expert`` is in
     local coordinates (0 where the assignment is not local), ``position``
     its index among the assignments to that expert (-1 if not local), and
-    ``keep`` whether it is local and within ``capacity``."""
+    ``keep`` whether it is local and within ``capacity`` (and below its
+    expert's entry of ``limit``, (e_local,), when given)."""
     flat_e = gate_idx.reshape(-1) - expert_offset
     local = (flat_e >= 0) & (flat_e < e_local)
     flat_e = torch.where(local, flat_e, 0)
@@ -85,16 +144,21 @@ def dispatch_plan(gate_idx, *, e_local: int, expert_offset: int,
     pos = (torch.cumsum(onehot, dim=0).to(torch.int32) * onehot)
     pos_in_e = pos.sum(dim=-1).to(torch.int32) - 1
     keep = local & (pos_in_e >= 0) & (pos_in_e < capacity)
+    if limit is not None:
+        keep = keep & (pos_in_e < limit[flat_e])
     return flat_e, pos_in_e, keep
 
 
 def dispatch_compute(p: MoE, xf, gate_vals, gate_idx, *, e_local: int,
-                     expert_offset: int, capacity: int, act: str, dtype):
+                     expert_offset: int, capacity: int, act: str, dtype,
+                     limit=None):
     """Gather each local expert's tokens, run the expert MLPs, and combine.
 
     xf: (T, d); ``gate_idx`` holds global expert ids; this holder's
     ``w1 w2 w3`` are experts ``[expert_offset, expert_offset + e_local)``.
-    Returns the (T, d) output of those experts in ``dtype``.  Assignments
+    Returns the (T, d) output of those experts in ``dtype``; ``limit``
+    (e_local,) also drops an assignment at or past its expert's entry
+    (:func:`dispatch_plan`).  Assignments
     that are not kept are written into a spare last column of the tables,
     which is cut off (the reference's scatter drops them), so nothing here
     waits on the card for a count."""
@@ -102,7 +166,7 @@ def dispatch_compute(p: MoE, xf, gate_vals, gate_idx, *, e_local: int,
     top_k = gate_idx.shape[-1]
     flat_e, pos_in_e, keep = dispatch_plan(
         gate_idx, e_local=e_local, expert_offset=expert_offset,
-        capacity=capacity)
+        capacity=capacity, limit=limit)
     tok_ids = torch.arange(t, device=xf.device).repeat_interleave(top_k)
     col = torch.where(keep, pos_in_e, capacity).long()
     idx_table = torch.full((e_local, capacity + 1), t, dtype=torch.long,
@@ -142,13 +206,28 @@ def apply_moe(p: MoE, x, *, n_experts: int, top_k: int, act: str, dtype,
     b, s, d = x.shape
     t = b * s
     xf = x.reshape(t, d)
-    gate_vals, gate_idx, aux = route(xf, p.router, n_experts, top_k,
-                                     router_aux_weight)
-    capacity = max(int(math.ceil(t * top_k / n_experts * capacity_factor)),
-                   top_k)
+    group, limit = _DP_GROUP, None
+    if group is None:
+        gate_vals, gate_idx, aux = route(xf, p.router, n_experts, top_k,
+                                         router_aux_weight)
+        capacity = capacity_for(t, n_experts, top_k, capacity_factor)
+    else:
+        # this rank's tokens as its block of the global batch's: the global
+        # frac in the aux loss (its gradient this rank's share), the global
+        # capacity, and each expert's room left after the ranks before
+        import torch.distributed as dist
+        probs, gate_vals, gate_idx = gates(xf, p.router, top_k)
+        counts = gather_counts(gate_idx, n_experts, group)
+        t_all = t * counts.shape[0]
+        frac = counts.sum(dim=0).float() / t_all
+        aux = router_aux_weight * n_experts * torch.sum(
+            frac * probs.mean(dim=0))
+        cap_all = capacity_for(t_all, n_experts, top_k, capacity_factor)
+        limit = cap_all - counts[:dist.get_rank(group)].sum(dim=0)
+        capacity = min(cap_all, t)
     out = dispatch_compute(p, xf, gate_vals, gate_idx, e_local=n_experts,
                            expert_offset=0, capacity=capacity, act=act,
-                           dtype=dtype)
+                           dtype=dtype, limit=limit)
     out = out.reshape(b, s, d)
     if hasattr(p, "shared"):
         out = out + apply_mlp(p.shared, x, act, dtype)

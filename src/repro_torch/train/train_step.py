@@ -10,6 +10,14 @@ The port of the JAX package's ``train/train_step.py``.
   (:mod:`repro_torch.elastic.compression`);
 * bf16-param / f32-master mixed precision through the optimizer config.
 
+With a data-parallel ``group`` (the elastic trainer's step at a width
+above 1, :mod:`repro_torch.elastic.manager`) each rank takes its block of
+the global batch, and the step computes the global batch's function: MoE
+layers route as the global batch (:func:`repro_torch.models.moe.
+data_parallel`), and the gradients, the loss and its parts are averaged
+over the group before clipping, compression and AdamW, so every rank
+applies the same update.
+
 The state is ``{"params": the LM (its parameters need gradients), "opt":
 the AdamW state keyed by parameter name, "ef": the residuals (with
 compress_grads)}``; a step updates it in place and returns it.  On a CUDA
@@ -30,6 +38,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.elastic.compression import (compress_decompress,
                                              init_residuals)
 from repro_torch.kernels import ssd_scan as SSD
+from repro_torch.models import moe as M
 from repro_torch.models import transformer as T
 
 from .optimizer import AdamWConfig, adamw_update, init_opt_state
@@ -106,14 +115,44 @@ def grads_of(model: T.LM, cfg: ModelConfig, batch, tc: TrainConfig):
     return loss, {"ce_loss": loss, "aux_loss": torch.zeros_like(loss)}, acc
 
 
-def make_train_step(cfg: ModelConfig, tc: TrainConfig):
+def all_reduce_mean(tensors, group) -> None:
+    """Average ``tensors`` over ``group``'s ranks in place: one flat buffer
+    (summed over the ranks, then divided by their count) a dtype."""
+    import torch.distributed as dist
+    from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
+    n = dist.get_world_size(group)
+    by_dtype: Dict[Any, list] = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    for same in by_dtype.values():
+        flat = _flatten_dense_tensors(same)
+        dist.all_reduce(flat, group=group)
+        flat.div_(n)
+        for t, r in zip(same, _unflatten_dense_tensors(flat, same)):
+            t.copy_(r)
+
+
+def make_train_step(cfg: ModelConfig, tc: TrainConfig, group=None):
     """Returns ``train_step(state, batch) -> (state, stats)``; ``batch``
-    holds tensors on the model's device."""
+    holds tensors on the model's device (with ``group``, this rank's block
+    of the global batch, of the same size on every rank)."""
+    if group is not None:
+        import torch.distributed as dist
+        if dist.get_world_size(group) == 1:
+            group = None
 
     def train_step(state, batch):
         model = state["params"]
         check_trainable(cfg, next(model.parameters()).device)
-        loss, metrics, grads = grads_of(model, cfg, batch, tc)
+        with M.data_parallel(group):
+            loss, metrics, grads = grads_of(model, cfg, batch, tc)
+        if group is not None:
+            all_reduce_mean(list(grads.values()), group)
+            parts = torch.stack([loss, metrics["ce_loss"],
+                                 metrics["aux_loss"]]).float()
+            all_reduce_mean([parts], group)
+            loss, metrics = parts[0], {"ce_loss": parts[1],
+                                       "aux_loss": parts[2]}
         if tc.compress_grads:
             grads, state["ef"] = compress_decompress(grads, state["ef"])
         params = dict(model.named_parameters())

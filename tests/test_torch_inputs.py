@@ -5,7 +5,8 @@ batch-level statics are numpy code copied into the port; these tests hold
 the copies to the reference byte for byte at a small scale.  The model
 configs (``configs/base.py`` and the arch modules) are copied whole and
 held to the reference file for file; ``train/data.py`` too, but for its
-config import.
+config import; ``elastic/failures.py`` byte for byte, with the reference's
+straggler test run on the copy.
 """
 import dataclasses
 import pathlib
@@ -175,6 +176,40 @@ def test_train_data_module_is_a_copy_but_for_its_config_import():
     assert ref.count("from repro.configs.base import") == 1
     assert port == ref.replace("from repro.configs.base import",
                                "from repro_torch.configs.base import")
+
+
+def test_elastic_failures_module_is_a_byte_copy():
+    """``elastic/failures.py`` (the failure injector and the straggler
+    monitor) imports no JAX and is copied whole."""
+    import repro.elastic.failures as jfail
+    import repro_torch.elastic.failures as tfail
+    assert pathlib.Path(tfail.__file__).read_bytes() == \
+        pathlib.Path(jfail.__file__).read_bytes()
+
+
+def test_straggler_monitor_flags_slow_host():
+    """The reference's test (``tests/test_elastic.py``) on the copy."""
+    from repro_torch.elastic.failures import StragglerMonitor
+    mon = StragglerMonitor(n_nodes=4, threshold=2.0, grace_steps=1)
+    lat = np.asarray([0.1, 0.1, 0.1, 0.1])
+    for _ in range(10):
+        assert mon.observe(lat) == []
+    slow = lat.copy()
+    slow[2] = 0.5
+    assert mon.observe(slow) == []      # one grace step
+    assert mon.observe(slow) == [2]     # persistent straggler evicted
+    assert mon.observe(lat) == []       # recovered after eviction/reset
+
+
+def test_failure_injector_draws_as_the_reference():
+    from repro.elastic.failures import FailureInjector as J
+    from repro_torch.elastic.failures import FailureInjector as T
+    j, t = J(8, 100.0, seed=3), T(8, 100.0, seed=3)
+    for now in (10.0, 50.0, 200.0):
+        assert t.failed_nodes(now) == j.failed_nodes(now)
+        for node in j.failed_nodes(now):
+            j.replace(node, now)
+            t.replace(node, now)
 
 
 def test_config_registry_matches_reference():

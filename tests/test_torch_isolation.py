@@ -40,6 +40,13 @@ TRAINING_MODULES = ("repro_torch.train", "repro_torch.train.data",
                     "repro_torch.train.train_step", "repro_torch.elastic",
                     "repro_torch.elastic.compression",
                     "repro_torch.launch.train")
+# the malleable training job's modules (A10g and the data-parallel half of
+# A10f), which the two checks below must cover
+ELASTIC_MODULES = ("repro_torch.elastic.checkpoint",
+                   "repro_torch.elastic.failures",
+                   "repro_torch.elastic.manager",
+                   "repro_torch.elastic.resharding",
+                   "repro_torch.launch.mesh", "repro_torch.models.sharding")
 
 
 def _imported_roots(path):
@@ -60,8 +67,11 @@ def test_port_file_imports_neither_jax_nor_repro(path):
 
 def test_every_module_imports_with_jax_and_repro_blocked():
     assert set(TRAINING_MODULES) <= set(MODULES)
+    assert set(ELASTIC_MODULES) <= set(MODULES)
     assert {PORT / "train" / "data.py", PORT / "elastic" / "compression.py",
             PORT / "launch" / "train.py"} <= set(PORT_FILES)
+    assert {PORT / (m.replace("repro_torch.", "").replace(".", "/") + ".py")
+            for m in ELASTIC_MODULES} <= set(PORT_FILES)
     code = (
         "import sys\n"
         "for m in ('jax', 'jaxlib', 'repro'):\n"
@@ -166,6 +176,36 @@ def test_llm_entry_points_without_device_raise_on_a_cpu_box(no_card):
                          TrainConfig(), torch.Generator().manual_seed(0))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_main(["--arch", "stablelm-1.6b", "--reduced", "--steps", "1"])
+
+
+def test_elastic_entry_points_without_device_raise_on_a_cpu_box(no_card):
+    """The malleable job runs on the card unless ``device="cpu"`` is given:
+    the trainer and ``launch.train --malleable`` raise before they open a
+    process group."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.elastic.manager import ElasticTrainer
+    from repro_torch.launch.train import main
+    from repro_torch.train.train_step import TrainConfig
+    cfg = get_config("stablelm-1.6b").reduced()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ElasticTrainer(cfg, TrainConfig(), global_batch=2, seq_len=8,
+                       width=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["--arch", "stablelm-1.6b", "--reduced", "--steps", "1",
+              "--malleable"])
+    assert not dist.is_initialized()
+
+
+def test_tensor_parallel_job_raises_naming_the_next_slice():
+    """``model_parallel`` > 1 is the tensor-parallel slice (ROADMAP
+    §A10f2): refused before anything is built, on any box."""
+    from repro_torch.configs import get_config
+    from repro_torch.elastic.manager import ElasticTrainer
+    from repro_torch.train.train_step import TrainConfig
+    with pytest.raises(NotImplementedError, match="ROADMAP §A10f2"):
+        ElasticTrainer(get_config("stablelm-1.6b").reduced(), TrainConfig(),
+                       global_batch=2, seq_len=8, width=1, model_parallel=2)
 
 
 @pytest.mark.parametrize("size", ["published", "reduced"])
@@ -306,6 +346,21 @@ def test_kernel_c_interface_matches_the_loader():
     assert sig == build.expected_abi()
 
 
+def test_chip_smoke_defines_each_top_level_name_once():
+    """A second definition of a name (a class, a function, a constant)
+    would replace the first for every phase that uses it."""
+    import collections
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    names = collections.Counter()
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names[node.name] += 1
+        elif isinstance(node, ast.Assign):
+            names.update(t.id for t in node.targets
+                         if isinstance(t, ast.Name))
+    assert [n for n, c in names.items() if c > 1] == []
+
+
 def _load_chip_smoke():
     import importlib.util
     spec = importlib.util.spec_from_file_location("chip_smoke",
@@ -412,6 +467,44 @@ def test_chip_smoke_cuts_the_zamba2_steps_only_when_they_cannot_fit(
     report = {} if rate is None else {"greedy_s_per_step": rate}
     got, cut = smoke.train_steps(report, elapsed_s, smoke.TRAIN_ZAMBA2)
     assert got == steps and cut == (steps < smoke.TRAIN_ZAMBA2["steps"])
+
+
+@pytest.mark.parametrize("elapsed_s,rate,steps", [
+    # a 4.90 ms host reaching the elastic phase at ~520 s: every step
+    (520.0, 4.90e-3, 6), (0.0, None, 6),
+    # a 5.98 ms host there at ~590 s (PR 28's final tree's train phase
+    # ended near 560 s): the phases after it at their least scales take
+    # ~580 s, so the phase keeps its least steps
+    (590.0, 5.98e-3, 4), (450.0, 6.88e-3, 4),
+    # never fewer, never skipped
+    (1150.0, 6.88e-3, 4)])
+def test_chip_smoke_cuts_the_elastic_steps_only_when_they_cannot_fit(
+        elapsed_s, rate, steps):
+    """The elastic phase keeps its 6 steps or cuts to 4 where the time left
+    would not hold them and the phases after it at their least scales; the
+    cut is reported, and the phase is never skipped."""
+    smoke = _load_chip_smoke()
+    report = {} if rate is None else {"greedy_s_per_step": rate}
+    got, cut = smoke.elastic_steps(report, elapsed_s)
+    assert got == steps and cut == (steps < smoke.ELASTIC["steps"])
+    assert smoke.ELASTIC["least_steps"] == 4
+
+
+def test_chip_smoke_elastic_config_is_one_hybrid_period_at_full_width():
+    """The elastic phase's zamba2-2.7b keeps the published widths and cuts
+    the depth to one period: 6 Mamba-2 layers, then the shared block."""
+    from repro_torch.configs import get_config
+    smoke = _load_chip_smoke()
+    cfg, full = smoke.elastic_config(), get_config("zamba2-2.7b")
+    for f in ("d_model", "ssm_state", "ssm_headdim", "ssm_expand", "n_heads",
+              "d_ff", "vocab", "shared_attn_every"):
+        assert getattr(cfg, f) == getattr(full, f), f
+    assert (cfg.d_model, cfg.d_model * cfg.ssm_expand // cfg.ssm_headdim,
+            cfg.ssm_headdim, cfg.ssm_state, cfg.n_heads, cfg.d_ff,
+            cfg.vocab) == (2560, 80, 64, 64, 32, 10240, 32000)
+    assert cfg.n_layers == 6 < full.n_layers
+    launches = smoke.expected_train_launches(cfg, "dots")
+    assert all(launches[k] > 0 for k in smoke.TRAIN_KERNELS)
 
 
 @pytest.mark.parametrize("case", [

@@ -3,7 +3,7 @@ and ``python -m repro_torch.launch.train`` against the JAX package, on the
 CPU.
 
 * ``make_train_step``: three steps from the same JAX-initialised train
-  state (carried across with ``train_state_from_numpy``) on the same
+  state (carried across with ``train_state_into``) on the same
   ``batch_for`` batches, f32 compute, a short cosine schedule, for
   ``accum_steps`` 1 and 2, ``compress_grads`` on and off and
   ``master_in_opt``: loss, grad norm and lr each step within 1e-5
@@ -21,7 +21,8 @@ CPU.
   reference file);
 * ``compress_decompress`` and ``init_residuals`` bit-equal;
 * the launch CLI: a 3-step reduced run returns 0 and prints the
-  reference's lines; an elastic flag exits 1 naming ROADMAP §A10g.
+  reference's lines; the elastic flags run and print the reference's
+  lines (``tests/test_torch_elastic.py`` holds the elastic runs to JAX).
 """
 import numpy as np
 import pytest
@@ -40,7 +41,7 @@ from repro.train import optimizer as JO  # noqa: E402
 from repro.train import train_step as JS  # noqa: E402
 import repro_torch.train.data as TDATA  # noqa: E402
 from repro_torch.convert import (to_tensors,  # noqa: E402
-                                 train_state_from_numpy, train_state_to_numpy)
+                                 train_state_into, train_state_to_numpy)
 from repro_torch.elastic import compression as TC  # noqa: E402
 from repro_torch.train import optimizer as TO  # noqa: E402
 from repro_torch.train import train_step as TS  # noqa: E402
@@ -74,7 +75,9 @@ def test_three_train_steps_match_jax(accum, compress, master):
         for mod, opt, dt in ((JS, JO, jnp.float32),
                              (TS, TO, torch.float32))]
     state_j = JS.init_train_state(jax.random.key(0), cfg, tcs[0])
-    state_t = train_state_from_numpy(_jax_tree(state_j), cfg, "cpu")
+    state_t = train_state_into(TS.init_train_state(
+        cfg, tcs[1], torch.Generator().manual_seed(0), "cpu"),
+        _jax_tree(state_j))
     assert sorted(state_t["opt"]) == sorted(state_j["opt"])
     step_j = jax.jit(JS.make_train_step(cfg, tcs[0]))
     step_t = TS.make_train_step(cfg, tcs[1])
@@ -195,10 +198,32 @@ def test_launch_train_runs_a_reduced_model(capsys):
     assert "loss=" in out[0] and "lr=" in out[0] and " -> " in out[-1]
 
 
-@pytest.mark.parametrize("flag", [["--malleable"], ["--resize-every", "4"],
-                                  ["--ckpt-dir", "ck", "--resume"]])
-def test_launch_train_elastic_flags_exit_1_naming_a10g(flag, capsys):
+@pytest.mark.parametrize("flags,lines", [
+    (["--malleable", "--log-every", "1"],
+     ["[train] step 1: loss=", "[train] step 2: loss=",
+      "[train] done: 2 steps, final loss "]),
+    (["--malleable", "--resize-every", "2"],
+     ["[train] step 2: scheduler resized DP width -> 1 (",
+      "[train] done: 2 steps, final loss "]),
+    (["--malleable", "--ckpt-dir", "{ck}", "--resume"],
+     ["[train] resume: restored step None",
+      "[train] done: 2 steps, final loss "]),
+    (["--resize-every", "4"],
+     ["[train] step 2: loss=", "[train] done: loss "])])
+def test_launch_train_elastic_flags_run(flags, lines, tmp_path, capsys):
+    """The elastic flags run under the elastic manager (ROADMAP §A10g is
+    ported) and print the reference's lines; without ``--malleable`` they
+    are ignored, as in the reference, with a note."""
     from repro_torch.launch.train import main
+    flags = [f.format(ck=tmp_path / "ck") for f in flags]
     assert main(["--arch", "stablelm-1.6b", "--reduced", "--device", "cpu",
-                 *flag]) == 1
-    assert "ROADMAP §A10g" in capsys.readouterr().err
+                 "--steps", "2", "--batch", "2", "--seq", "16",
+                 *flags]) == 0
+    cap = capsys.readouterr()
+    out = cap.out.splitlines()
+    assert len(out) == len(lines)
+    assert all(line.startswith(want) for line, want in zip(out, lines))
+    assert out[-1].endswith("resizes=0 restores=0") == ("--malleable"
+                                                       in flags)
+    assert ("apply only with --malleable" in cap.err) == (
+        "--malleable" not in flags)
