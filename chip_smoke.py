@@ -11,8 +11,9 @@ layer around it, ``python -m repro_torch.experiments``; the what-if query
 service, ``python -m repro_torch.serve``; LLM serving through
 ``repro_torch.serve.engine.ServeEngine``; the encoder-decoder and the
 vision prefix through ``repro_torch.models.decode.prefill`` /
-``decode_step``; LLM training through ``repro_torch.launch.train``; and
-the malleable training job, ``repro_torch.elastic.manager.ElasticTrainer``)
+``decode_step``; LLM training through ``repro_torch.launch.train``; the
+malleable training job, ``repro_torch.elastic.manager.ElasticTrainer``;
+and the tensor-parallel forward and step on a ``(data, model)`` mesh)
 and prints what it saw.
 Phases:
 
@@ -175,7 +176,27 @@ Phases:
    kernels as the plan gives, no plain version called; prints s / step
    beside the plain path's, the checkpoint's GB, each write and read in
    s and GB/s (host copy and npz apart) and peak memory;
-9. registry: the rest of the strategy registry through ``run_cells``, on
+9. tp: the tensor-parallel forward and train step
+   (``repro_torch.models.tp``) on the one card: a gloo world of 2 processes
+   sharing it (the kernels on the card, the collectives through the host),
+   each the model rank of a (1, 2) mesh, the state placed by
+   ``reshard_tree``; f32, 2 x 512 tokens, random weights from seed 0, at
+   published widths: zamba2-2.7b one hybrid period deep (40 SSD heads and
+   16 attention heads a rank, the gathered gated norm), a forward and one
+   train step (remat ``dots``); glm4-9b 2 layers deep (a kv head and 16 q
+   heads a rank, vocab 151,552 split) and olmoe-1b-7b 2 layers deep (32
+   experts a rank), a forward; each held to the single-device forward /
+   step in the same process: logits within 5e-3, zamba2's loss within 1e-5
+   (relative) and its parameters within 1e-5, launches a rank as the plan
+   gives (counted from 0 before each run), no plain version called; prints
+   s a forward (and step) at model 2 against model 1, peak memory a rank,
+   and each kernel at its largest local call against its plain version
+   (``tp_shapes`` on the kernels line).  Cut to zamba2 alone, printed, if
+   the time left would not hold the others.  Opt-in ``--phases
+   env,tp-nccl`` (2 or 4 cards, NCCL): the resize schedule at model 2 for
+   reduced stablelm and olmoe against a width-1, model-1 trainer, and
+   glm4-9b 2 layers deep at model 4 (each kv head split in half);
+10. registry: the rest of the strategy registry through ``run_cells``, on
    theta at scale 0.1 (255 jobs on 4,392 nodes, 1 seed, proportions 0.2 /
    0.6 / 1.0): SJF with MIN, KEEPPREF, PREF_COMMON_POOL and
    STEAL_AGREEMENT (greedy, pooled and stealing batches; 13 cells) under
@@ -191,7 +212,7 @@ Phases:
    SJF greedy step beside the main phase's FCFS one.  The bisect runs go
    to two worker processes on the CPU beside the card's runs.  Cut to
    scale 0.05, printed, if the time left would not hold it;
-10. experiment: ``python -m repro_torch.experiments``'s ``main(argv)`` as
+11. experiment: ``python -m repro_torch.experiments``'s ``main(argv)`` as
    a user runs it, each group of runs in a fresh temporary directory
    outside the repository, kernel launches counted from 0 before each
    run: (a) haswell at scale 0.02, 2 seeds, ``--crosscheck 2
@@ -209,7 +230,7 @@ Phases:
    engine's methodology gap, which the port shares with the JAX engine.
    Each run prints its wall, cells computed, store hits, launches and
    DES seconds;
-11. whatif: the what-if query service (``repro_torch.serve``) in a fresh
+12. whatif: the what-if query service (``repro_torch.serve``) in a fresh
    temporary cell store outside the repository: (a) 16 seeded queries at
    theta scale 1.0 (MIN, PREF, KEEPPREF, EASY; proportions 0.2 / 0.4 /
    0.6 / 1.0; 2 seeds; 10 distinct cells) submitted from 4 client threads
@@ -230,7 +251,7 @@ Phases:
    per-cell metrics identical; and a storm at theta 0.02 (greedy and
    balanced lanes) on the card equal to the same storm on the CPU bit for
    bit.  Prints wall, batches, coalesce widths, steps and launches;
-12. dense: the dense per-tick engine (``repro_torch.core.sim_dense``,
+13. dense: the dense per-tick engine (``repro_torch.core.sim_dense``,
    one scheduling pass a tick over whole job tensors), launches counted
    from 0 before each run: (a) the 20-job workload of
    ``tests/test_sim_jax.py`` on 10 nodes for 800 ticks under the 8
@@ -246,7 +267,7 @@ Phases:
    ticks equal to ``bisect``; wall, ms a tick and each lane's mean
    turnaround beside the port's DES (not gated); the tick kernel timed on
    the batch's 450th call (3 x 415 slots, priority bounds +-4 x 9,688);
-13. scale: the greedy batch on haswell at scale 1.0 (the whole trace,
+14. scale: the greedy batch on haswell at scale 1.0 (the whole trace,
    28,259 jobs on 2,388 nodes) with ``fused``, tick launches counted from
    0 just before it; the tick kernel is then timed on the run's call at
    its peak window (B = 16, W = 16,384): single-call and device (CUDA
@@ -2753,8 +2774,8 @@ class KeepCompression(Patch):
     gradients it is given and of the dequantized gradients and residuals
     it returns."""
 
-    def __call__(self, grads, residuals):
-        deq, res = self.inner(grads, residuals)
+    def __call__(self, grads, residuals, *args, **kwargs):
+        deq, res = self.inner(grads, residuals, *args, **kwargs)
         self.kept = tuple({n: t.detach().float().cpu().clone()
                            for n, t in tree.items()}
                           for tree in (grads, deq, res))
@@ -2989,7 +3010,7 @@ def train_steps(report, elapsed_s, spec):
     if rate is None:
         return spec["steps"], False
     left = (0.95 * TIME_LIMIT_S - elapsed_s - after_elastic_steps() * rate
-            - elastic_least_s())
+            - elastic_least_s() - tp_least_s())
     if spec["steps"] * spec.get("s_per_step", 0.0) <= left:
         return spec["steps"], False
     return least, least < spec["steps"]
@@ -3322,7 +3343,8 @@ def elastic_steps(report, elapsed_s):
     rate = report.get("greedy_s_per_step")
     if rate is None:
         return ELASTIC["steps"], False
-    left = 0.95 * TIME_LIMIT_S - elapsed_s - after_elastic_steps() * rate
+    left = (0.95 * TIME_LIMIT_S - elapsed_s - after_elastic_steps() * rate
+            - tp_least_s())
     if ELASTIC["fixed_s"] + ELASTIC["steps"] * ELASTIC["s_per_step"] <= left:
         return ELASTIC["steps"], False
     return ELASTIC["least_steps"], True
@@ -3683,41 +3705,11 @@ def elastic_width_2():
     """The resize schedule on a world of 2 cards (NCCL): the gradients',
     losses' and MoE counts' all-reduces and ``reshard_tree``'s broadcasts
     on the card's collectives.  Returns each arch's figures."""
-    import shutil
-    import socket
-    import tempfile
-    import torch
-    import torch.multiprocessing as mp
     t0 = time.monotonic()
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
-    tmp = tempfile.mkdtemp(prefix="elastic_dp_")
-    out = str(pathlib.Path(tmp, "out"))
-    try:
-        ctx = mp.start_processes(elastic_dp_worker, args=(port, out),
-                                 nprocs=2, join=False, start_method="spawn")
-        deadline = t0 + ELASTIC_DP["timeout_s"]
-        try:
-            while not ctx.join(timeout=max(deadline - time.monotonic(), 0.1)):
-                if time.monotonic() >= deadline:
-                    raise AssertionError("elastic width 2: the world did not "
-                                         f"end in {ELASTIC_DP['timeout_s']} s")
-        finally:
-            for p in ctx.processes:
-                if p.is_alive():
-                    p.kill()
-        ranks = [torch.load(f"{out}.{r}", weights_only=False)
-                 for r in range(2)]
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    for r, res in enumerate(ranks):
-        if "ok" not in res:
-            raise AssertionError(f"elastic width 2, rank {r}:\n"
-                                 f"{res['error']}")
+    ranks = spawn_ranks(elastic_dp_worker, 2, ELASTIC_DP["timeout_s"])
     figures = {}
     for arch in ELASTIC_DP["archs"]:
-        r0, r1 = ranks[0]["ok"][arch], ranks[1]["ok"][arch]
+        r0, r1 = ranks[0][arch], ranks[1][arch]
         worst = 0.0
         for i, (got, want) in enumerate(zip(r0["stats"], r0["ref"])):
             err = abs(got["loss"] - want["loss"]) / abs(want["loss"])
@@ -3753,6 +3745,596 @@ def elastic_width_2():
     figures["seconds"] = time.monotonic() - t0
     return figures
 
+
+# ------------------------------------------------- tensor parallelism
+# tp: the tensor-parallel forward and train step (repro_torch.models.tp) on
+# a machine's one card.  A gloo world of 2 processes shares cuda:0 (NCCL
+# cannot put two ranks on one card): each rank is the model coordinate of a
+# (1, 2) mesh, its kernels run on the card and its collectives cross
+# through the host, gloo's transport.  Configs at their published widths,
+# f32 compute (TF32 off), random weights from seed 0, ``batch`` x ``seq``
+# tokens: zamba2-2.7b one hybrid period deep (the elastic phase's cut; 40
+# SSD heads and 16 attention heads a rank, the gathered out_norm), a
+# forward and one train step (remat dots) held to the single-device ones
+# run in the same process; glm4-9b 2 layers deep (1 kv head and 16 q heads
+# a rank, vocab 151,552 split) and olmoe-1b-7b 2 layers deep (32 experts a
+# rank), a forward each.  Gates: logits within ``logits_tol`` (the
+# reference test's 5e-3) of the single-device forward; zamba2's loss within
+# ``loss_rtol``, its grad norm within ``gnorm_rtol``, each first moment
+# after the step (AdamW's mu: 0.1 x the clipped gradient, the backward's
+# check, since step 1's update is +-lr(1) = 3e-6 an element whatever the
+# gradient) within ``mu_tol`` of its leaf's largest |mu| (the CPU tests'
+# gradient bound), or within ``mu_floor_x`` times the floor where that is
+# larger: how far the single-device step's first moments move when every
+# parameter moves by one unit in the last place (a random sign each), the
+# step's sensitivity to the rounding the model-2 run's other order of sums
+# brings (on the CPU, reduced zamba2: model 2 3.39e-5, the floor 1.19e-4),
+# and its parameters within ``param_tol``;
+# each kernel's launches a rank those of the plan; no plain version
+# called.  ``fixed_s`` is the processes' start, zamba2's run and the kernel
+# rows; ``config_s`` each other config (their weights cross the host once,
+# reshard_tree's broadcast)
+TP = dict(world=2, batch=2, seq=512,
+          layers={"zamba2-2.7b": 6, "glm4-9b": 2, "olmoe-1b-7b": 2},
+          step=("zamba2-2.7b",), logits_tol=5e-3, loss_rtol=1e-5,
+          gnorm_rtol=1e-5, mu_tol=2e-4, mu_floor_x=4.0, param_tol=1e-5,
+          fixed_s=60.0, config_s=25.0, collective_s=600, timeout_s=900)
+# tp-nccl (opt-in, 2 or 4 cards, one a rank, NCCL): the resize schedule of
+# ELASTIC_DP at model 2 (widths 1 -> 2 -> 1 on 4 cards; width 1 on 2) for
+# reduced stablelm and olmoe, f32, held to a width-1, model-1 trainer of
+# the same seed (losses within 1e-5, parameters within 2e-5 + 1e-4 x
+# |value|); then glm4-9b 2 layers deep at model 4 (its 2 kv heads split
+# in half: gathered) or 2, a forward held to the single-device one
+TP_NCCL = dict(archs=("stablelm-1.6b", "olmoe-1b-7b"), batch=4, seq=32,
+               glm4_layers=2, collective_s=300, timeout_s=600)
+
+
+def tp_least_s():
+    """The tp phase at its least: zamba2 alone."""
+    return TP["fixed_s"]
+
+
+def tp_archs(report, elapsed_s):
+    """Every config of ``TP``, or zamba2 alone where the phase at all of
+    them and the phases after it at their least scales, predicted at this
+    card's theta greedy rate, would not end inside the time limit; the
+    phase itself is never skipped."""
+    archs = tuple(TP["layers"])
+    rate = report.get("greedy_s_per_step")
+    if rate is None:
+        return archs, False
+    left = 0.95 * TIME_LIMIT_S - elapsed_s - after_elastic_steps() * rate
+    if TP["fixed_s"] + (len(archs) - 1) * TP["config_s"] <= left:
+        return archs, False
+    return archs[:1], True
+
+
+def tp_config(arch):
+    """``arch`` at its published width, depth cut as ``TP`` says."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    if arch == ELASTIC["arch"]:
+        return elastic_config()
+    return dataclasses.replace(get_config(arch), n_layers=TP["layers"][arch])
+
+
+def expected_forward_launches(cfg):
+    """The launches of one forward that the model's plan gives (on every
+    rank of a tensor-parallel run too): each block's RMSNorms, attention
+    and SSD scan once, and the final norm."""
+    norms = attn = ssd = 0
+    for seg in cfg_plan(cfg):
+        kn, ka, ks = BLOCK_LAUNCHES[seg.kind]
+        norms += kn * seg.count
+        attn += ka * seg.count
+        ssd += ks * seg.count
+    return {"rmsnorm": norms + 1, "flash_attention": attn, "ssd_scan": ssd}
+
+
+def synced(fn):
+    """``(fn(), its wall)``, from a synchronise to a synchronise."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.monotonic() - t0
+
+
+def tp_keeps(arch):
+    """Keep patches of the forward and backward kernels' largest calls of
+    a tensor-parallel run (their local shapes)."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import rmsnorm as RN
+    from repro_torch.kernels import ssd_scan as SS
+    from repro_torch.models import layers, ssm
+    name = f"{arch} tp"
+    return {"rmsnorm": Keep(layers, "rmsnorm_kernel", lambda a, k: (
+                f"{name} d={a[0].shape[-1]}", a[0].numel())),
+            "flash_attention": Keep(layers, "flash_attention", lambda a, k: (
+                name, a[0].numel())),
+            "ssd_scan": Keep(ssm, "ssd_scan", lambda a, k: (
+                name, a[0].numel())),
+            "rmsnorm_bwd": Keep(RN, "rmsnorm_bwd", lambda a, k: (
+                f"{name} d={a[0].shape[-1]}", a[0].numel())),
+            "flash_attention_bwd": Keep(FA, "flash_attention_bwd",
+                                        lambda a, k: (name, 1)),
+            "ssd_scan_bwd": Keep(SS, "ssd_scan_bwd", lambda a, k: (name, 1))}
+
+
+def leaf_errs(got, want, scale=None):
+    """The three leaves of ``want`` farthest from ``got``: ``(name, max |got
+    - want| over the leaf's largest |value|)`` worst first (``scale``: the
+    whole leaves, where ``want`` holds slices of them)."""
+    scale = want if scale is None else scale
+    errs = {n: float((got[n] - want[n]).abs().max())
+            / max(float(scale[n].abs().max()), 1e-30) for n in want}
+    return sorted(errs.items(), key=lambda kv: -kv[1])[:3]
+
+
+def tp_run(rank, arch, kept):
+    """One config on this rank of the tp world: the single-device forward
+    (and step) with the ranks in turn, then the same placed on the (1, 2)
+    mesh, launches counted from 0 before each and the plain versions
+    wrapped with counters.  Returns the rank's figures."""
+    import contextlib
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from repro_torch.convert import to_tensors
+    from repro_torch.elastic.resharding import (_local_slice, make_job_mesh,
+                                                reshard_tree)
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as RN
+    from repro_torch.kernels import ssd_scan as SS
+    from repro_torch.models.sharding import placements, tensor_specs
+    from repro_torch.models.tp import model_group_of, tp_plan
+    from repro_torch.models.transformer import (forward_logits, forward_train,
+                                                init_params)
+    from repro_torch.train.data import batch_for
+    from repro_torch.train.train_step import (TrainConfig, init_train_state,
+                                              make_train_step)
+    cfg = tp_config(arch)
+    step = arch in TP["step"]
+    # the shards live on the card: a cuda mesh over the gloo world
+    mesh = make_job_mesh(1, TP["world"], DEVICE)
+    tc = TrainConfig(compute_dtype=torch.float32, remat="dots")
+    data = to_tensors(batch_for(cfg, TP["seq"], TP["batch"], step=1,
+                                seed=0), DEVICE)
+
+    def fresh():
+        gen = torch.Generator(DEVICE).manual_seed(0)
+        if step:
+            return init_train_state(cfg, tc, gen, DEVICE)
+        return {"params": init_params(cfg, gen, DEVICE)}
+
+    def forward(model):
+        return forward_logits(model, cfg, data, dtype=torch.float32)
+
+    def warm_step(model):
+        # one forward and backward, no update: the step's first-call costs
+        # out of its timed call
+        loss, _ = forward_train(model, cfg, data, dtype=tc.compute_dtype,
+                                remat=tc.remat)
+        loss.backward()
+        model.zero_grad(set_to_none=True)
+
+    out = {"plan": {k: dataclasses.asdict(v) for k, v in
+                    tp_plan(cfg, mesh).blocks.items()},
+           "vocab_split": tp_plan(cfg, mesh).vocab}
+    state = fresh()
+    out["params"] = sum(p.numel() for p in state["params"].parameters())
+    ref_state = fresh() if step else None
+    # model 1, the ranks in turn (the other waits at the barrier)
+    for r in range(TP["world"]):
+        if r == rank:
+            forward(state["params"])
+            build.LAUNCH_COUNTS.clear()
+            want, out["model1_s"] = synced(lambda: forward(state["params"]))
+            out["model1_launches"] = dict(build.LAUNCH_COUNTS)
+            if step:
+                warm_step(ref_state["params"])
+                (_, st1), out["model1_step_s"] = synced(
+                    lambda: make_train_step(cfg, tc)(ref_state, data))
+                out["model1_loss"] = float(st1["loss"])
+                out["model1_gnorm"] = float(st1["grad_norm"])
+                if rank == 0:
+                    # the floor of the first moments' gate: the same step
+                    # from parameters one ulp away
+                    again = fresh()
+                    gen = torch.Generator(DEVICE).manual_seed(1)
+                    with torch.no_grad():
+                        for p in again["params"].parameters():
+                            up = torch.rand(p.shape, generator=gen,
+                                            device=DEVICE) < 0.5
+                            p.copy_(torch.nextafter(p, torch.where(
+                                up, float("inf"), float("-inf"))))
+                    make_train_step(cfg, tc)(again, data)
+                    out["mu_floor"] = leaf_errs(again["opt"]["mu"],
+                                                ref_state["opt"]["mu"])
+                    del again
+        dist.barrier()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _, out["place_s"] = synced(lambda: reshard_tree(state, mesh))
+    model = state["params"]
+    grp = model_group_of(model)
+    out["model_ranks"] = grp.size if grp else 1
+    out["sharded"] = sum(1 for p in model.parameters()
+                         if type(p).__name__ == "DTensor")
+    forward(model)
+    plain = [Counted(m, n) for n in TRAIN_PLAIN
+             for m in (ref, RN, FA, SS) if hasattr(m, n)]
+    with contextlib.ExitStack() as stack:
+        for p in plain + list(kept.values()):
+            stack.enter_context(p)
+        dist.barrier()
+        build.LAUNCH_COUNTS.clear()
+        got, out["model2_s"] = synced(lambda: forward(model))
+        out["launches"] = dict(build.LAUNCH_COUNTS)
+        if step:
+            warm_step(model)
+            dist.barrier()
+            build.LAUNCH_COUNTS.clear()
+            (_, st2), out["model2_step_s"] = synced(
+                lambda: make_train_step(cfg, tc)(state, data))
+            out["step_launches"] = dict(build.LAUNCH_COUNTS)
+            out["model2_loss"] = float(st2["loss"])
+            out["model2_gnorm"] = float(st2["grad_norm"])
+    out["plain_calls"] = sum(p.calls for p in plain)
+    out["logits_err"] = float((got - want).abs().max())
+    out["logits_shape"] = list(got.shape)
+    out["finite"] = bool(torch.isfinite(got).all())
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del got, want
+    if step:
+        # this rank's shard of each parameter and of each first moment
+        # (AdamW's mu after step 1: 0.1 x the clipped gradient, so the step's
+        # backward) against the same slice of the single-device step's; a
+        # moment's error as a share of its leaf's largest |mu|
+        specs = tensor_specs(ref_state, mesh)
+        worst, mu_mine, mu_want = 0.0, {}, {}
+        refs = dict(ref_state["params"].named_parameters())
+
+        def mine(t):
+            return (t.to_local() if type(t).__name__ == "DTensor"
+                    else t).detach()
+
+        def theirs(t, key):
+            return _local_slice(t.detach(), placements(specs[key], mesh),
+                                mesh)
+        for name, p in model.named_parameters():
+            worst = max(worst, float((mine(p) - theirs(
+                refs[name], f"params/{name}")).abs().max()))
+            mu_mine[name] = mine(state["opt"]["mu"][name])
+            mu_want[name] = theirs(ref_state["opt"]["mu"][name],
+                                   f"opt/mu/{name}")
+        out["param_worst"] = worst
+        out["mu_worst"] = leaf_errs(mu_mine, mu_want, ref_state["opt"]["mu"])
+        del mu_mine, mu_want
+        out["expected_step"] = expected_train_launches(cfg, tc.remat)
+    out["expected"] = expected_forward_launches(cfg)
+    del state, ref_state, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_kernel_rows(kept, gpu):
+    """Each kernel at its largest local call of the tp runs: held to its
+    plain version and timed (rank 0, the other rank waiting)."""
+    rows = {}
+    report = {"gpu": gpu}
+    for kernel, calls in kept.items():
+        for label, (_size, args, kw) in sorted(calls.items()):
+            if kernel.endswith("_bwd"):
+                row = bwd_row(kernel, label, args, kw, report,
+                              str(args[0].dtype).split(".")[-1])
+            else:
+                row = llm_kernel_row(kernel, label, args, kw, report, "tp")
+            rows.setdefault(kernel, []).append(row)
+    return rows
+
+
+def tp_worker(rank, port, out, archs, gpu):
+    """A rank of the tp world (gloo, both ranks on cuda:0): each config's
+    run, then (rank 0) the kernel rows at the local shapes; its result (or
+    its error) saved to ``out`` + the rank."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+        world_size=TP["world"], timeout=datetime.timedelta(
+            seconds=TP["collective_s"]))
+    try:
+        res, kept = {}, {}
+        for arch in archs:
+            keeps = tp_keeps(arch)
+            res[arch] = tp_run(rank, arch, keeps)
+            for k, keep in keeps.items():
+                kept.setdefault(k, {}).update(keep.kept)
+        if rank == 0:
+            res["rows"] = tp_kernel_rows(kept, gpu)
+        del kept
+        dist.barrier()
+        result = {"ok": res}
+    except Exception:
+        result = {"error": traceback.format_exc()}
+    torch.save(result, f"{out}.{rank}")
+    dist.destroy_process_group()
+
+
+def spawn_ranks(worker, world, timeout_s, *args):
+    """``worker(rank, port, out, *args)`` in ``world`` spawned processes;
+    returns each rank's result (an error fails the phase)."""
+    import shutil
+    import socket
+    import tempfile
+    import torch
+    import torch.multiprocessing as mp
+    t0 = time.monotonic()
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    tmp = tempfile.mkdtemp(prefix="smoke_world_")
+    out = str(pathlib.Path(tmp, "out"))
+    try:
+        ctx = mp.start_processes(worker, args=(port, out, *args),
+                                 nprocs=world, join=False,
+                                 start_method="spawn")
+        deadline = t0 + timeout_s
+        try:
+            while not ctx.join(timeout=max(deadline - time.monotonic(), 0.1)):
+                if time.monotonic() >= deadline:
+                    raise AssertionError(f"{worker.__name__}: the world did "
+                                         f"not end in {timeout_s} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+        ranks = [torch.load(f"{out}.{r}", weights_only=False)
+                 for r in range(world)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for r, res in enumerate(ranks):
+        if "ok" not in res:
+            raise AssertionError(f"{worker.__name__}, rank {r}:\n"
+                                 f"{res['error']}")
+    return [res["ok"] for res in ranks]
+
+
+def phase_tp(report, elapsed_s=0.0):
+    """The tensor-parallel forward and train step on one card (``TP``),
+    each config's gates printed on lines of their own; the kernels'
+    rows at the local shapes join the kernels line."""
+    t_phase = time.monotonic()
+    archs, cut = tp_archs(report, elapsed_s)
+    log(f"[tp] a gloo world of {TP['world']} processes on cuda:0, a (1, "
+        f"{TP['world']}) (data, model) mesh; f32, {TP['batch']} x "
+        f"{TP['seq']} tokens; " + ", ".join(
+            f"{a} ({TP['layers'][a]} layers"
+            + (", forward and a train step)" if a in TP["step"]
+               else ", forward)") for a in archs)
+        + (" (CUT to zamba2 alone: the time left would not hold the other "
+           "configs and the phases after this one)" if cut else ""))
+    ranks = spawn_ranks(tp_worker, TP["world"], TP["timeout_s"], archs,
+                        report["gpu"])
+    out = report.setdefault("tp", {})
+    out.update(archs=list(archs), cut=cut)
+    for arch in archs:
+        figs = [r[arch] for r in ranks]
+        f0 = figs[0]
+        errs = [f["logits_err"] for f in figs]
+        if not all(f["finite"] for f in figs) or max(errs) > TP["logits_tol"]:
+            raise AssertionError(f"tp {arch}: logits at model 2 differ from "
+                                 f"the single-device forward by {errs} "
+                                 f"(bound {TP['logits_tol']})")
+        log(f"[tp] {arch}: logits {f0['logits_shape']} at model 2 within "
+            f"{max(errs):.3g} of the single-device forward (bound "
+            f"{TP['logits_tol']}; ranks {errs})")
+        for r, f in enumerate(figs):
+            if f["model_ranks"] != TP["world"]:
+                raise AssertionError(f"tp {arch} rank {r}: the model ran on "
+                                     f"{f['model_ranks']} ranks")
+            want = {k: v for k, v in f["expected"].items() if v}
+            if f["launches"] != want or f["model1_launches"] != want:
+                raise AssertionError(
+                    f"tp {arch} rank {r}: launches {f['launches']} (model "
+                    f"1: {f['model1_launches']}), the plan gives {want}")
+            if "step_launches" in f:
+                want_s = {k: v for k, v in f["expected_step"].items() if v}
+                if f["step_launches"] != want_s:
+                    raise AssertionError(
+                        f"tp {arch} rank {r}: a step's launches "
+                        f"{f['step_launches']}, the plan gives {want_s}")
+            if f["plain_calls"]:
+                raise AssertionError(f"tp {arch} rank {r}: a plain version "
+                                     f"was called {f['plain_calls']} times")
+        log(f"[tp] {arch}: launches a rank {f0['launches']}"
+            + (f", a step's {f0['step_launches']}" if "step_launches" in f0
+               else "") + " == the plan's on both ranks; no plain version "
+            "called")
+        if arch in TP["step"]:
+            loss_err = max(abs(f["model2_loss"] - f["model1_loss"])
+                           / abs(f["model1_loss"]) for f in figs)
+            gnorm_err = max(abs(f["model2_gnorm"] - f["model1_gnorm"])
+                            / abs(f["model1_gnorm"]) for f in figs)
+            p_worst = max(f["param_worst"] for f in figs)
+            mu_name, mu_err = max((f["mu_worst"][0] for f in figs),
+                                  key=lambda kv: kv[1])
+            floor = f0["mu_floor"]
+            mu_bound = max(TP["mu_tol"], TP["mu_floor_x"] * floor[0][1])
+            if (loss_err > TP["loss_rtol"] or gnorm_err > TP["gnorm_rtol"]
+                    or mu_err > mu_bound or p_worst > TP["param_tol"]):
+                raise AssertionError(
+                    f"tp {arch}: the step's loss {f0['model2_loss']!r} "
+                    f"against {f0['model1_loss']!r} (relative "
+                    f"{loss_err:.3g}), grad norm {f0['model2_gnorm']!r} "
+                    f"against {f0['model1_gnorm']!r} (relative "
+                    f"{gnorm_err:.3g}), first moments within {mu_err:.3g} "
+                    f"of their leaf's largest (bound {mu_bound:.3g}; worst "
+                    f"a rank {[f['mu_worst'] for f in figs]}, the floor "
+                    f"{floor}), parameters within {p_worst:.3g}")
+            log(f"[tp] {arch}: the train step's loss {f0['model2_loss']!r} "
+                f"at model 2 against {f0['model1_loss']!r} (relative "
+                f"{loss_err:.3g} <= {TP['loss_rtol']}); grad norm "
+                f"{f0['model2_gnorm']!r} against {f0['model1_gnorm']!r} "
+                f"(relative {gnorm_err:.3g} <= {TP['gnorm_rtol']}); every "
+                f"first moment (0.1 x the clipped gradient) within "
+                f"{mu_err:.3g} <= {mu_bound:.3g} of its leaf's largest "
+                f"(worst {mu_name}; a rank's worst three "
+                f"{[f['mu_worst'] for f in figs]}; the floor, one device "
+                f"from parameters one ulp away, {floor}); parameters "
+                f"within {p_worst:.3g} <= {TP['param_tol']} after the step")
+        log(f"[tp] {arch}: {f0['params']:,} parameters; a forward "
+            f"{f0['model2_s']:.4f} s at model 2 (both ranks on the card at "
+            f"once) against {f0['model1_s']:.4f} s at model 1"
+            + (f"; a step {f0['model2_step_s']:.4f} s against "
+               f"{f0['model1_step_s']:.4f} s" if "model2_step_s" in f0
+               else "")
+            + f"; placing {f0['place_s']:.2f} s; peak memory a rank "
+            + ", ".join(f"{f['peak_gb']:.2f}" for f in figs)
+            + f" GB; plan {f0['plan']}, vocab split {f0['vocab_split']}; "
+            f"{report['gpu']}")
+        out[arch] = {k: [f.get(k) for f in figs] for k in f0
+                     if k not in ("plan", "expected", "expected_step")}
+        out[arch]["plan"] = f0["plan"]
+    rows = ranks[0]["rows"]
+    out["kernel_rows"] = rows
+    for entry in report.get("kernels", []):
+        if entry["name"] in rows:
+            entry["tp_shapes"] = rows[entry["name"]]
+            entry["tp_launches"] = [sum(r[a]["launches"].get(
+                entry["name"], 0) + r[a].get("step_launches", {}).get(
+                entry["name"], 0) for a in archs) for r in ranks]
+    out["phase_s"] = time.monotonic() - t_phase
+    log(f"[tp] phase {out['phase_s']:.1f}s; {report['gpu']}")
+
+
+def tp_nccl_worker(rank, port, out, world):
+    """A rank of the tp-nccl world (NCCL, one card a rank)."""
+    import dataclasses
+    import datetime
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(
+        "nccl" if DEVICE == "cuda" else "gloo",
+        init_method=f"tcp://localhost:{port}", rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=TP_NCCL["collective_s"]))
+    try:
+        from repro_torch.configs import get_config
+        from repro_torch.convert import to_tensors, train_state_to_numpy
+        from repro_torch.elastic.manager import ElasticTrainer
+        from repro_torch.elastic.resharding import (in_mesh, make_job_mesh,
+                                                    reshard_tree)
+        from repro_torch.models.tp import model_group_of
+        from repro_torch.models.transformer import forward_logits, init_params
+        from repro_torch.train.data import batch_for
+        from repro_torch.train.optimizer import AdamWConfig, cosine_schedule
+        from repro_torch.train.train_step import TrainConfig
+        spec = TP_NCCL
+        tc = TrainConfig(compute_dtype=torch.float32, remat="none",
+                         opt=AdamWConfig(lr=cosine_schedule(1e-3, 2, 10)))
+        schedule = (ELASTIC_DP["schedule"] if world >= 4
+                    else (("step", 5),))
+        res = {}
+        for arch in spec["archs"]:
+            cfg = get_config(arch).reduced()
+            kw = dict(global_batch=spec["batch"], seq_len=spec["seq"],
+                      width=1, seed=0, device=DEVICE)
+            n = sum(a for act, a in schedule if act == "step")
+            ref = ElasticTrainer(cfg, tc, **kw)
+            ref_stats = [ref.step() for _ in range(n)]
+            tr = ElasticTrainer(cfg, tc, model_parallel=2, **kw)
+            stats, meshes = [], []
+            for act, arg in schedule:
+                if act == "step":
+                    for _ in range(arg):
+                        meshes.append(tuple(tr.mesh.mesh.shape))
+                        stats.append(tr.step())
+                else:
+                    tr.resize(arg)
+            got = train_state_to_numpy(tr.state) if in_mesh(tr.mesh) \
+                else None
+            fig = {"stats": stats, "meshes": meshes}
+            if rank == 0:
+                want = train_state_to_numpy(ref.state)
+                worst, over = 0.0, []
+                for k, a in want["params"].items():
+                    d = abs(got["params"][k] - a)
+                    worst = max(worst, float(d.max()))
+                    if not bool((d <= 2e-5 + 1e-4 * abs(a)).all()):
+                        over.append(k)
+                fig.update(ref=ref_stats, param_worst=worst,
+                           param_over=over)
+            res[arch] = fig
+            del ref, tr
+        m = 4 if world >= 4 else 2
+        cfg = dataclasses.replace(get_config("glm4-9b"),
+                                  n_layers=spec["glm4_layers"])
+        model = init_params(cfg, torch.Generator(DEVICE).manual_seed(0),
+                            DEVICE)
+        data = to_tensors(batch_for(cfg, 512, 2, step=1, seed=0), DEVICE)
+        want = forward_logits(model, cfg, data, dtype=torch.float32)
+        reshard_tree({"params": model}, make_job_mesh(world // m, m))
+        got = forward_logits(model, cfg, data, dtype=torch.float32)
+        grp = model_group_of(model)
+        res["glm4-9b"] = {"model": grp.size if grp else 1,
+                          "err": float((got - want).abs().max())}
+        result = {"ok": res}
+    except Exception:
+        result = {"error": traceback.format_exc()}
+    torch.save(result, f"{out}.{rank}")
+    dist.destroy_process_group()
+
+
+def tp_nccl(report):
+    """``TP_NCCL`` on 4 cards (2 where the host has 2 or 3)."""
+    import torch
+    t0 = time.monotonic()
+    world = 4 if torch.cuda.device_count() >= 4 else 2
+    ranks = spawn_ranks(tp_nccl_worker, world, TP_NCCL["timeout_s"], world)
+    out = report.setdefault("tp", {}).setdefault("nccl", {"world": world})
+    for arch in TP_NCCL["archs"]:
+        r0 = ranks[0][arch]
+        worst = 0.0
+        for i, (got, want) in enumerate(zip(r0["stats"], r0["ref"])):
+            err = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+            worst = max(worst, err)
+            if not err <= 1e-5:
+                raise AssertionError(f"tp-nccl {arch} step {i} (mesh "
+                                     f"{r0['meshes'][i]}): loss "
+                                     f"{got['loss']!r}, model 1 "
+                                     f"{want['loss']!r}")
+        if r0["param_over"]:
+            raise AssertionError(f"tp-nccl {arch}: parameters past the bound "
+                                 f"{r0['param_over'][:5]} (worst "
+                                 f"{r0['param_worst']:.3g})")
+        out[arch] = dict(meshes=r0["meshes"], loss_worst_rel=worst,
+                         param_worst=r0["param_worst"])
+        log(f"[tp-nccl] {arch} reduced on {world} cards (NCCL), model 2, "
+            f"meshes {r0['meshes']}: losses within {worst:.3g} of the "
+            f"width-1, model-1 trainer's (relative), parameters within "
+            f"{r0['param_worst']:.3g}")
+    errs = [r["glm4-9b"]["err"] for r in ranks]
+    m = ranks[0]["glm4-9b"]["model"]
+    if max(errs) > TP["logits_tol"] or m != (4 if world >= 4 else 2):
+        raise AssertionError(f"tp-nccl glm4-9b at model {m}: logits within "
+                             f"{errs}")
+    out["glm4-9b"] = dict(model=m, errs=errs)
+    out["seconds"] = time.monotonic() - t0
+    log(f"[tp-nccl] glm4-9b {TP_NCCL['glm4_layers']} layers at model {m} "
+        f"(NCCL): logits within {max(errs):.3g} of the single-device "
+        f"forward (bound {TP['logits_tol']}); {out['seconds']:.1f}s; "
+        f"{report['gpu']}")
 
 # ------------------------------------------------- the dense per-tick engine
 # (a): tests/test_sim_jax.py's 20-job workload on 10 nodes and its horizon
@@ -5523,13 +6105,15 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="env,parity,main,serve,moe,encdec,train,"
-                            "elastic,registry,experiment,whatif,dense,scale",
+                            "elastic,tp,registry,experiment,whatif,dense,"
+                            "scale",
                     help="comma-separated subset of env,parity,main,serve,"
-                         "moe,encdec,train,elastic,registry,experiment,"
+                         "moe,encdec,train,elastic,tp,registry,experiment,"
                          "whatif,dense,scale (the default) "
                          "and the opt-in waterfill, waterfill-plans, "
                          "rmsnorm-plans, profile, paper-scale, bwd-ab, "
-                         "ssd-variants and elastic-dp (two cards or more)")
+                         "ssd-variants, elastic-dp and tp-nccl (two cards "
+                         "or more)")
     ap.add_argument("--ab-csrc", default=str(
         ROOT / "build" / "parent" / "src" / "repro_torch" / "kernels" /
         "csrc"), metavar="DIR",
@@ -5583,6 +6167,8 @@ def main(argv=None) -> int:
             phase_train(report, time.monotonic() - t_start)
         if "elastic" in phases:
             phase_elastic(report, time.monotonic() - t_start)
+        if "tp" in phases:
+            phase_tp(report, time.monotonic() - t_start)
         if "registry" in phases:
             phase_registry(report, time.monotonic() - t_start)
         if "experiment" in phases:
@@ -5611,6 +6197,12 @@ def main(argv=None) -> int:
                 raise AssertionError("elastic-dp takes two cards, the host "
                                      f"has {torch.cuda.device_count()}")
             report.setdefault("elastic", {})["width_2"] = elastic_width_2()
+        if "tp-nccl" in phases:
+            if torch.cuda.device_count() < 2:
+                raise AssertionError("tp-nccl takes two cards or four, the "
+                                     "host has "
+                                     f"{torch.cuda.device_count()}")
+            tp_nccl(report)
         if "paper-scale" in phases:
             phase_paper_scale(report, time.monotonic() - t_start,
                               args.paper_scale_budget)

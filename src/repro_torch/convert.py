@@ -120,14 +120,24 @@ def _jax_leaf(name: str, flat: Mapping[str, object]):
     return key, arr if layer is None else arr[layer]
 
 
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A ``DTensor`` gathered whole (a collective: every rank of its mesh's
+    groups it is split over calls it, in the same order), a plain tensor
+    itself."""
+    from torch.distributed.tensor import DTensor
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
 def named_to_numpy(named: Mapping[str, torch.Tensor]
                    ) -> Dict[str, np.ndarray]:
     """Tensors keyed by the port's parameter names -> numpy arrays keyed by
     the JAX leaf paths, a segment's layers stacked on axis 0 in order: the
-    inverse of the mapping :func:`lm_params_from_numpy` reads."""
+    inverse of the mapping :func:`lm_params_from_numpy` reads.  A sharded
+    ``DTensor`` is gathered whole first (a collective over its mesh)."""
     stacks: Dict[str, dict] = {}
     out = {}
     for name, t in named.items():
+        t = _whole(t.detach())
         key, layer = jax_key(name)
         if layer is None:
             out[key] = t.detach().cpu().numpy()
@@ -160,7 +170,10 @@ def lm_params_to_numpy(model: torch.nn.Module, cfg, *, grad: bool = False
 def train_state_to_numpy(state) -> Dict[str, object]:
     """A train state (``repro_torch.train.train_step``) in the JAX train
     state's layout: ``{"params", "opt": {"mu", "nu", "step"[, "master"]}[,
-    "ef"]}``, each tree keyed by JAX leaf paths, ``step`` an int32."""
+    "ef"]}``, each tree keyed by JAX leaf paths, ``step`` an int32.  A
+    state placed tensor-parallel is gathered whole, leaf by leaf (every
+    rank of each model group calls it), so it is the same bytes as one
+    held on one rank."""
     opt = state["opt"]
     out = {"params": named_to_numpy(dict(state["params"].named_parameters())),
            "opt": {k: named_to_numpy(opt[k]) for k in ("mu", "nu", "master")

@@ -34,6 +34,14 @@ def _scale(xs) -> torch.Tensor:
     return (amax + 1e-12) / 127.0
 
 
+def _max_over(x: torch.Tensor, group) -> torch.Tensor:
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import world_device_type
+    buf = x.to(world_device_type(), copy=True)
+    dist.all_reduce(buf, op=dist.ReduceOp.MAX, group=group)
+    return buf.to(x.device)
+
+
 def _quantize(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
 
@@ -42,14 +50,17 @@ def _dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.to(torch.float32) * scale
 
 
-def compress_decompress(grads: Params, residuals: Params
-                        ) -> Tuple[Params, Params]:
+def compress_decompress(grads: Params, residuals: Params, sharded=(),
+                        group=None) -> Tuple[Params, Params]:
     """Quantize (grad + residual) to int8; return (dequantized, new
     residual), each keyed as ``grads``.
 
     The dequantized gradients are what the optimizer consumes; in a
     multi-device run the int8 tensors would be the all-reduce payload and
-    dequantization would happen after the sum.
+    dequantization would happen after the sum.  Under tensor parallelism
+    the trees hold this rank's shards: a leaf whose tensors are named in
+    ``sharded`` takes its largest |x| over ``group`` (the model group), so
+    its scale is the whole leaf's.
     """
     leaves = {}
     for n in grads:
@@ -58,6 +69,8 @@ def compress_decompress(grads: Params, residuals: Params
     for names in leaves.values():
         g32 = {n: grads[n].to(torch.float32) + residuals[n] for n in names}
         scale = _scale(g32.values())
+        if group is not None and names[0] in sharded:
+            scale = _max_over(scale, group)
         for n, g in g32.items():
             deq[n] = _dequantize(_quantize(g, scale), scale)
             res[n] = g - deq[n]

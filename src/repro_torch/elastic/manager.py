@@ -25,9 +25,17 @@ no port); :func:`close_world` closes it.
 Fault tolerance: ``step()`` checkpoints every ``ckpt_every`` steps (rank 0
 writes, the other ranks wait at a barrier); on an injected node failure the
 trainer restores the last checkpoint at the surviving width: rank 0 reads
-it and the new mesh receives it by broadcast.  Tensor parallelism
-(``model_parallel`` > 1) is ROADMAP §A10f2: it raises
-``NotImplementedError``.
+it and the new mesh receives it by broadcast.
+
+With ``model_parallel`` > 1 the mesh is ``(data = width, model =
+model_parallel)`` over the world's first ``width * model_parallel``
+ranks: the state is placed by the partition rules, each rank takes its
+data coordinate's rows, and the step runs tensor-parallel over its model
+group (:mod:`repro_torch.models.tp`), its gradients averaged over the
+``data`` group alone.  A checkpoint gathers the state whole (the ranks of
+data coordinate 0 join the gathers, rank 0 writes): the same files as a
+run at ``model_parallel`` 1 writes.  Resize, failure restore and resume
+keep ``model_parallel``.
 """
 from __future__ import annotations
 
@@ -51,10 +59,8 @@ from repro_torch.train.train_step import (TrainConfig, init_train_state,
                                           make_train_step)
 
 from .checkpoint import latest_step, restore_checkpoint, save_checkpoint
-from .resharding import (ResizePlan, in_mesh, make_job_mesh, reshard_tree,
-                         resize_plan)
-
-TENSOR_PARALLEL = "the tensor-parallel slice, ROADMAP §A10f2"
+from .resharding import (ResizePlan, gather_tree, in_mesh, make_job_mesh,
+                         reshard_tree, resize_plan)
 
 _OWNED: Dict[str, Any] = {}   # the world this module opened: its store dir
 
@@ -155,10 +161,6 @@ class ElasticTrainer:
                  global_batch: int, seq_len: int, width: int,
                  model_parallel: int = 1, ckpt_dir: Optional[str] = None,
                  ckpt_every: int = 50, seed: int = 0, device=None):
-        if model_parallel != 1:
-            raise NotImplementedError(
-                f"model_parallel={model_parallel}: the elastic trainer is "
-                f"data-parallel only; tensor parallelism is {TENSOR_PARALLEL}")
         self.device = resolve_device(device)
         ensure_world(self.device)
         self.cfg = cfg
@@ -172,7 +174,7 @@ class ElasticTrainer:
         self.stats = ElasticStats()
         self._step: Optional[tuple] = None   # (width, its step function)
         self.width = width
-        self.mesh = make_job_mesh(width, model_parallel)
+        self.mesh = make_job_mesh(width, model_parallel, self.device.type)
         self.state = init_train_state(
             cfg, tc, torch.Generator(self.device).manual_seed(seed),
             self.device)
@@ -232,20 +234,25 @@ class ElasticTrainer:
         return train_state_to_numpy(self.state)
 
     def checkpoint(self) -> Optional[str]:
-        """Rank 0 writes the state; every rank returns the path once it is
-        written."""
+        """Rank 0 writes the state (gathered whole by the ranks of its data
+        coordinate under tensor parallelism); every rank returns the path
+        once it is written."""
         if not self.ckpt_dir:
             return None
         path = os.path.join(self.ckpt_dir, f"step_{self.step_num:08d}")
-        if _rank() == 0:
-            path = save_checkpoint(self.ckpt_dir, self.step_num,
-                                   self._host_state())
+        coord = self.mesh.get_coordinate()
+        if _rank() == 0 or (self.model_parallel > 1 and coord is not None
+                            and coord[0] == 0):
+            host = self._host_state()
+            if _rank() == 0:
+                path = save_checkpoint(self.ckpt_dir, self.step_num, host)
         _barrier()
         return path
 
     def _restore(self, step: int) -> None:
         """Rank 0 loads checkpoint ``step`` into its state; the mesh then
         receives it."""
+        gather_tree(self.state)
         if _rank() == 0:
             restored, _ = restore_checkpoint(self.ckpt_dir,
                                              state_like(self.state), step)
@@ -264,7 +271,8 @@ class ElasticTrainer:
         else:
             self.stats.shrinks += 1
         self.width = new_width
-        self.mesh = make_job_mesh(new_width, self.model_parallel)
+        self.mesh = make_job_mesh(new_width, self.model_parallel,
+                                  self.device.type)
         self.state = reshard_tree(self.state, self.mesh)
         self.stats.resize_seconds += time.monotonic() - t0
         return plan
@@ -289,7 +297,8 @@ class ElasticTrainer:
             raise RuntimeError("failure recovery requires a ckpt_dir")
         self.stats.restores += 1
         self.width = surviving_width
-        self.mesh = make_job_mesh(surviving_width, self.model_parallel)
+        self.mesh = make_job_mesh(surviving_width, self.model_parallel,
+                                  self.device.type)
         step = _world_int(latest_step(self.ckpt_dir) if _rank() == 0
                           else None)
         if step is None:

@@ -11,8 +11,10 @@ the new mesh (after a resize from width 1 to 2, only rank 0 holds the
 state), then places it by its spec: a replicated tensor stays a plain
 tensor (the kernels take plain tensors; a spec naming only axes of size
 1 is replicated), a sharded one becomes a
-``DTensor`` holding the spec's slice.  Ranks outside the new mesh keep
-what they hold.  ``resize_plan`` computes the cost model that the
+``DTensor`` holding the spec's slice (on a mesh whose ``model`` axis is
+above 1 the layers then run tensor-parallel on those slices,
+:mod:`repro_torch.models.tp`).  Ranks outside the new mesh keep what
+they hold.  ``resize_plan`` computes the cost model that the
 scheduler's speedup model reads: bytes moved and the estimated
 reconfiguration time.
 """
@@ -25,6 +27,7 @@ import torch
 from torch import nn
 
 from repro_torch.launch.mesh import world_device_type, world_size
+from repro_torch.models import tp
 from repro_torch.models.sharding import (is_replicated, placements,
                                          port_leaves, tensor_specs)
 
@@ -36,12 +39,14 @@ Params = Any
 _MESHES: dict = {}
 
 
-def make_job_mesh(n_hosts: int, model_parallel: int = 1):
+def make_job_mesh(n_hosts: int, model_parallel: int = 1,
+                  device_type: str = None):
     """``DeviceMesh`` for one elastic job: ``(data = n_hosts, model =
     model_parallel)`` over the world's first ``n_hosts * model_parallel``
-    ranks, on the world's device type.  Every rank of the world must call
-    it (the first call at a shape opens the mesh's process groups; later
-    ones under the same world return the same mesh)."""
+    ranks, on ``device_type``: the job's tensors' (a sharded tensor lives
+    on its mesh's device type), by default the world's.  Every rank of the
+    world must call it (the first call at a shape opens the mesh's process
+    groups; later ones under the same world return the same mesh)."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
     need = n_hosts * model_parallel
@@ -52,11 +57,10 @@ def make_job_mesh(n_hosts: int, model_parallel: int = 1):
     if _MESHES.get("world") is not world:
         _MESHES.clear()
         _MESHES["world"] = world
-    key = (n_hosts, model_parallel)
+    key = (n_hosts, model_parallel, device_type or world_device_type())
     if key not in _MESHES:
         _MESHES[key] = DeviceMesh(
-            world_device_type(),
-            torch.arange(need).reshape(n_hosts, model_parallel),
+            key[2], torch.arange(need).reshape(n_hosts, model_parallel),
             mesh_dim_names=("data", "model"))
     return _MESHES[key]
 
@@ -94,11 +98,12 @@ def _local_slice(full: torch.Tensor, place, mesh) -> torch.Tensor:
 
 def _set_leaf(tree, keys, value) -> None:
     """Put ``value`` at ``keys`` of ``tree`` (a module's parameter as a new
-    ``nn.Parameter``)."""
+    ``nn.Parameter``, the module's model group read anew)."""
     node = tree
     for k in keys[:-1]:
         node = node[k]
     if isinstance(node, nn.Module):
+        tp.placements_changed(node)
         owner, _, name = keys[-1].rpartition(".")
         mod = node.get_submodule(owner)
         old = getattr(mod, name)
@@ -108,15 +113,24 @@ def _set_leaf(tree, keys, value) -> None:
         node[keys[-1]] = value
 
 
+def gather_tree(tree: Params) -> Params:
+    """Replace each ``DTensor`` of ``tree`` on a mesh that holds this rank by
+    its whole tensor, in place (a collective: every rank of the world calls
+    it); returns ``tree``."""
+    from torch.distributed.tensor import DTensor
+    for keys, leaf in list(port_leaves(tree)):
+        if isinstance(leaf, DTensor) and in_mesh(leaf.device_mesh):
+            _set_leaf(tree, keys, leaf.full_tensor())
+    return tree
+
+
 def reshard_tree(tree: Params, new_mesh, *, fsdp: bool = False) -> Params:
     """Move every tensor of ``tree`` (a train state: the LM's parameters
     and the optimizer's trees) to its placement under ``new_mesh``, in
     place; returns ``tree``."""
     from torch.distributed.tensor import DTensor
     specs = tensor_specs(tree, new_mesh, fsdp=fsdp)
-    for keys, leaf in list(port_leaves(tree)):
-        if isinstance(leaf, DTensor) and in_mesh(leaf.device_mesh):
-            _set_leaf(tree, keys, leaf.full_tensor())
+    gather_tree(tree)
     if not in_mesh(new_mesh):
         return tree
     size = new_mesh.mesh.numel()

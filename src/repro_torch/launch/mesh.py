@@ -11,12 +11,16 @@ read any object with ``axis_names`` and a ``shape`` mapping each name to
 its size, as the reference's ``jax.sharding.Mesh`` has, and
 :func:`mesh_view` gives a ``DeviceMesh`` that face.
 
-``make_lane_mesh`` (the sweep engine's 1-D lane mesh) is ROADMAP §A10f2.
+``make_lane_mesh`` is the 1-D counterpart the sweep engine's split uses
+(:mod:`repro_torch.sweep.shard`): lanes never talk to each other, so the
+port's split is one process with a thread a card, and its lane mesh is a
+``MeshView`` with one ``lanes`` axis over those devices and no process
+group.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -24,10 +28,28 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class MeshView:
     """The face of a mesh the sharding rules read: axis names in order and
-    each axis' size by name."""
+    each axis' size by name (and, for a lane mesh, its devices in
+    order)."""
 
     axis_names: Tuple[str, ...]
     shape: Dict[str, int]
+    devices: Tuple[torch.device, ...] = ()
+
+
+def make_lane_mesh(devices: Optional[Sequence] = None) -> MeshView:
+    """1-D mesh over ``devices`` (default: every visible card) with axis
+    ``lanes``: the reference's ``jax.sharding.Mesh(devices, ("lanes",))``.
+    A lane batch's leading axis splits over it in equal contiguous pieces
+    (:func:`repro_torch.sweep.shard.shard_lanes`)."""
+    if devices is None:
+        from repro_torch import resolve_device
+        resolve_device(None)   # raises without a card
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    devs = tuple(torch.device(d) for d in devices)
+    if not devs:
+        raise ValueError("lane mesh needs at least one device")
+    return MeshView(("lanes",), {"lanes": len(devs)}, devs)
 
 
 def mesh_view(mesh):

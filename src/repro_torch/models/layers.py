@@ -16,6 +16,11 @@ Weights keep JAX's (d_in, d_out) layout and are applied as ``x @ w``.
   decode: one query at the cache length), so the attention functions take a
   query offset and a valid length as Python ints instead of position arrays.
 * ``mesh_constrain`` has no counterpart: it is a no-op on one device.
+* Under :func:`repro_torch.models.tp.tensor_parallel` (a model placed on a
+  mesh whose ``model`` axis is above 1) attention, the MLP and the
+  (un)embedding run on their parameters' local shards with the
+  boundaries' collectives, each block as :mod:`repro_torch.models.tp`'s
+  plan says.
 """
 from __future__ import annotations
 
@@ -28,6 +33,8 @@ from torch import nn
 
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rmsnorm import rmsnorm as rmsnorm_kernel
+
+from . import tp
 
 
 def _empty(*shape, device=None, dtype=torch.float32) -> nn.Parameter:
@@ -137,22 +144,38 @@ class GQA(nn.Module):
 
 def gqa_project_qkv(p: GQA, x, n_heads: int, n_kv: int, head_dim: int,
                     positions, rope_theta: Optional[float], dtype):
+    """``(q, k, v, index)``, (B, S, heads, Dh) each, ``index`` each q head's
+    kv head among k's where the kernel's grouping is not theirs, else None.
+    Under tensor parallelism q holds this rank's heads and k / v the kv
+    heads they use: its own (``heads``), or those of ``wk`` / ``wv``
+    gathered whole where the rules split a kv head (``kv_gather``)."""
     b, s, _ = x.shape
-    xd = x.to(dtype)
-    xq = xd @ p.wq.to(dtype)
-    xk = xd @ p.wk.to(dtype)
-    xv = xd @ p.wv.to(dtype)
+    heads = n_heads // tp.size()
+    xd = tp.copy_to(x).to(dtype)
+    kv = [n for n in ("wk", "wv", "bk", "bv") if hasattr(p, n)]
+    index = None
+    if tp.attn_mode(n_heads, n_kv, head_dim, tp.size()) == "kv_gather":
+        first, hk, index = _kv_heads_of(tp.active().rank, heads, n_heads,
+                                        n_kv)
+        cols = slice(first * head_dim, (first + hk) * head_dim)
+        w = {n: tp.full(getattr(p, n), "sum")[..., cols] for n in kv}
+    else:
+        hk = n_kv // tp.size()
+        w = {n: tp.local(getattr(p, n)) for n in kv}
+    xq = xd @ tp.local(p.wq).to(dtype)
+    xk = xd @ w["wk"].to(dtype)
+    xv = xd @ w["wv"].to(dtype)
     if hasattr(p, "bq"):
-        xq = xq + p.bq.to(dtype)
-        xk = xk + p.bk.to(dtype)
-        xv = xv + p.bv.to(dtype)
-    q = xq.reshape(b, s, n_heads, head_dim)
-    k = xk.reshape(b, s, n_kv, head_dim)
-    v = xv.reshape(b, s, n_kv, head_dim)
+        xq = xq + tp.local(p.bq).to(dtype)
+        xk = xk + w["bk"].to(dtype)
+        xv = xv + w["bv"].to(dtype)
+    q = xq.reshape(b, s, heads, head_dim)
+    k = xk.reshape(b, s, hk, head_dim)
+    v = xv.reshape(b, s, hk, head_dim)
     if rope_theta is not None:
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)
-    return q, k, v
+    return q, k, v, index
 
 
 def gqa_attention(p: GQA, x, *, n_heads: int, n_kv: int, head_dim: int,
@@ -161,14 +184,39 @@ def gqa_attention(p: GQA, x, *, n_heads: int, n_kv: int, head_dim: int,
     """Self-attention over x (prefill path); ``positions`` are contiguous.
 
     Returns ``(out, k, v)``: the keys and values too, which prefill keeps
-    as the decode cache (the JAX function returns ``out`` alone)."""
+    as the decode cache (the JAX function returns ``out`` alone).  Under
+    tensor parallelism k and v are this rank's heads, and the output its
+    rows of ``wo``'s product summed over the group; where the rules split
+    a q head every rank runs the block from gathered weights."""
+    if tp.attn_mode(n_heads, n_kv, head_dim, tp.size()) == "whole":
+        return tp.on_whole(
+            gqa_attention, p, x, n_heads=n_heads, n_kv=n_kv,
+            head_dim=head_dim, positions=positions, rope_theta=rope_theta,
+            causal=causal, window=window, dtype=dtype, block_k=block_k)
     b, s, _ = x.shape
-    q, k, v = gqa_project_qkv(p, x, n_heads, n_kv, head_dim, positions,
-                              rope_theta, dtype)
-    out = chunked_attention(q, k, v, causal=causal, window=window,
+    q, k, v, index = gqa_project_qkv(p, x, n_heads, n_kv, head_dim,
+                                     positions, rope_theta, dtype)
+    kk, vv = (k, v) if index is None else (k[:, :, index], v[:, :, index])
+    out = chunked_attention(q, kk, vv, causal=causal, window=window,
                             block_k=block_k)
-    out = out.reshape(b, s, n_heads * head_dim)
-    return out.to(dtype) @ p.wo.to(dtype), k, v
+    out = out.reshape(b, s, q.shape[2] * head_dim)
+    return tp.reduce_from(out.to(dtype) @ tp.local(p.wo).to(dtype)), k, v
+
+
+def _kv_heads_of(rank: int, heads: int, n_heads: int, n_kv: int):
+    """The kv heads the q heads ``[rank * heads, (rank + 1) * heads)`` use:
+    ``(first, count, index)``, ``index`` None where the kernel's grouping
+    of ``heads`` q heads over ``count`` kv heads is theirs, else each q
+    head's kv head among the ``count`` (the keys are then expanded)."""
+    group = n_heads // n_kv
+    lo, hi = rank * heads, (rank + 1) * heads - 1
+    first, last = lo // group, hi // group
+    count = last - first + 1
+    if heads % count == 0 and all(
+            (lo + j) // group - first == j // (heads // count)
+            for j in range(heads)):
+        return first, count, None
+    return first, count, [(lo + j) // group - first for j in range(heads)]
 
 
 def gqa_decode(p: GQA, x, cache_k, cache_v, cache_len: int, *, n_heads: int,
@@ -186,8 +234,8 @@ def gqa_decode(p: GQA, x, cache_k, cache_v, cache_len: int, *, n_heads: int,
         raise ValueError(f"cache_len {cache_len} outside a cache of "
                          f"{cache_k.shape[1]}")
     pos = torch.full((1,), cache_len, device=x.device)
-    q, k, v = gqa_project_qkv(p, x, n_heads, n_kv, head_dim, pos,
-                              rope_theta, dtype)
+    q, k, v, _ = gqa_project_qkv(p, x, n_heads, n_kv, head_dim, pos,
+                                 rope_theta, dtype)
     cache_k[:, cache_len] = k[:, 0].to(cache_k.dtype)
     cache_v[:, cache_len] = v[:, 0].to(cache_v.dtype)
     out = chunked_attention(
@@ -219,12 +267,22 @@ class MLA(nn.Module):
         self.kv_norm = Norm("rmsnorm", kv_lora, device, dtype)
 
 
+def _latent(x, w, dtype):
+    """``x @ w`` whole on every rank: this rank's columns of the product
+    gathered where ``w`` is split (x past "f"), else the replicated
+    weight's product."""
+    if tp.shard_dim(w) is None:
+        return x.to(dtype) @ w.to(dtype)
+    return tp.gather(tp.copy_to(x).to(dtype) @ tp.local(w).to(dtype), -1)
+
+
 def mla_latent(p: MLA, x, positions, rope_theta: float, dtype, *,
                kv_lora: int, qk_rope: int):
     """Project x to the compressed latent: ``(c_kv (B, S, kv_lora),
-    k_rope (B, S, 1, qk_rope))``."""
+    k_rope (B, S, 1, qk_rope))``, whole on every rank under tensor
+    parallelism (normed as on one device)."""
     b, s, _ = x.shape
-    kv = x.to(dtype) @ p.wkv_a.to(dtype)
+    kv = _latent(x, p.wkv_a, dtype)
     c_kv, k_rope = kv[..., :kv_lora], kv[..., kv_lora:]
     c_kv = rmsnorm(p.kv_norm, c_kv)
     k_rope = apply_rope(k_rope.reshape(b, s, 1, qk_rope), positions,
@@ -235,10 +293,11 @@ def mla_latent(p: MLA, x, positions, rope_theta: float, dtype, *,
 def _mla_queries(p: MLA, x, positions, rope_theta: float, dtype, *,
                  n_heads: int, qk_nope: int, qk_rope: int):
     """(q_nope (B, S, H, qk_nope), q_rope (B, S, H, qk_rope)), the latter
-    rotated."""
+    rotated; this rank's heads under tensor parallelism."""
     b, s, _ = x.shape
-    q = rmsnorm(p.q_norm, x.to(dtype) @ p.wq_a.to(dtype))
-    q = (q @ p.wq_b.to(dtype)).reshape(b, s, n_heads, qk_nope + qk_rope)
+    q = rmsnorm(p.q_norm, _latent(x, p.wq_a, dtype))
+    q = (tp.copy_to(q) @ tp.local(p.wq_b).to(dtype)).reshape(
+        b, s, n_heads // tp.size(), qk_nope + qk_rope)
     q_nope, q_rope = q[..., :qk_nope], q[..., qk_nope:]
     return q_nope, apply_rope(q_rope, positions, rope_theta)
 
@@ -252,24 +311,28 @@ def mla_attention_from_latent(p: MLA, x, c_kv, k_rope, *, n_heads: int,
     """Attention of the queries from x (at positions ``q_offset ..``)
     against a latent KV at positions 0..Sk-1, through the flash-attention
     kernel with 192-wide keys and 128-wide values at DeepSeek-V2's
-    widths."""
+    widths.  Under tensor parallelism: this rank's heads (``wq_b`` /
+    ``wk_b`` / ``wv_b`` / ``wo``) from the whole latent, whose gradient
+    is summed over the group, and the output summed over it."""
     b, sq, _ = x.shape
+    heads = n_heads // tp.size()
     qpos = q_offset + torch.arange(sq, device=x.device)
     q_nope, q_rope = _mla_queries(p, x, qpos, rope_theta, dtype,
                                   n_heads=n_heads, qk_nope=qk_nope,
                                   qk_rope=qk_rope)
     sk = c_kv.shape[1]
-    k_nope = (c_kv @ p.wk_b.to(dtype)).reshape(b, sk, n_heads, qk_nope)
-    v = (c_kv @ p.wv_b.to(dtype)).reshape(b, sk, n_heads, v_head)
-    k_full = torch.cat([k_nope, k_rope.expand(b, sk, n_heads, qk_rope)],
-                       dim=-1)
+    c = tp.copy_to(c_kv)
+    k_nope = (c @ tp.local(p.wk_b).to(dtype)).reshape(b, sk, heads, qk_nope)
+    v = (c @ tp.local(p.wv_b).to(dtype)).reshape(b, sk, heads, v_head)
+    k_full = torch.cat([k_nope, tp.copy_to(k_rope).expand(
+        b, sk, heads, qk_rope)], dim=-1)
     q_full = torch.cat([q_nope, q_rope], dim=-1)
     out = chunked_attention(
         q_full, k_full, v, q_offset=q_offset, causal=causal, window=0,
         kv_valid_len=kv_valid_len,
         softmax_scale=1.0 / math.sqrt(qk_nope + qk_rope), block_k=block_k)
-    out = out.reshape(b, sq, n_heads * v_head)
-    return out.to(dtype) @ p.wo.to(dtype)
+    out = out.reshape(b, sq, heads * v_head)
+    return tp.reduce_from(out.to(dtype) @ tp.local(p.wo).to(dtype))
 
 
 def mla_decode(p: MLA, x, cache_ckv, cache_krope, cache_len: int, *,
@@ -331,25 +394,39 @@ class CrossAttention(nn.Module):
         self.wo = _empty(hd, d_model, device=device, dtype=dtype)
 
 
+def _cross_whole(n_heads: int, head_dim: int) -> bool:
+    return tp.attn_mode(n_heads, n_heads, head_dim, tp.size()) == "whole"
+
+
 def cross_kv(p: CrossAttention, enc, *, n_heads: int, head_dim: int, dtype):
     """The encoder states' keys and values, (B, Se, H, Dh) each: what
-    prefill keeps as the decode cache's ``ck`` / ``cv``."""
+    prefill keeps as the decode cache's ``ck`` / ``cv`` (this rank's heads
+    under tensor parallelism)."""
+    if _cross_whole(n_heads, head_dim):
+        return tp.on_whole(cross_kv, p, enc, n_heads=n_heads,
+                           head_dim=head_dim, dtype=dtype)
     b, se, _ = enc.shape
-    e = enc.to(dtype)
-    return ((e @ p.wk.to(dtype)).reshape(b, se, n_heads, head_dim),
-            (e @ p.wv.to(dtype)).reshape(b, se, n_heads, head_dim))
+    heads = n_heads // tp.size()
+    e = tp.copy_to(enc).to(dtype)
+    return ((e @ tp.local(p.wk).to(dtype)).reshape(b, se, heads, head_dim),
+            (e @ tp.local(p.wv).to(dtype)).reshape(b, se, heads, head_dim))
 
 
 def cross_cached(p: CrossAttention, x, ck, cv, *, n_heads: int,
                  head_dim: int, dtype, block_k: int = 512) -> torch.Tensor:
     """x's queries against the encoder's keys / values ``ck`` / ``cv``: no
     positions, no mask, every encoder row seen."""
+    if _cross_whole(n_heads, head_dim):
+        return tp.on_whole(cross_cached, p, x, ck, cv, n_heads=n_heads,
+                           head_dim=head_dim, dtype=dtype, block_k=block_k)
     b, sq, _ = x.shape
-    q = (x.to(dtype) @ p.wq.to(dtype)).reshape(b, sq, n_heads, head_dim)
+    heads = n_heads // tp.size()
+    q = (tp.copy_to(x).to(dtype) @ tp.local(p.wq).to(dtype)).reshape(
+        b, sq, heads, head_dim)
     out = chunked_attention(q, ck.to(dtype), cv.to(dtype), causal=False,
                             block_k=block_k)
-    out = out.reshape(b, sq, n_heads * head_dim)
-    return out.to(dtype) @ p.wo.to(dtype)
+    out = out.reshape(b, sq, heads * head_dim)
+    return tp.reduce_from(out.to(dtype) @ tp.local(p.wo).to(dtype))
 
 
 def cross_attention(p: CrossAttention, x, enc, *, n_heads: int,
@@ -374,16 +451,27 @@ class MLP(nn.Module):
             self.w3 = _empty(d_model, d_ff, device=device, dtype=dtype)
 
 
-def apply_mlp(p: MLP, x, act: str, dtype) -> torch.Tensor:
+def mlp_partial(p: MLP, x, act: str, dtype) -> torch.Tensor:
+    """The MLP on ``p``'s local shards: the whole MLP on one rank, a
+    column-parallel rank's partial sum under tensor parallelism (x already
+    past "f")."""
     x = x.to(dtype)
-    h = x @ p.w1.to(dtype)
+    h = x @ tp.local(p.w1).to(dtype)
     if act == "swiglu":
-        h = F.silu(h) * (x @ p.w3.to(dtype))
+        h = F.silu(h) * (x @ tp.local(p.w3).to(dtype))
     elif act == "geglu":
-        h = F.gelu(h, approximate="tanh") * (x @ p.w3.to(dtype))
+        h = F.gelu(h, approximate="tanh") * (x @ tp.local(p.w3).to(dtype))
     else:
         h = F.gelu(h, approximate="tanh")   # jax.nn.gelu's default
-    return h @ p.w2.to(dtype)
+    return h @ tp.local(p.w2).to(dtype)
+
+
+def apply_mlp(p: MLP, x, act: str, dtype) -> torch.Tensor:
+    """The MLP: column-parallel under tensor parallelism where its
+    ``d_ff`` splits (:func:`repro_torch.models.tp.mlp_mode`)."""
+    if tp.mlp_mode(p.w1.shape[-1], tp.size()) == "columns":
+        return tp.reduce_from(mlp_partial(p, tp.copy_to(x), act, dtype))
+    return mlp_partial(p, x, act, dtype)
 
 
 # ----------------------------------------------------------------- embeddings
@@ -393,11 +481,30 @@ class Embed(nn.Module):
         self.table = _empty(vocab, d, device=device, dtype=dtype)
 
 
+def _vocab_parallel(p: Embed) -> bool:
+    return tp.vocab_sharded(p.table.shape[0], tp.size())
+
+
 def embed(p: Embed, tokens: torch.Tensor, dtype) -> torch.Tensor:
+    if _vocab_parallel(p):
+        # vocab-parallel: this rank's rows, zero for the others' tokens,
+        # summed over the ranks (each token's row from its one owner)
+        table = tp.local(p.table)
+        ids = tokens - tp.active().rank * table.shape[0]
+        out = (ids < 0) | (ids >= table.shape[0])
+        rows = table[torch.where(out, 0, ids)]
+        return tp.reduce_from(torch.where(out[..., None], 0.0,
+                                          rows).to(dtype))
     return p.table[tokens].to(dtype)
 
 
 def unembed(p_embed: Embed, x, dtype, w_unembed=None) -> torch.Tensor:
+    """Logits (..., vocab); vocab-parallel under tensor parallelism (this
+    rank's columns, gathered whole)."""
+    if _vocab_parallel(p_embed):
+        w = (tp.local(w_unembed) if w_unembed is not None
+             else tp.local(p_embed.table).T)
+        return tp.gather(tp.copy_to(x).to(dtype) @ w.to(dtype), -1)
     w = w_unembed if w_unembed is not None else p_embed.table.T
     return x.to(dtype) @ w.to(dtype)
 

@@ -3,9 +3,20 @@
 Counterpart of the JAX package's ``models/moe.py`` local path
 (``_route``, ``_dispatch_compute``, ``_apply_moe_local``): top-k routing
 with a Switch aux loss, capacity-bounded dispatch and optional shared
-experts.  The expert-sharded dispatch (``apply_moe_sharded``) is not
-ported (ROADMAP §A10f2); :func:`dispatch_compute` keeps its ``e_local`` /
-``expert_offset`` arguments for it.
+experts; and the reference's expert-sharded dispatch,
+:func:`apply_moe_sharded`.
+
+Under tensor parallelism (:mod:`repro_torch.models.tp`: a model placed on
+a mesh whose ``model`` axis is above 1, its experts split over it)
+:func:`apply_moe` runs the expert-parallel dispatch: every model rank
+routes all of its data rank's tokens (the router is replicated, so the
+routing agrees), dispatches to its ``n_experts / model`` experts at
+``expert_offset = rank * e_local`` (:func:`dispatch_compute` writes no
+assignment of another rank's experts, so the shards sum to the single
+device's dispatch: the port has no C8), adds its part of the shared
+experts and sums over the model group.  The gate values' gradient is
+summed over the group ("f"), so the router's is whole on every rank, and
+the aux loss, computed alike on every rank, counts once.
 
 Under :func:`data_parallel` (the elastic trainer's step at a width above
 1) each rank holds its contiguous block of the global batch's tokens, and
@@ -33,12 +44,14 @@ from __future__ import annotations
 
 import contextlib
 import math
+import types
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import MLP, _empty, apply_mlp
+from . import tp
+from .layers import MLP, _empty, mlp_partial
 
 
 class MoE(nn.Module):
@@ -225,10 +238,154 @@ def apply_moe(p: MoE, x, *, n_experts: int, top_k: int, act: str, dtype,
         cap_all = capacity_for(t_all, n_experts, top_k, capacity_factor)
         limit = cap_all - counts[:dist.get_rank(group)].sum(dim=0)
         capacity = min(cap_all, t)
+    grp = tp.active()
+    if grp is not None and tp.moe_mode(n_experts, grp.size) == "experts":
+        return _expert_parallel(p, x, gate_vals, gate_idx, aux, grp,
+                                n_experts=n_experts, capacity=capacity,
+                                act=act, dtype=dtype, limit=limit)
     out = dispatch_compute(p, xf, gate_vals, gate_idx, e_local=n_experts,
                            expert_offset=0, capacity=capacity, act=act,
                            dtype=dtype, limit=limit)
     out = out.reshape(b, s, d)
     if hasattr(p, "shared"):
-        out = out + apply_mlp(p.shared, x, act, dtype)
+        out = out + mlp_partial(p.shared, x, act, dtype)
+    return out, aux
+
+
+def _expert_parallel(p: MoE, x, gate_vals, gate_idx, aux, grp, *,
+                     n_experts: int, capacity: int, act: str, dtype,
+                     limit=None):
+    """This rank's experts' share of the routed output, summed over the
+    model group, then the shared experts (whole on every rank: their
+    stacked ``(L, d, ff)`` leaves read as experts by the rules, a layer's
+    row is replicated, :mod:`repro_torch.models.sharding`)."""
+    b, s, d = x.shape
+    e_local = n_experts // grp.size
+    offset = grp.rank * e_local
+    if limit is not None:
+        limit = limit[offset:offset + e_local]
+    xs = tp.copy_to(x)
+    experts = types.SimpleNamespace(w1=tp.local(p.w1), w3=tp.local(p.w3),
+                                    w2=tp.local(p.w2))
+    out = dispatch_compute(experts, xs.reshape(b * s, d),
+                           tp.copy_to(gate_vals), gate_idx, e_local=e_local,
+                           expert_offset=offset, capacity=capacity, act=act,
+                           dtype=dtype, limit=limit).reshape(b, s, d)
+    out = tp.reduce_from(out)
+    if hasattr(p, "shared"):
+        out = out + mlp_partial(p.shared, x, act, dtype)
+    return out, aux
+
+
+def _block(t, mesh, want):
+    """This rank's block of ``t`` with dimension ``d`` split over the mesh
+    axis ``want[d]`` (in equal contiguous pieces, by the rank's
+    coordinate): a ``DTensor`` placed on ``mesh`` keeps the splits it has
+    and takes the others from its local shard; a plain tensor takes them
+    all."""
+    from torch.distributed.tensor import DTensor
+    names = tuple(mesh.mesh_dim_names)
+    have = {}
+    loc = t
+    if isinstance(t, DTensor):
+        loc = t.to_local()
+        for i, place in enumerate(t.placements):
+            if place.is_shard() and mesh.mesh.shape[i] > 1:
+                have[place.dim] = names[i]
+    for dim, axis in have.items():
+        if want.get(dim) != axis:
+            raise ValueError(f"a {tuple(t.shape)} weight split on dim {dim} "
+                             f"over {axis!r}, the layout wants {want}")
+    for dim, axis in want.items():
+        if axis not in names or dim in have:
+            continue
+        n = mesh.mesh.shape[names.index(axis)]
+        loc = torch.chunk(loc, n, dim=dim)[mesh.get_local_rank(axis)]
+    return loc
+
+
+def apply_moe_sharded(p: MoE, x, *, mesh, n_experts: int, top_k: int,
+                      act: str, dtype, capacity_factor: float = 1.25,
+                      router_aux_weight: float = 0.01):
+    """The reference's expert-sharded dispatch on a ``(data, model)``
+    ``DeviceMesh``: experts over ``model``.  Every rank of the mesh calls it
+    with the whole batch x (B, S, d); ``p``'s weights are whole, or placed
+    on ``mesh`` by :func:`repro_torch.elastic.resharding.reshard_tree`.
+    Returns ``(out (B, S, d), aux)`` on every rank.
+
+    Two layouts, as the reference's:
+
+    * train / prefill (S > 1): the batch split over ``data`` where it
+      divides, each data rank's tokens routed as their block of the whole
+      batch (:func:`data_parallel`: the whole batch's capacity and aux
+      loss, so the result is :func:`apply_moe`'s on one device; the
+      reference gives each shard a capacity of its own), each model rank
+      its experts, the sum over ``model``, the rows gathered over
+      ``data``;
+    * decode (S == 1, ``ff`` divisible by ``data``): every rank routes all
+      tokens; its experts (over ``model``) at its slice of ``ff`` (over
+      ``data``), the shared experts' partial divided by the data size, and
+      one sum over the mesh.
+    """
+    names = tuple(mesh.mesh_dim_names)
+    if "pod" in names:
+        raise ValueError("apply_moe_sharded takes a (data, model) mesh; a "
+                         "pod axis is not supported")
+    sizes = dict(zip(names, mesh.mesh.shape))
+    n_model, dp = sizes.get("model", 1), sizes.get("data", 1)
+    b, s, d = x.shape
+    ff = p.w1.shape[-1]
+    if n_experts % n_model:
+        raise ValueError(f"{n_experts} experts do not split over {n_model} "
+                         "model ranks")
+    model_grp = tp.group_of_mesh(mesh)
+    if s == 1 and dp > 1 and ff % dp == 0 and ff >= dp:
+        e_local = n_experts // n_model
+        offset = (model_grp.rank if model_grp else 0) * e_local
+        experts = {"w1": {0: "model", 2: "data"},
+                   "w3": {0: "model", 2: "data"},
+                   "w2": {0: "model", 1: "data"}}
+        local = types.SimpleNamespace(**{
+            k: _block(getattr(p, k), mesh, want)
+            for k, want in experts.items()})
+        xf = x.reshape(b * s, d)
+        gate_vals, gate_idx, aux = route(xf, p.router, n_experts, top_k,
+                                         router_aux_weight)
+        capacity = capacity_for(b * s, n_experts, top_k, capacity_factor)
+        out = dispatch_compute(local, xf, gate_vals, gate_idx,
+                               e_local=e_local, expert_offset=offset,
+                               capacity=capacity, act=act,
+                               dtype=dtype).reshape(b, s, d)
+        if hasattr(p, "shared"):
+            cols = {"w1": {1: "model"}, "w3": {1: "model"},
+                    "w2": {0: "model"}}
+            shared = types.SimpleNamespace(**{
+                k: _block(getattr(p.shared, k), mesh, want)
+                for k, want in cols.items() if hasattr(p.shared, k)})
+            # every data rank computes the same partial: counted once
+            out = out + mlp_partial(shared, x, act, dtype) / dp
+        for axis in ("model", "data"):
+            # the partial sums of each axis' ranks added ("g" over it)
+            with tp.model_parallel(tp.group_of_mesh(mesh, axis)):
+                out = tp.reduce_from(out)
+        return out, aux
+    split = dp > 1 and b % dp == 0
+    rows = b // dp if split else b
+    lo = mesh.get_local_rank("data") * rows if split else 0
+    data_grp = mesh.get_group("data") if split else None
+    view = types.SimpleNamespace(router=p.router, **{
+        k: _block(getattr(p, k), mesh, {0: "model"})
+        for k in ("w1", "w3", "w2")})
+    if hasattr(p, "shared"):
+        view.shared = p.shared
+    with data_parallel(data_grp), tp.model_parallel(model_grp):
+        out, aux = apply_moe(view, x[lo:lo + rows], n_experts=n_experts,
+                             top_k=top_k, act=act, dtype=dtype,
+                             capacity_factor=capacity_factor,
+                             router_aux_weight=router_aux_weight)
+    if split:
+        # the data ranks' rows joined, their aux losses averaged
+        with tp.model_parallel(tp.group_of_mesh(mesh, "data")):
+            out = tp.gather(out, 0)
+            aux = tp.reduce_from(aux) / dp
     return out, aux

@@ -22,10 +22,12 @@ the JAX leaf ``segments/<i>/<rest>``, :func:`repro_torch.convert.jax_key`).
 So :func:`param_specs` reads the *stacked* leaves (the layer count from the
 tree) and gives the reference's specs for them, and :func:`tensor_specs`
 gives each port tensor its row's spec: the stacked spec without its layer
-axis.  With ``fsdp`` a stacked 1-D leaf, a norm's ``(L, d)`` ``scale``,
-may have its layer axis sharded over ``data``; a layer's tensor has no
-such axis, so its placement raises ``NotImplementedError`` (ROADMAP
-§A10f2).  Under a ``(data, 1)`` mesh without ``fsdp`` every spec is
+axis.  Two stacked specs shard the layer axis itself: with ``fsdp`` a
+stacked 1-D leaf (a norm's ``(L, d)`` ``scale``: a few KB a layer) may
+have it sharded over ``data``, and a MoE block's shared-expert stack
+``(L, d, ff)``, which the expert rule reads as ``(E, d_in, d_out)``, over
+``model`` where L divides.  A layer's tensor has no such axis: its row is
+replicated.  Under a ``(data, 1)`` mesh without ``fsdp`` every spec is
 replicated.
 """
 from __future__ import annotations
@@ -193,23 +195,13 @@ def tensor_specs(tree, mesh, *, fsdp: bool = False,
                  dp_axes: Tuple[str, ...] = ("data",)) -> Dict[str, Spec]:
     """``{port path: spec}``: each of ``tree``'s own tensors (keys joined by
     ``/``) with its row's spec, the stacked leaf's spec without its layer
-    axis.  Raises ``NotImplementedError`` where that spec shards the layer
-    axis."""
+    axis (a row of a stack sharded on that axis is replicated)."""
     specs = param_specs(tree, mesh, fsdp=fsdp, dp_axes=dp_axes)
     out = {}
     for keys, _leaf in port_leaves(tree):
         path, layer = _jax_path(keys)
         spec = specs[path]
-        if layer is not None:
-            if spec[0] is not None:
-                raise NotImplementedError(
-                    f"{path}: the spec {spec} shards the layer axis of the "
-                    "stacked leaf over "
-                    f"{spec[0]!r}; the port keeps a tensor a layer, which "
-                    "has no such axis (the tensor-parallel slice, ROADMAP "
-                    "§A10f2)")
-            spec = spec[1:]
-        out["/".join(keys)] = spec
+        out["/".join(keys)] = spec if layer is None else spec[1:]
     return out
 
 

@@ -9,6 +9,16 @@ through the CUDA kernel ``ssd_scan.cu`` on the card) and as a one-step
 recurrence in decode (:func:`mamba2_decode`, plain PyTorch: the JAX package
 has no kernel for it).  Projections are separate tensors (z, x, B, C, dt),
 B and C shared across heads (ngroups = 1), as in the JAX package.
+
+Under tensor parallelism (:mod:`repro_torch.models.tp`) a block whose SSD
+heads split over the model group runs on its local heads: z, x, dt and
+the SSD scan on this rank's ``d_inner`` / heads; B and C whole on every
+rank, their gradient summed ("f") since each rank's heads use them; the
+gated ``out_norm``, which reduces over the whole ``d_inner``, on the rows
+gathered whole (the RMSNorm kernels unchanged, the norm the single
+device's), then this rank's columns through the row-parallel
+``out_proj`` and the sum over the group.  Otherwise the block runs whole
+on every rank from gathered weights.
 """
 from __future__ import annotations
 
@@ -20,6 +30,7 @@ from torch import nn
 
 from repro_torch.kernels.ssd_scan import ssd_scan
 
+from . import tp
 from .layers import Norm, _empty, rmsnorm
 
 
@@ -108,25 +119,42 @@ def apply_mamba2(p: Mamba2, x, dims: SSMDims, dtype, chunk: int = 128,
     """Full-sequence Mamba-2 block.  x: (B, S, d_model) -> same.
 
     With ``return_cache`` also returns the :class:`MambaCache` holding the
-    final SSM state and conv tails (the prefill -> decode hand-off)."""
+    final SSM state and conv tails (the prefill -> decode hand-off; this
+    rank's heads under tensor parallelism)."""
+    if tp.ssm_mode(dims.nheads, tp.size()) == "whole":
+        return tp.on_whole(apply_mamba2, p, x, dims, dtype, chunk,
+                           initial_state, return_cache)
     bsz, s, _ = x.shape
-    z, xin, bc, dt = _project(p, x, dtype)
-    xin, conv_x_state = _causal_conv(xin, p.conv_x.to(dtype),
-                                     p.conv_bias_x.to(dtype))
+    heads = dims.nheads // tp.size()
+    # z, x and dt feed this rank's heads alone ("f"); B and C every rank's
+    xs = tp.copy_to(x).to(dtype)
+    z = xs @ tp.local(p.in_z).to(dtype)
+    xin = xs @ tp.local(p.in_x).to(dtype)
+    dt = xs @ tp.local(p.in_dt).to(dtype)
+    xd = x.to(dtype)
+    bc = torch.cat([xd @ p.in_b.to(dtype), xd @ p.in_c.to(dtype)], dim=-1)
+    xin, conv_x_state = _causal_conv(xin, tp.local(p.conv_x).to(dtype),
+                                     tp.local(p.conv_bias_x).to(dtype))
     bc, conv_bc_state = _causal_conv(bc, p.conv_bc.to(dtype),
                                      p.conv_bias_bc.to(dtype))
+    # each rank's gradient of B and C is its heads' share: summed here, so
+    # the replicated weights behind them get it whole
+    bc = tp.copy_to(bc)
     b = bc[..., :dims.dstate]
     c = bc[..., dims.dstate:]
 
-    dt = F.softplus(dt.float() + p.dt_bias)
-    a = torch.exp(p.a_log)
-    xh = xin.reshape(bsz, s, dims.nheads, dims.headdim).float()
+    dt = F.softplus(dt.float() + tp.local(p.dt_bias))
+    a = torch.exp(tp.local(p.a_log))
+    xh = xin.reshape(bsz, s, heads, dims.headdim).float()
     y, state = ssd_chunked(xh, dt, a, b.float(), c.float(), chunk=chunk,
                            initial_state=initial_state)
-    y = y + xh * p.d_skip[None, None, :, None]
-    y = y.reshape(bsz, s, dims.d_inner).to(dtype)
-    y = rmsnorm(p.out_norm, y * F.silu(z.to(dtype)))
-    out = y @ p.out_proj.to(dtype)
+    y = y + xh * tp.local(p.d_skip)[None, None, :, None]
+    y = y.reshape(bsz, s, heads * dims.headdim).to(dtype)
+    # the norm reduces over the whole d_inner: its rows gathered, normed as
+    # on one device, then this rank's columns
+    y = tp.gather(y * F.silu(z.to(dtype)), -1)
+    y = tp.scatter(rmsnorm(p.out_norm, y), -1)
+    out = tp.reduce_from(y @ tp.local(p.out_proj).to(dtype))
     if return_cache:
         return out, MambaCache(conv_x=conv_x_state, conv_bc=conv_bc_state,
                                state=state)

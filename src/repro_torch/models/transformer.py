@@ -19,6 +19,13 @@ layer as the JAX ``_remat`` does: ``"dots"`` keeps the layer's plain matrix
 products (``aten.mm`` / ``addmm``: XLA's dots with no batch dimensions) and
 recomputes the rest, ``"full"`` keeps nothing, ``"none"`` checkpoints
 nothing.  It changes memory, never values.
+
+A model that :func:`repro_torch.elastic.resharding.reshard_tree` placed on a
+``(data, model)`` mesh with ``model`` > 1 runs tensor-parallel through the
+same :func:`forward_logits` / :func:`forward_train`: its parameters'
+placements open the model group (:func:`repro_torch.models.tp.
+tensor_parallel`) and each block runs as :func:`repro_torch.models.tp.
+tp_plan` says, on its local shards.
 """
 from __future__ import annotations
 
@@ -39,6 +46,7 @@ from repro_torch.configs.base import ModelConfig
 from . import layers as L
 from . import moe as M
 from . import ssm as S
+from . import tp
 
 
 # ----------------------------------------------------------------- plan
@@ -140,6 +148,9 @@ def self_attention(p, h, cfg: ModelConfig, kind: str, positions, window,
     leaf)``: the layer's decode-cache leaf, {"k", "v"} for GQA, the
     latent {"ckv", "krope"} for MLA."""
     if uses_mla(cfg, kind):
+        if tp.mla_mode(cfg.n_heads, tp.size()) == "whole":
+            return tp.on_whole(self_attention, p, h, cfg, kind, positions,
+                               window, theta, dtype, causal)
         c_kv, k_rope = L.mla_latent(p, h, positions, theta, dtype,
                                     kv_lora=cfg.kv_lora, qk_rope=cfg.qk_rope)
         att = L.mla_attention_from_latent(
@@ -342,12 +353,21 @@ def _keep_dots(ctx, op, *args, **kwargs):
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
+def _in_group(grp, fn, *args, **kwargs):
+    with tp.model_parallel(grp):
+        return fn(*args, **kwargs)
+
+
 def remat_call(fn, remat: str, *args, **kwargs):
     """``fn(*args, **kwargs)`` under the checkpoint policy ``remat`` (the
     JAX ``_remat``): ``"none"`` runs it plainly, ``"full"`` recomputes all
-    of it in the backward, ``"dots"`` all but the matrix products."""
+    of it in the backward, ``"dots"`` all but the matrix products.  The
+    recomputation runs under the model group of the forward (the backward
+    comes after the forward's group is closed)."""
     if remat == "none":
         return fn(*args, **kwargs)
+    if tp.active() is not None:
+        fn = functools.partial(_in_group, tp.active(), fn)
     if remat == "full":
         return checkpoint(fn, *args, use_reentrant=False, **kwargs)
     if remat == "dots":
@@ -415,12 +435,15 @@ def forward_logits(model: LM, cfg: ModelConfig, batch, *,
                    dtype=torch.bfloat16):
     """Logits (B, S, vocab) of ``batch["tokens"]`` (B, S), after the
     encoder over ``batch["frames"]`` for an encoder-decoder; a vision
-    config's ``batch["patches"]`` positions give no logits."""
-    enc = (run_encoder(model, cfg, batch["frames"], dtype)
-           if cfg.is_encdec else None)
-    x, positions, offset = embed_inputs(model, cfg, batch, dtype)
-    x, _ = run_stack(model, cfg, x, positions, dtype, enc=enc)
-    return logits_fn(model, cfg, x[:, offset:], dtype)
+    config's ``batch["patches"]`` positions give no logits.  A model placed
+    on a mesh with ``model`` > 1 runs tensor-parallel; every rank of its
+    model group returns the whole logits."""
+    with tp.tensor_parallel(model):
+        enc = (run_encoder(model, cfg, batch["frames"], dtype)
+               if cfg.is_encdec else None)
+        x, positions, offset = embed_inputs(model, cfg, batch, dtype)
+        x, _ = run_stack(model, cfg, x, positions, dtype, enc=enc)
+        return logits_fn(model, cfg, x[:, offset:], dtype)
 
 
 def forward_train(model: LM, cfg: ModelConfig, batch, *,
@@ -433,11 +456,12 @@ def forward_train(model: LM, cfg: ModelConfig, batch, *,
     every layer under ``remat`` (:data:`REMAT_MODES`)."""
     if remat not in REMAT_MODES:
         raise ValueError(f"remat {remat!r} is not one of {REMAT_MODES}")
-    enc = (run_encoder(model, cfg, batch["frames"], dtype, remat)
-           if cfg.is_encdec else None)
-    x, positions, offset = embed_inputs(model, cfg, batch, dtype)
-    x, aux = train_stack(model, cfg, x, positions, dtype, enc=enc,
-                         remat=remat)
-    logits = logits_fn(model, cfg, x[:, offset:], dtype)
-    loss = L.cross_entropy(logits, batch["labels"])
+    with tp.tensor_parallel(model):
+        enc = (run_encoder(model, cfg, batch["frames"], dtype, remat)
+               if cfg.is_encdec else None)
+        x, positions, offset = embed_inputs(model, cfg, batch, dtype)
+        x, aux = train_stack(model, cfg, x, positions, dtype, enc=enc,
+                             remat=remat)
+        logits = logits_fn(model, cfg, x[:, offset:], dtype)
+        loss = L.cross_entropy(logits, batch["labels"])
     return loss + aux, {"ce_loss": loss, "aux_loss": aux}

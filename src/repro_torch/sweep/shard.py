@@ -12,9 +12,11 @@ lane axis is partitioned into fixed-width chunks, and each chunk is
    an interrupted paper-scale run resumes chunk by chunk;
 
 2. **split across cards** -- a chunk is cut into ``devices`` contiguous,
-   equal pieces, piece ``i`` runs on ``cuda:i`` in a thread of its own, and
-   the pieces' results are stitched back in lane order.  Lanes never talk
-   to each other, so the pieces share nothing but the lane statics.
+   equal pieces over the lane mesh (:func:`lane_sharding`,
+   :func:`shard_lanes`), piece ``i`` runs on ``cuda:i`` in a thread of its
+   own, and the pieces' results are stitched back in lane order.  Lanes
+   never talk to each other, so the pieces share nothing but the lane
+   statics.
 
 Both are *execution* choices, never *experiment* choices: every piece runs
 with the **full** batch's :func:`~repro_torch.sweep.batch.lane_statics`
@@ -41,6 +43,7 @@ import torch
 
 from repro_torch import obs, resolve_device
 from repro_torch.core.jobs import DONE
+from repro_torch.launch.mesh import MeshView, make_lane_mesh
 
 from .batch import (BatchedLanes, EngineConfig, lane_statics, pad_lanes,
                     simulate_lanes, take_lanes)
@@ -133,6 +136,36 @@ def _lanes_to(batch: BatchedLanes, device) -> BatchedLanes:
                           for name in BatchedLanes._fields])
 
 
+class LaneSharding(NamedTuple):
+    """A lane batch's placement: its leading axis split over ``mesh``'s
+    ``lanes`` axis (the reference's ``NamedSharding(mesh,
+    PartitionSpec("lanes"))``)."""
+
+    mesh: MeshView
+    placements: tuple
+
+
+def lane_sharding(devices) -> LaneSharding:
+    """The placement splitting lane-leading arrays over ``devices``."""
+    from torch.distributed.tensor import Shard
+    return LaneSharding(make_lane_mesh(devices), (Shard(0),))
+
+
+def shard_lanes(batch: BatchedLanes, sharding: LaneSharding
+                ) -> List[BatchedLanes]:
+    """``batch`` cut into equal contiguous pieces of its lanes, piece ``i``
+    on the mesh's device ``i`` (as the reference's sharding splits axis 0;
+    the lane count must divide)."""
+    devices = sharding.mesh.devices
+    n = len(devices)
+    if batch.n_lanes % n:
+        raise ValueError(f"{batch.n_lanes} lanes do not split over {n} "
+                         "devices")
+    size = batch.n_lanes // n
+    return [_lanes_to(take_lanes(batch, i * size, (i + 1) * size), dev)
+            for i, dev in enumerate(devices)]
+
+
 def _run_piece(simulate, piece: BatchedLanes, device, cfg: EngineConfig,
                statics: Dict[str, int], verbose: bool) -> Dict:
     if device.type == "cuda":
@@ -164,11 +197,10 @@ def _run_chunk(simulate, sub: BatchedLanes, devices, cfg, statics, verbose,
                pool):
     if pool is None:
         return _run_piece(simulate, sub, devices[0], cfg, statics, verbose)
-    size = sub.n_lanes // len(devices)
-    futs = [pool.submit(_run_piece, simulate,
-                        take_lanes(sub, i * size, (i + 1) * size), dev, cfg,
-                        statics, verbose)
-            for i, dev in enumerate(devices)]
+    pieces = shard_lanes(sub, lane_sharding(devices))
+    futs = [pool.submit(_run_piece, simulate, piece, dev, cfg, statics,
+                        verbose)
+            for piece, dev in zip(pieces, devices)]
     return _stitch([f.result() for f in futs])
 
 

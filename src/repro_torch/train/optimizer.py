@@ -78,24 +78,43 @@ def _f32_list(tensors):
     return [t if t.dtype == torch.float32 else t.float() for t in tensors]
 
 
-def global_norm(tree: Params) -> torch.Tensor:
-    """sqrt of the sum of squares of every element, in f32."""
-    norms = torch._foreach_norm(_f32_list(tree.values()), 2)
-    return torch.linalg.vector_norm(torch.stack(norms))
+def global_norm(tree: Params, sharded=(), group=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every element, in f32.  Under tensor
+    parallelism ``tree`` holds this rank's shards: the squares of the
+    tensors named in ``sharded`` are summed over ``group`` (the model
+    group) and every other tensor, whole on each rank, counts once."""
+    if group is None or not sharded:
+        norms = torch._foreach_norm(_f32_list(tree.values()), 2)
+        return torch.linalg.vector_norm(torch.stack(norms))
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import world_device_type
+    sq = []
+    for names in ([n for n in tree if n in sharded],
+                  [n for n in tree if n not in sharded]):
+        norms = torch._foreach_norm(_f32_list(tree[n] for n in names), 2)
+        sq.append(torch.linalg.vector_norm(torch.stack(norms)) ** 2
+                  if norms else torch.zeros(
+                      (), device=next(iter(tree.values())).device))
+    part = sq[0].to(world_device_type())
+    dist.all_reduce(part, group=group)
+    return torch.sqrt(part.to(sq[1].device) + sq[1])
 
 
 @torch.no_grad()
 def adamw_update(params: Params, grads: Params, state: Dict[str, object],
-                 cfg: AdamWConfig):
+                 cfg: AdamWConfig, sharded=(), group=None):
     """One AdamW step, in place.  Returns ``(params, state, stats)``:
     ``params`` and the state's trees are the ones given, updated; stats
     ``{"lr", "grad_norm"}``.  f32 ``grads`` are scaled by the clip factor
-    in place (the step consumes them)."""
+    in place (the step consumes them).  Under tensor parallelism the trees
+    hold this rank's local shards, ``sharded`` names the split ones and
+    ``group`` is the model group (:func:`global_norm`); the update is
+    elementwise, so it runs on the shards as they are."""
     names = list(params)
     step = state["step"] + 1
     lr = cfg.lr(step)
 
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, sharded, group)
     clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
 
     g = _f32_list(grads[n] for n in names)

@@ -18,6 +18,14 @@ data_parallel`), and the gradients, the loss and its parts are averaged
 over the group before clipping, compression and AdamW, so every rank
 applies the same update.
 
+A model placed on a ``(data, model)`` mesh with ``model`` > 1 trains
+tensor-parallel (:mod:`repro_torch.models.tp`): the forward and backward
+run on the local shards, the gradients stay local (a replicated
+parameter's is whole on every rank of the model group), ``group`` is the
+mesh's ``data`` group alone, the clip norm sums the split gradients'
+squares over the model group and counts each replicated one once, and
+AdamW updates each rank's shards.
+
 The state is ``{"params": the LM (its parameters need gradients), "opt":
 the AdamW state keyed by parameter name, "ef": the residuals (with
 compress_grads)}``; a step updates it in place and returns it.  On a CUDA
@@ -39,6 +47,7 @@ from repro_torch.elastic.compression import (compress_decompress,
                                              init_residuals)
 from repro_torch.kernels import ssd_scan as SSD
 from repro_torch.models import moe as M
+from repro_torch.models import tp as TP
 from repro_torch.models import transformer as T
 
 from .optimizer import AdamWConfig, adamw_update, init_opt_state
@@ -89,7 +98,10 @@ def _backward(model: T.LM, cfg: ModelConfig, batch, tc: TrainConfig):
 
 
 def _grads(model: T.LM) -> Dict[str, torch.Tensor]:
-    return {n: p.grad if p.grad is not None else torch.zeros_like(p)
+    """Each parameter's gradient (zeros where it has none), local shards
+    under tensor parallelism."""
+    return {n: TP.local(p.grad) if p.grad is not None
+            else torch.zeros_like(TP.local(p.detach()))
             for n, p in model.named_parameters()}
 
 
@@ -99,7 +111,7 @@ def grads_of(model: T.LM, cfg: ModelConfig, batch, tc: TrainConfig):
     if tc.accum_steps <= 1:
         loss, metrics = _backward(model, cfg, batch, tc)
         return loss, metrics, _grads(model)
-    acc = {n: torch.zeros_like(p, dtype=torch.float32)
+    acc = {n: torch.zeros_like(TP.local(p.detach()), dtype=torch.float32)
            for n, p in model.named_parameters()}
     loss_sum = torch.zeros((), dtype=torch.float32,
                            device=next(model.parameters()).device)
@@ -153,11 +165,30 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, group=None):
             all_reduce_mean([parts], group)
             loss, metrics = parts[0], {"ce_loss": parts[1],
                                        "aux_loss": parts[2]}
+        # under tensor parallelism: the split parameters and the model
+        # group their gradients' squares and scales are taken over (read
+        # once a placement)
+        tp_grp = TP.model_group_of(model)
+        split = TP.split_names(model)
+        over = tp_grp.group if tp_grp else None
         if tc.compress_grads:
-            grads, state["ef"] = compress_decompress(grads, state["ef"])
-        params = dict(model.named_parameters())
-        _, state["opt"], stats = adamw_update(params, grads, state["opt"],
-                                              tc.opt)
+            ef = state["ef"]
+            grads, new_ef = compress_decompress(
+                grads, {n: TP.local(t) for n, t in ef.items()}, split, over)
+            with torch.no_grad():
+                for n, t in new_ef.items():
+                    if TP.shard_dim(ef[n]) is None:
+                        ef[n] = t
+                    else:
+                        TP.local(ef[n]).copy_(t)
+        with torch.no_grad():
+            params = {n: TP.local(p) for n, p in model.named_parameters()}
+            opt = {k: ({n: TP.local(t) for n, t in v.items()}
+                       if isinstance(v, dict) else v)
+                   for k, v in state["opt"].items()}
+        _, new_opt, stats = adamw_update(params, grads, opt, tc.opt, split,
+                                         over)
+        state["opt"]["step"] = new_opt["step"]
         model.zero_grad(set_to_none=True)
         return state, {**stats, "loss": loss, **metrics}
 

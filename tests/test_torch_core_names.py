@@ -11,7 +11,9 @@
   under the port's renames (``*_jax`` -> ``*_torch``, ``*_pallas`` ->
   ``*_waterfill``, ``simulate_jax`` -> ``simulate_dense``), apart from
   the names ``BY_DESIGN`` covers; the modules include the training
-  slice's (``train.*``, ``elastic.compression``).
+  slice's (``train.*``, ``elastic.compression``) and the malleable job's
+  and the tensor-parallel slice's (``elastic.manager`` / ``resharding``,
+  ``models.sharding`` / ``moe``, ``launch.mesh``, ``sweep.shard``).
 """
 import ast
 import dataclasses
@@ -39,6 +41,10 @@ BY_DESIGN = {
                               "device; no TPU / XLA dispatch module",
     ("repro.sweep.runner", "enable_compilation_cache"): "JAX's persistent "
                                                         "XLA cache",
+    ("repro.models.moe", "Params"): "a layer's parameters are an nn.Module "
+                                    "holder (MoE), not a dict",
+    ("repro.models.moe", "init_moe"): "MoE(...) holds the parameters; "
+                                      "transformer.init_params draws them",
 }
 PACKAGES = ("core", "sweep", "configs", "kernels")
 MODULES = (("core.speedup", "core.speedup"), ("core.traces", "core.traces"),
@@ -49,7 +55,14 @@ MODULES = (("core.speedup", "core.speedup"), ("core.traces", "core.traces"),
            ("train.data", "train.data"),
            ("train.optimizer", "train.optimizer"),
            ("train.train_step", "train.train_step"),
-           ("elastic.compression", "elastic.compression"))
+           ("elastic.compression", "elastic.compression"),
+           # the malleable job and the tensor-parallel slice
+           ("elastic.manager", "elastic.manager"),
+           ("elastic.resharding", "elastic.resharding"),
+           ("models.sharding", "models.sharding"),
+           ("models.moe", "models.moe"),
+           ("launch.mesh", "launch.mesh"),
+           ("sweep.shard", "sweep.shard"))
 
 
 def port_name(name: str) -> str:

@@ -236,7 +236,10 @@ def test_trainer_follows_the_jax_trainer_at_width_1(tmp_path):
 
 
 def test_trainer_refuses_tensor_parallelism_and_a_too_wide_mesh():
-    with pytest.raises(NotImplementedError, match="A10f2"):
+    """Tensor parallelism is taken (the runs are in
+    ``tests/test_torch_tensor_parallel.py``); a (1, 2) mesh, like a (2, 1)
+    one, needs two ranks, which a world of one has not."""
+    with pytest.raises(ValueError, match="job needs 2 devices, have 1"):
         TM.ElasticTrainer(_mini(t_config), TS.TrainConfig(remat="none"),
                           global_batch=2, seq_len=8, width=1,
                           model_parallel=2, device="cpu")

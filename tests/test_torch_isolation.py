@@ -18,6 +18,7 @@ Kernel launches need a card: the ``cuda``-marked tests in
 GPU.
 """
 import ast
+import dataclasses
 import pathlib
 import subprocess
 import sys
@@ -47,6 +48,10 @@ ELASTIC_MODULES = ("repro_torch.elastic.checkpoint",
                    "repro_torch.elastic.manager",
                    "repro_torch.elastic.resharding",
                    "repro_torch.launch.mesh", "repro_torch.models.sharding")
+# the tensor-parallel slice's modules (A10f2), which the two checks below
+# must cover
+TP_MODULES = ("repro_torch.models.tp", "repro_torch.models.moe",
+              "repro_torch.sweep.shard", "repro_torch.train.optimizer")
 
 
 def _imported_roots(path):
@@ -68,6 +73,8 @@ def test_port_file_imports_neither_jax_nor_repro(path):
 def test_every_module_imports_with_jax_and_repro_blocked():
     assert set(TRAINING_MODULES) <= set(MODULES)
     assert set(ELASTIC_MODULES) <= set(MODULES)
+    assert set(TP_MODULES) <= set(MODULES)
+    assert PORT / "models" / "tp.py" in set(PORT_FILES)
     assert {PORT / "train" / "data.py", PORT / "elastic" / "compression.py",
             PORT / "launch" / "train.py"} <= set(PORT_FILES)
     assert {PORT / (m.replace("repro_torch.", "").replace(".", "/") + ".py")
@@ -197,15 +204,31 @@ def test_elastic_entry_points_without_device_raise_on_a_cpu_box(no_card):
     assert not dist.is_initialized()
 
 
-def test_tensor_parallel_job_raises_naming_the_next_slice():
-    """``model_parallel`` > 1 is the tensor-parallel slice (ROADMAP
-    §A10f2): refused before anything is built, on any box."""
-    from repro_torch.configs import get_config
+def test_tensor_parallel_job_raises_naming_the_next_slice(no_card):
+    """``model_parallel`` > 1 is ported (ROADMAP §A10f2, the runs in
+    ``tests/test_torch_tensor_parallel.py``): no ``NotImplementedError``
+    is left.  Without a card a tensor-parallel job of every family, MLA
+    included, raises only for its device, before a world or a state is
+    built, and on the CPU its plan runs every block (none is refused)."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config, list_archs
     from repro_torch.elastic.manager import ElasticTrainer
+    from repro_torch.launch.mesh import MeshView
+    from repro_torch.models.tp import tp_plan
     from repro_torch.train.train_step import TrainConfig
-    with pytest.raises(NotImplementedError, match="ROADMAP §A10f2"):
-        ElasticTrainer(get_config("stablelm-1.6b").reduced(), TrainConfig(),
-                       global_batch=2, seq_len=8, width=1, model_parallel=2)
+    for arch in ("stablelm-1.6b", "deepseek-v2-236b"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            ElasticTrainer(get_config(arch).reduced(), TrainConfig(),
+                           global_batch=2, seq_len=8, width=1,
+                           model_parallel=2)
+    assert not dist.is_initialized()
+    modes = {"plain", "heads", "kv_gather", "whole", "columns", "experts",
+             ""}
+    for arch in list_archs():
+        plan = tp_plan(get_config(arch), MeshView(("data", "model"), {
+            "data": 1, "model": 2}))
+        for block in plan.blocks.values():
+            assert set(dataclasses.astuple(block)) <= modes, (arch, block)
 
 
 @pytest.mark.parametrize("size", ["published", "reduced"])

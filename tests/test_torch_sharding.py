@@ -10,7 +10,7 @@ CPU, from shapes alone (nothing is allocated).
 * ``cache_specs`` over every arch's decode cache, ``batch_spec``,
   ``default_policy``, ``dp_axes`` / ``dp_size``: equal;
 * the port's own: a tensor's spec is its stacked leaf's without the layer
-  axis, a sharded layer axis is refused naming ROADMAP §A10f2, specs
+  axis, a row of a stack sharded on its layer axis is replicated, specs
   become ``Shard`` / ``Replicate`` placements, and the production mesh
   needs 256 / 512 ranks.
 """
@@ -173,11 +173,23 @@ def test_tensor_specs_drop_the_layer_axis_and_refuse_to_shard_it():
         assert spec == (stacked[path][1:] if layer is not None
                         else stacked[path])
     # fsdp over data = 2 shards a 2-layer stack's norm scale (2, 64) on its
-    # layer axis: the reference's spec, which no port tensor can take
+    # layer axis: the reference's spec, which no port tensor can take, so
+    # each layer's row is replicated
     assert TSH.param_specs(model, DataTwo, fsdp=True)[
         "segments/0/ln1/scale"] == ("data", None)
-    with pytest.raises(NotImplementedError, match="A10f2"):
-        TSH.tensor_specs(model, DataTwo, fsdp=True)
+    fsdp = TSH.tensor_specs(model, DataTwo, fsdp=True)
+    assert fsdp["segments.0.0.ln1.scale"] == (None,)
+    assert TSH.is_replicated(fsdp["segments.0.1.ln1.scale"], DataTwo)
+    # a MoE block's shared-expert stack (L, d, ff) reads as experts: at
+    # model 2 its 2-layer stack is sharded on the layer axis, a row whole
+    moe = LM(dataclasses.replace(_mini(), n_experts=4, top_k=2,
+                                 moe_d_ff=32, n_shared_experts=1), "meta")
+    model_two = type("ModelTwo", (), {"axis_names": ("data", "model"),
+                                      "shape": {"data": 1, "model": 2}})
+    assert TSH.param_specs(moe, model_two)[
+        "segments/0/moe/shared/w1"] == ("model", None, None)
+    assert TSH.tensor_specs(moe, model_two)[
+        "segments.0.0.moe.shared.w1"] == (None, None)
     # without fsdp, a (data, 1) mesh replicates every tensor
     assert all(TSH.is_replicated(s, DataTwo) for s in
                TSH.tensor_specs(model, DataTwo).values())
